@@ -1,0 +1,27 @@
+"""Device resolution for the port's entry points.
+
+The port runs on the GPU.  The CPU is used only when a caller asks for it
+explicitly (the CPU tests do); a missing GPU never silently turns into a
+CPU run.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` → ``cuda``; raise when the resolved device is CUDA and no
+    CUDA device is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+__all__ = ["resolve_device", "DeviceLike"]

@@ -1,0 +1,64 @@
+"""The PyTorch port imports neither ``jax`` nor anything of the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "amyloid_yolo_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "amyloid_yolo_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, PKG)):
+        files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
+    return files
+
+
+def _port_modules():
+    mods = []
+    for path in _port_files()[1:]:
+        mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        mods.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
+    return mods
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
+        "print(sorted(bad))\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_name_no_jax_module():
+    """Static scan: no import of, and no dotted module string naming, jax or
+    the JAX package (file paths such as ``amyloid_yolo_tpu/pallas/...`` in
+    documentation are not module references)."""
+    found = []
+    for path in _port_files():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+                names = [node.value] if " " not in node.value.strip() else []
+            found += [(os.path.relpath(path, REPO), n) for n in names if _forbidden(n.strip())]
+    assert not found, found
+    assert len(_port_files()) > 15
