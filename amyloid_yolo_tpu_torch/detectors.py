@@ -9,14 +9,18 @@
     → (B, capacity, 7) boxes + (B, capacity) validity
 
 Counterpart of the reference package's ``detectors.py:Detector``
-(``:86-303``, ``:507-561``) at its default ``precision="bf16"``, with BN
-folded.  The int8 precisions, ``detect_folder``, the merge/CAA post-passes,
-meshes and the TPU-only options are not ported yet (see ROADMAP.md).
+(``:86-458``, ``:507-561``): the precisions ``bf16`` (BN folded or not),
+``int8_early`` and ``int8_full`` (int8 executors in ``models.darknet``, no
+K2), calibration and its sidecars.  ``detect_folder``, the merge/CAA
+post-passes, meshes and the TPU-only options are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Optional, Tuple
+import json
+import warnings
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +30,7 @@ from .kernels.preprocess_kernel import resize_normalize
 from .models import darknet, heads
 from .ops import nms as nms_ops
 from .ops.boxes import rescale_boxes
-from .ops.preprocess import preprocess_tiles
+from .ops.preprocess import f32_from_bf16_input, preprocess_tiles
 from .utils.device import DeviceLike, resolve_device
 
 
@@ -44,14 +48,35 @@ class Detector:
         merging.  :meth:`account_overflow` counts images that had more.
       compute_dtype: ``torch.bfloat16`` (the main path, kernels K1 and K2)
         or ``torch.float32`` (CPU only: K2 takes bf16 on the card).
+      fold_bn: fold BN into the convs (default); ``False`` runs the
+        unfolded executor :func:`~.models.darknet.apply` (bf16 precision
+        only, no K2).
       host_resize: the caller already resized tiles to ``model_size`` on the
         host (checked); the preprocess then only scales, its index tables
         being the identity.
+      precision: ``"bf16"``; ``"int8_early"`` — the high-resolution backbone
+        prefix (input maps at downsample <= ``int8_downsample``) runs on int8
+        activations, with int8 convs unless ``int8_compute=False``; or
+        ``"int8_full"`` — int8 through the whole graph, the RGB stem and the
+        three head convs in ``compute_dtype``.  The int8 precisions use
+        static activation scales from :meth:`calibrate` (lazily on the first
+        batch) or :meth:`load_calibration`; ``int32_accum_max_hw`` and
+        ``calib_percentile`` as in the reference.
       lazy_decode: score → top-k → sparse decode (default) instead of the
         dense decode of every anchor row; same outputs.
       device: ``"cuda"`` when ``None``; raises when CUDA is absent unless
         ``device="cpu"`` is passed.
+
+    ``pallas_blocks``, ``s2d_stem`` and ``s2d_downsample`` are the
+    reference's TPU options; they raise here (ROADMAP.md).  The bf16 path
+    with BN folded runs every residual unit in K2 without being asked.
     """
+
+    #: at or below this an activation scale came from an all-zero layer
+    #: (the calibrators floor every scale at stat/127 + 1e-12)
+    DEGENERATE_SCALE = 2e-12
+    #: calibration sidecar format tag (:meth:`save_calibration`)
+    CALIBRATION_FORMAT = "amyolo-int8-calibration-v1"
 
     def __init__(
         self,
@@ -68,16 +93,25 @@ class Detector:
         fold_bn: bool = True,
         host_resize: bool = False,
         precision: str = "bf16",
+        int8_compute: bool = True,
+        int8_downsample: int = 4,
+        pallas_blocks: bool = False,
         lazy_decode: bool = True,
+        s2d_stem: bool = False,
+        s2d_downsample: bool = False,
+        int32_accum_max_hw: int = 0,
+        calib_percentile: float = 100.0,
         device: DeviceLike = None,
         seed: int = 0,
     ):
-        if precision != "bf16":
-            raise ValueError(f"precision {precision!r} is not ported yet: the int8 "
-                             "precisions wait for ROADMAP.md Queue 1 item 8")
-        if not fold_bn:
-            raise ValueError("fold_bn=False is not ported yet (the unfolded "
-                             "executor, ROADMAP.md Queue 1 item 3)")
+        if precision not in ("bf16", "int8_early", "int8_full"):
+            raise ValueError(f"unknown precision {precision!r}")
+        if precision.startswith("int8") and not fold_bn:
+            raise ValueError(f"{precision} requires fold_bn=True")
+        for name, value in (("pallas_blocks", pallas_blocks), ("s2d_stem", s2d_stem),
+                            ("s2d_downsample", s2d_downsample)):
+            if value:
+                raise ValueError(f"{name} is not ported yet (ROADMAP.md Queue 1)")
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"unsupported compute_dtype {compute_dtype}")
         self.device = resolve_device(device)
@@ -87,14 +121,37 @@ class Detector:
         self.spec = spec or yolov3_spec(num_classes=2)
         if params is None:
             params = darknet.init_params(torch.Generator().manual_seed(seed), self.spec)
-        folded = darknet.fold_batchnorm(params, self.spec)
-        self.params = {
-            k: {"w": v["w"].to(self.device, compute_dtype).contiguous(
-                    memory_format=torch.channels_last),
-                "b": v["b"].to(self.device, compute_dtype)}
-            for k, v in folded.items()}
-        self.packs = {i: tuple(t.to(self.device) for t in p) for i, p in
-                      darknet.pack_residual_blocks(folded, self.spec, compute_dtype).items()}
+        dev, cd = self.device, compute_dtype
+        self._int8_upto = (darknet.int8_region(self.spec, int8_downsample)
+                           if precision == "int8_early" else 0)
+        self.packs: Optional[darknet.Packs] = None
+        self._qparams: Optional[darknet.QParams] = None
+        self._folded_cpu: Optional[darknet.Folded] = None
+        if not fold_bn:
+            # conv weights in compute_dtype, BN statistics and biases in f32
+            self.params = {k: (v.to(dev, cd).contiguous(memory_format=torch.channels_last)
+                               if k.endswith(".weight") and v.dim() == 4 else v.to(dev))
+                           for k, v in params.items()}
+        else:
+            folded = darknet.fold_batchnorm(params, self.spec)
+            # the int8 executors add the f32 biases, the bf16 path its own dtype's
+            bias_dtype = cd if precision == "bf16" else torch.float32
+            self.params = {
+                k: {"w": v["w"].to(dev, cd).contiguous(memory_format=torch.channels_last),
+                    "b": v["b"].to(dev, bias_dtype)}
+                for k, v in folded.items()}
+            if precision == "bf16":
+                self.packs = {i: tuple(t.to(dev) for t in p) for i, p in
+                              darknet.pack_residual_blocks(folded, self.spec, cd).items()}
+            else:
+                self._folded_cpu = folded  # f32 weights of the calibration probe
+                qp = (darknet.quantize_folded_int8(folded, self.spec, self._int8_upto)
+                      if precision == "int8_early"
+                      else darknet.quantize_folded_int8_full(folded, self.spec))
+                self._qparams = {k: {n: t.to(dev) for n, t in v.items()}
+                                 for k, v in qp.items()}
+        self._act_scales: Optional[Dict[str, float]] = None
+        self._calib_meta: Dict = {}
         self.conf_thres = conf_thres
         self.nms_thres = nms_thres
         self.model_size = model_size
@@ -106,6 +163,9 @@ class Detector:
         self.lazy_decode = lazy_decode
         self.fold_bn = fold_bn
         self.precision = precision
+        self.int8_compute = int8_compute
+        self.int32_accum_max_hw = int32_accum_max_hw
+        self.calib_percentile = float(calib_percentile)
         self._last_ncand: Optional[torch.Tensor] = None
         self.overflow_images = 0
         self.images_seen = 0
@@ -120,11 +180,129 @@ class Detector:
             return resize_normalize(tiles_u8, self.model_size)  # K1
         return preprocess_tiles(tiles_u8, self.model_size)
 
+    def model_input(self, tiles_u8: torch.Tensor) -> torch.Tensor:
+        """The input the executors take: :meth:`preprocess`, and for the int8
+        precisions the exact f32 image (:func:`~.ops.preprocess.
+        f32_from_bf16_input` undoes K1's bf16 rounding)."""
+        x = self.preprocess(tiles_u8)
+        if self.precision != "bf16" and x.dtype == torch.bfloat16:
+            x = f32_from_bf16_input(x)
+        return x
+
     def head_maps(self, tiles_u8: torch.Tensor) -> List[torch.Tensor]:
         """The f32 NHWC head maps for a batch of uint8 tiles on the device."""
-        x = self.preprocess(tiles_u8)
-        return darknet.apply_folded(self.params, self.spec, x,
-                                    compute_dtype=self.compute_dtype, packs=self.packs)
+        if self.precision != "bf16" and self._act_scales is None:
+            raise ValueError(f"{self.precision} needs activation scales: "
+                             "calibrate() or load_calibration() first")
+        x = self.model_input(tiles_u8)
+        cd = self.compute_dtype
+        if self.precision == "int8_full":
+            return darknet.apply_folded_int8_full(
+                self.params, self._qparams, self._act_scales, self.spec, x,
+                compute_dtype=cd, int32_accum_max_hw=self.int32_accum_max_hw)
+        if self.precision == "int8_early":
+            return darknet.apply_folded_int8(
+                self.params, self._qparams, self._act_scales, self.spec, x,
+                upto=self._int8_upto, compute_dtype=cd, int8_compute=self.int8_compute)
+        if not self.fold_bn:
+            return darknet.apply(self.params, self.spec, x, compute_dtype=cd)
+        return darknet.apply_folded(self.params, self.spec, x, compute_dtype=cd,
+                                    packs=self.packs)
+
+    @torch.inference_mode()
+    def calibrate(self, tiles_u8, *, accumulate: bool = False,
+                  rebuild: bool = True) -> Dict[str, float]:
+        """Static int8 activation scales from a representative batch (no-op
+        for bf16): an f32 probe forward with TF32 off.
+
+        ``accumulate=True`` takes the elementwise max with the scales held,
+        so calibration can run over several batches (with ``calib_percentile
+        < 100`` that is the max of the per-batch percentiles).  ``rebuild``
+        is the reference's signature: PyTorch runs eagerly, nothing is
+        compiled.  Degenerate scales (a layer the batch never excited) warn.
+        """
+        if not self.precision.startswith("int8"):
+            return {}
+        x = self.model_input(torch.as_tensor(tiles_u8).to(self.device))
+        folded = {k: {"w": v["w"].to(self.device), "b": v["b"].to(self.device)}
+                  for k, v in self._folded_cpu.items()}
+        if self.precision == "int8_full":
+            scales = darknet.calibrate_act_scales_full(
+                folded, self.spec, x, percentile=self.calib_percentile)
+        else:
+            scales = darknet.calibrate_act_scales(
+                folded, self.spec, x, self._int8_upto, percentile=self.calib_percentile)
+        if accumulate and self._act_scales is not None:
+            scales = {k: max(v, self._act_scales.get(k, 0.0)) for k, v in scales.items()}
+        degenerate = sorted(k for k, v in scales.items() if v < self.DEGENERATE_SCALE)
+        if degenerate:
+            warnings.warn(
+                f"int8 calibration produced degenerate (≈0) activation scales for "
+                f"layer(s) {degenerate}: the calibration batch never excited them "
+                "(blank tile?).  Detections will be garbage — calibrate() with a "
+                "representative batch, or accumulate=True over several.",
+                UserWarning, stacklevel=2)
+        self._act_scales = scales
+        return scales
+
+    def save_calibration(self, path: str, *, meta: Optional[dict] = None) -> str:
+        """Write the activation scales as a JSON sidecar in the reference's
+        format, with the keys :meth:`load_calibration` checks."""
+        if not self.precision.startswith("int8"):
+            raise ValueError(f"precision {self.precision!r} has no activation "
+                             "scales to save")
+        if self._act_scales is None:
+            raise ValueError("no calibration to save — run calibrate() first")
+        payload = {
+            "format": self.CALIBRATION_FORMAT,
+            "precision": self.precision,
+            "int8_upto": self._int8_upto,
+            "calib_percentile": self.calib_percentile,
+            "model_size": self.model_size,
+            "tile_size": self.tile_size,
+            "host_resize": bool(self.host_resize),
+            "n_layers": len(self.spec.layers),
+            "scales": {k: float(v) for k, v in self._act_scales.items()},
+            "meta": dict(meta if meta is not None else self._calib_meta),
+        }
+        with open(path, "w") as fh:
+            json.dump(payload, fh, indent=1, sort_keys=True)
+        return path
+
+    def load_calibration(self, path: str, *, rebuild: bool = True) -> Dict[str, float]:
+        """Read a sidecar (this package's or the reference's).  Refuses
+        scales recorded under another quantized graph (precision, int8
+        region, layer count, percentile); warns on another input geometry
+        (model size, tile size, host resize)."""
+        with open(path) as fh:
+            d = json.load(fh)
+        if d.get("format") != self.CALIBRATION_FORMAT:
+            raise ValueError(f"{path}: not a calibration sidecar "
+                             f"(format={d.get('format')!r})")
+        for key, want in [("precision", self.precision),
+                          ("int8_upto", self._int8_upto),
+                          ("n_layers", len(self.spec.layers)),
+                          ("calib_percentile", self.calib_percentile)]:
+            if d.get(key) != want:
+                raise ValueError(
+                    f"{path}: calibration was recorded with {key}={d.get(key)!r}, "
+                    f"this detector has {want!r} — the scales do not correspond "
+                    "to this quantized graph")
+        for key, want in [("model_size", self.model_size),
+                          ("tile_size", self.tile_size),
+                          ("host_resize", bool(self.host_resize))]:
+            if d.get(key) != want:
+                warnings.warn(
+                    f"{path}: calibration was recorded with {key}={d.get(key)!r} but "
+                    f"this detector has {want!r}; scales remain valid but were "
+                    "measured on a different input geometry", UserWarning, stacklevel=2)
+        self._act_scales = {k: float(v) for k, v in d["scales"].items()}
+        self._calib_meta = {**d.get("meta", {}), "loaded_from": path}
+        return self._act_scales
+
+    def _calibrate_from_folder(self, folder_ds, batch_size: int) -> None:
+        raise NotImplementedError("folder calibration is not ported yet: it needs "
+                                  "detect_folder (ROADMAP.md Queue 1 item 7)")
 
     @torch.inference_mode()
     def __call__(self, tiles_u8) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,6 +313,8 @@ class Detector:
         ``self._last_ncand`` until :meth:`account_overflow` reads it.
         """
         tiles = torch.as_tensor(tiles_u8).to(self.device)
+        if self.precision != "bf16" and self._act_scales is None:
+            self.calibrate(tiles)  # lazily, on the first batch
         maps = self.head_maps(tiles)
         pool = self.nms_pool
         if self.lazy_decode:

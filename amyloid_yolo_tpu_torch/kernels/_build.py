@@ -9,6 +9,8 @@ an unchanged one loads the existing library.  :func:`build_all` starts one
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC``, and deliberately no ``--use_fast_math`` (K1 needs IEEE division).
+nvcc still contracts ``a*b+c`` into an FMA; K3's epilogue, which must not,
+spells out its roundings with ``__fmul_rn``/``__fadd_rn``.
 
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises if
 it is not 0.  Nothing here runs at import time.
@@ -29,7 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("resize_normalize", "conv_block")
+SOURCES = ("resize_normalize", "conv_block", "int8_block")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

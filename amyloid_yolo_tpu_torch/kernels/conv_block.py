@@ -89,15 +89,23 @@ def fused_residual_block_plain(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Ten
     return (xf + _leaky(acc + b2.to(f32))).to(x.dtype)
 
 
-def launch_config(h: int, w: int, c: int) -> Tuple[int, int]:
-    """``(strip, oc_tile)`` for a (H, W, C) unit: strips of at most 8 rows,
-    balanced over H and small enough for shared memory; output-channel
-    tiles of 128 above 128 channels."""
-    lib = _lib()
+def pick_strip(h: int, fits) -> int:
+    """Output rows per block: at most ``MAX_STRIP``, balanced over ``h``,
+    and the largest for which ``fits(strip)`` (shared memory) holds; 0 if
+    none does."""
     n_strips = -(-h // MAX_STRIP)
     strip = -(-h // n_strips)
-    while strip > 0 and lib.amyolo_conv_block_smem_bytes(w, c // 2, strip) > MAX_SMEM_BYTES:
+    while strip > 0 and not fits(strip):
         strip -= 1
+    return strip
+
+
+def launch_config(h: int, w: int, c: int) -> Tuple[int, int]:
+    """``(strip, oc_tile)`` for a (H, W, C) unit: strips from
+    :func:`pick_strip`; output-channel tiles of 128 above 128 channels."""
+    lib = _lib()
+    strip = pick_strip(h, lambda s: lib.amyolo_conv_block_smem_bytes(w, c // 2, s)
+                       <= MAX_SMEM_BYTES)
     if strip == 0:
         raise ValueError(f"fused_residual_block: W={w}, C={c} does not fit in shared memory")
     return strip, min(c, 128)
@@ -148,4 +156,4 @@ def fused_residual_block(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
 fused_residual_block.launches = 0
 
 __all__ = ["fused_residual_block", "fused_residual_block_plain",
-           "pack_block_weights", "launch_config", "LEAKY_SLOPE"]
+           "pack_block_weights", "launch_config", "pick_strip", "LEAKY_SLOPE"]

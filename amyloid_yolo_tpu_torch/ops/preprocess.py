@@ -43,4 +43,13 @@ def preprocess_tiles(tiles_u8: torch.Tensor, model_size: int = 416) -> torch.Ten
     return x.to(torch.float32) * RECIP_255
 
 
-__all__ = ["nearest_indices", "resize_nearest", "preprocess_tiles", "RECIP_255"]
+def f32_from_bf16_input(x: torch.Tensor) -> torch.Tensor:
+    """:func:`preprocess_tiles`'s float32 values from their bf16 rounding
+    (K1's output), exactly: the 256 values ``bf16(u8 · f32(1/255))`` are
+    distinct and each lies within 0.5/255 of ``u8/255``, so ``round(255·x)``
+    gives back the pixel.  The int8 paths quantize this f32 input."""
+    return torch.round(x.to(torch.float32) * 255.0) * RECIP_255
+
+
+__all__ = ["nearest_indices", "resize_nearest", "preprocess_tiles",
+           "f32_from_bf16_input", "RECIP_255"]

@@ -13,18 +13,32 @@ Phases (any failure exits non-zero; nothing is caught):
    bit-exact;
 4. K2 (``fused_residual_block``) against its plain version in bf16 at the
    five stage shapes of YOLOv3-416 (B=4), within one bf16 ulp;
-5. the main path: ``Detector(conf_thres=0.3)`` at the full width of
+5. K3 (``fused_residual_block_int8``) against its plain version at the five
+   stage shapes (B=4), random int8 inputs with the reference tool's weight
+   and scale ranges (``tools/bench_int8_block.py``): bit-exact;
+6. the main path: ``Detector(conf_thres=0.3)`` at the full width of
    ``yolov3_spec(num_classes=2)``, 416 on 1536² tiles, random weights from a
    numpy seed carried over with ``params_from_jax``, 3 batches of 8 tiles.
-   Launch counts must be 3 (K1) and 69 (K2); head maps through the kernels
-   must match the plain path on the card; outputs finite, (8, 64, 7) and
-   (8, 64);
-6. timings on the card: the Detector call at B=8 and B=32 (tiles already
-   on the card), a ``torch.profiler`` breakdown of its device time at B=8,
-   and each kernel's time beside its plain version, a PyTorch library
-   yardstick where one exists, and its bound (H100 SXM peaks: 989 TFLOP/s
-   bf16, 3.35 TB/s);
-7. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
+   Launch counts must be 3 (K1), 69 (K2) and 0 (K3); head maps through the
+   kernels must match the plain path on the card; outputs finite, (8, 64, 7)
+   and (8, 64);
+7. the int8 Detectors, ``precision="int8_full"`` and ``"int8_early"``, on
+   the same weights, calibrated on the first batch, then 3 batches of 8:
+   launch counts 3 (K1), 0 (K2), 0 (K3); outputs finite and shaped as
+   above; the ``int8_full`` head maps of one tile on the card against the
+   CPU with the same scales (through a calibration sidecar), within
+   ``HEAD_TOL``; and the unfolded bf16 ``Detector(fold_bn=False)`` on one
+   batch: launches 1/0/0, outputs finite and shaped;
+8. K3's path: the 23 residual units of the calibrated ``int8_full`` model
+   (``pack_model_int8_units``), chained stage by stage from a random int8
+   stage input at B=8: 23 launches; then each unit bit-exact against the
+   plain version at B=4;
+9. timings on the card: the three Detectors at B=8 and B=32 (tiles already
+   on the card), a ``torch.profiler`` breakdown of the bf16 and
+   ``int8_full`` device time at B=8, and each kernel's time beside its plain
+   version, a PyTorch library yardstick where one exists, and its bound
+   (H100 SXM peaks: 989 TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s);
+10. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
@@ -33,16 +47,20 @@ f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 STAGES = ((208, 64, 1), (104, 128, 2), (52, 256, 8), (26, 512, 8), (13, 1024, 4))
 K2_RTOL, K2_ATOL = 2.0 ** -7, 2.0 ** -6      # one bf16 ulp, relative
 HEAD_TOL = 5e-2                              # max |Δ| / max |plain| per head
 SEED = 0
+K3_SCALES = (0.011, 0.017, 0.023)            # sx, s1, s_out of the reference tool
 
 
 def nvidia_smi_line() -> str:
@@ -89,25 +107,34 @@ def profile_detector(det, tiles, calls: int = 3) -> dict:
         return {"device_busy_ms": "not measured"}
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     span_us = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    groups = {}
+    groups, names = {}, {}
     for e in events:
-        g = groups.setdefault(kernel_group(e.name), [0, 0.0])
-        g[0] += 1
-        g[1] += e.time_range.elapsed_us()
+        for table, key in ((groups, kernel_group(e.name)), (names, e.name[:90])):
+            g = table.setdefault(key, [0, 0.0])
+            g[0] += 1
+            g[1] += e.time_range.elapsed_us()
+
+    def per_call(table, n=None):
+        rows = sorted(table.items(), key=lambda kv: -kv[1][1])[:n]
+        return {k: {"launches": c / calls, "ms": us / calls / 1e3} for k, (c, us) in rows}
+
     return {"device_busy_ms": busy_us / calls / 1e3,
             "idle_share_traced": 1.0 - busy_us / span_us,
             "launches_per_call": len(events) / calls,
-            "by_group": {k: {"launches": n / calls, "ms": us / calls / 1e3}
-                         for k, (n, us) in sorted(groups.items(), key=lambda kv: -kv[1][1])}}
+            "by_group": per_call(groups), "top_kernels": per_call(names, 6)}
 
 
 def kernel_group(name: str) -> str:
+    if "fused_residual_block_int8" in name:
+        return "K3 fused_residual_block_int8"
     if "fused_residual_block" in name:
         return "K2 fused_residual_block"
     if "resize_normalize" in name:
         return "K1 resize_normalize"
-    if any(s in name for s in ("xmma", "cutlass", "cudnn", "implicit_gemm", "conv")):
+    if any(s in name for s in ("fprop", "implicit_gemm", "cudnn", "conv")):
         return "cuDNN convolutions"
+    if any(s in name.lower() for s in ("gemm", "imma", "xmma", "cutlass")):
+        return "GEMMs (int8 _int_mm; cuDNN 1x1 convs as GEMMs)"
     if "elementwise" in name:
         return "elementwise"
     if "reduce" in name:
@@ -147,6 +174,61 @@ def k2_bound(b: int, h: int, c: int):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def k3_bound(b: int, h: int, c: int):
+    ops = b * 20 * h * h * c * (c // 2)
+    nbytes = b * 2 * h * h * c + 10 * c * (c // 2)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k3_stage_inputs(b, h, c, dev, gen):
+    """Random int8 unit at (b, h, h, c) with the reference tool's ranges:
+    weights uniform in ±127, weight scales in [1e-3, 2e-2), biases in ±1."""
+    import torch
+    from amyloid_yolo_tpu_torch.kernels.int8_block import pack_int8_block
+    c2 = c // 2
+    sx, s1, _ = K3_SCALES
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=gen)
+
+    def ru(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, device=dev, generator=gen)
+
+    w1t, ws1, b1, w2t, ws2, b2 = pack_int8_block(
+        ri(c2, c, 1, 1), ru(1e-3, 2e-2, c2), ru(-1, 1, c2),
+        ri(c, c2, 3, 3), ru(1e-3, 2e-2, c), ru(-1, 1, c))
+    return ri(b, h, h, c), (w1t, ws1 * sx, b1, w2t, ws2 * s1, b2)
+
+
+def drive(det, batches, want_counts: dict) -> None:
+    """One Detector over the batches with the launch counters set to 0
+    just before: the counts must be ``want_counts``, the outputs finite
+    and shaped (B, 64, 7) and (B, 64)."""
+    import torch
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    outs = []
+    for tiles in batches:
+        dets, valid = det(tiles)
+        outs.append((dets, valid, det._last_ncand))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    name = det.precision if det.fold_bn else "unfolded bf16"
+    print(f"{name} Detector launches: {counts}", flush=True)
+    if counts != want_counts:
+        raise AssertionError(f"{name} launch counts {counts}, want {want_counts}")
+    for (dets, valid, ncand), tiles in zip(outs, batches):
+        b = len(tiles)
+        if tuple(dets.shape) != (b, 64, 7) or tuple(valid.shape) != (b, 64):
+            raise AssertionError(f"output shapes {tuple(dets.shape)} {tuple(valid.shape)}")
+        if not torch.isfinite(dets).all():
+            raise AssertionError("non-finite detections")
+        det.account_overflow(n_cand=ncand)
+        print(f"n_candidates {ncand.tolist()} valid {valid.sum(dim=1).tolist()}")
+    print(f"overflow images {det.overflow_images} of {det.images_seen}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -161,6 +243,8 @@ def main() -> int:
     from amyloid_yolo_tpu_torch.kernels import _build, launch_counts, reset_launch_counts
     from amyloid_yolo_tpu_torch.kernels.conv_block import (
         fused_residual_block, fused_residual_block_plain)
+    from amyloid_yolo_tpu_torch.kernels.int8_block import (
+        fused_residual_block_int8, fused_residual_block_int8_plain, pack_model_int8_units)
     from amyloid_yolo_tpu_torch.kernels.preprocess_kernel import (
         resize_normalize, resize_normalize_plain)
     from amyloid_yolo_tpu_torch.models import darknet
@@ -210,30 +294,31 @@ def main() -> int:
               f"(tolerance: rtol {K2_RTOL} atol {K2_ATOL}; max|plain| {r.float().abs().max().item()})")
         torch.testing.assert_close(y.float(), r.float(), rtol=K2_RTOL, atol=K2_ATOL)
 
-    # 5. the main path
+    # 5. K3 against its plain version at the five stage shapes: bit-exact
+    sx, s1, s_out = K3_SCALES
+    k3_err = 0
+    for h, c, _ in STAGES:
+        xq, pack = k3_stage_inputs(4, h, c, dev, gen)
+        y = fused_residual_block_int8(xq, *pack, sx=sx, s1=s1, s_out=s_out)
+        r = fused_residual_block_int8_plain(xq, *pack, sx=sx, s1=s1, s_out=s_out)
+        torch.cuda.synchronize()
+        err = (y.int() - r.int()).abs().max().item()
+        k3_err = max(k3_err, err)
+        print(f"K3 fused_residual_block_int8 B=4 {h}x{h}x{c}: max|diff| {err}, "
+              f"{(y != r).sum().item()} of {y.numel()} differ (tolerance: bit-exact); "
+              f"{(r.abs() == 127).float().mean().item():.4f} of the outputs saturate", flush=True)
+        if not torch.equal(y, r):
+            raise AssertionError(f"K3 is not bit-exact to its plain version at {h}x{h}x{c}")
+
+    # 6. the main path
     spec = yolov3_spec(num_classes=2)
     params = params_from_jax(random_jax_params(spec, SEED), spec)
     det = Detector(spec, params, conf_thres=0.3)
     rng = np.random.RandomState(SEED)
     batches = [rng.randint(0, 256, (8, 1536, 1536, 3)).astype(np.uint8) for _ in range(3)]
-    reset_launch_counts()
-    outs = []
-    for tiles in batches:
-        dets, valid = det(tiles)
-        outs.append((dets, valid, det._last_ncand))
-    torch.cuda.synchronize()
+    drive(det, batches, {"resize_normalize": 3, "fused_residual_block": 69,
+                         "fused_residual_block_int8": 0})
     counts = launch_counts()
-    print(f"main path launches: {counts}", flush=True)
-    if counts != {"resize_normalize": 3, "fused_residual_block": 69}:
-        raise AssertionError(f"main path launch counts {counts}, want 3 and 69")
-    for dets, valid, ncand in outs:
-        if tuple(dets.shape) != (8, 64, 7) or tuple(valid.shape) != (8, 64):
-            raise AssertionError(f"output shapes {tuple(dets.shape)} {tuple(valid.shape)}")
-        if not torch.isfinite(dets).all():
-            raise AssertionError("non-finite detections")
-        det.account_overflow(n_cand=ncand)
-        print(f"n_candidates {ncand.tolist()} valid {valid.sum(dim=1).tolist()}")
-    print(f"overflow images {det.overflow_images} of {det.images_seen}")
 
     with torch.inference_mode():
         tiles = torch.from_numpy(batches[0]).to(dev)
@@ -249,22 +334,97 @@ def main() -> int:
         if not (torch.isfinite(m).all() and rel <= HEAD_TOL):
             raise AssertionError("head maps through the kernels disagree with the plain path")
 
-    # 6. timings
+    # 7. the int8 Detectors
+    int8_dets = {}
+    for precision in ("int8_full", "int8_early"):
+        d8 = Detector(spec, params, conf_thres=0.3, precision=precision)
+        t0 = time.perf_counter()
+        d8.calibrate(batches[0])
+        torch.cuda.synchronize()
+        print(f"{precision} calibration on 8 tiles: {time.perf_counter() - t0:.2f} s")
+        drive(d8, batches, {"resize_normalize": 3, "fused_residual_block": 0,
+                            "fused_residual_block_int8": 0})
+        int8_dets[precision] = d8
+    drive(Detector(spec, params, conf_thres=0.3, fold_bn=False), batches[:1],
+          {"resize_normalize": 1, "fused_residual_block": 0, "fused_residual_block_int8": 0})
+    full = int8_dets["int8_full"]
+    with tempfile.TemporaryDirectory() as tmp:
+        sidecar = full.save_calibration(os.path.join(tmp, "int8_full.json"))
+        cpu = Detector(spec, params, conf_thres=0.3, precision="int8_full", device="cpu")
+        cpu.load_calibration(sidecar)
+    with torch.inference_mode():
+        one = torch.from_numpy(batches[1][:1])
+        card_maps = full.head_maps(one.to(dev))
+        cpu_maps = cpu.head_maps(one)
+    for m, p in zip(card_maps, cpu_maps):
+        rel = ((m.cpu() - p).abs().max() / p.abs().max()).item()
+        print(f"int8_full head {tuple(m.shape)}: max|card-cpu| / max|cpu| = {rel} "
+              f"(tolerance {HEAD_TOL}); max|cpu| {p.abs().max().item()}", flush=True)
+        if not (torch.isfinite(m).all() and rel <= HEAD_TOL):
+            raise AssertionError("int8_full head maps on the card disagree with the CPU")
+
+    # 8. K3's path: the calibrated model's 23 units, chained stage by stage
+    units = pack_model_int8_units(full._qparams, full._act_scales, spec, dev)
+    if len(units) != 23:
+        raise AssertionError(f"{len(units)} int8 units, want 23")
+
+    def stage_input(b, i):
+        h = 416 // (2 ** sum(1 for j in range(i) if getattr(spec.layers[j], "stride", 1) == 2))
+        c = spec.layers[i].in_ch
+        # leaky activations: mostly small, positive, with a negative tail
+        z = 24 * torch.randn(b, h, h, c, device=dev, generator=gen)
+        return torch.clamp(torch.round(torch.where(z >= 0, z, 0.1 * z)), -127, 127).to(torch.int8)
+
+    def chain(b, fn):
+        x, outs = None, []
+        for i, u in units.items():
+            if x is None or (i - 3) not in units:
+                x = stage_input(b, i)
+            y = fn(x, *u.pack, sx=u.sx, s1=u.s1, s_out=u.s_out)
+            outs.append((i, x, y))
+            x = y
+        return outs
+
+    reset_launch_counts()
+    chain(8, fused_residual_block_int8)
+    torch.cuda.synchronize()
+    k3_launches = launch_counts()["fused_residual_block_int8"]
+    print(f"K3 path (23 units of the int8_full model, B=8): {launch_counts()}")
+    if k3_launches != 23:
+        raise AssertionError(f"K3 path launched K3 {k3_launches} times, want 23")
+    n_diff = n_sat = n_all = 0
+    for i, x, y in chain(4, fused_residual_block_int8):
+        u = units[i]
+        r = fused_residual_block_int8_plain(x, *u.pack, sx=u.sx, s1=u.s1, s_out=u.s_out)
+        n_diff += (y != r).sum().item()
+        n_sat += (r.abs() == 127).sum().item()
+        n_all += r.numel()
+        k3_err = max(k3_err, (y.int() - r.int()).abs().max().item())
+    print(f"K3 on the model's 23 units (B=4): {n_diff} of {n_all} values differ from the "
+          f"plain version (tolerance: bit-exact); {n_sat / n_all:.4f} of the outputs "
+          "saturate", flush=True)
+    if n_diff:
+        raise AssertionError("K3 is not bit-exact on the model's units")
+
+    # 9. timings
     detector = {}
     with torch.inference_mode():
-        for b in (8, 32):
-            tiles = torch.randint(0, 256, (b, 1536, 1536, 3), dtype=torch.uint8, device=dev,
-                                  generator=gen)
-            ms = cuda_ms(lambda: det(tiles), iters=5, warmup=2, hold=False)
-            detector[f"b{b}"] = {"ms_per_batch": ms, "tiles_per_s": b / ms * 1e3}
-            print(f"Detector B={b} (tiles on the card): {ms:.3f} ms/batch, "
-                  f"{b / ms * 1e3:.1f} tiles/s [{card}]", flush=True)
+        for name, d in (("bf16", det), *int8_dets.items()):
+            for b in (8, 32):
+                tiles = torch.randint(0, 256, (b, 1536, 1536, 3), dtype=torch.uint8,
+                                      device=dev, generator=gen)
+                ms = cuda_ms(lambda: d(tiles), iters=5, warmup=2, hold=False)
+                detector[f"{name}_b{b}"] = {"ms_per_batch": ms, "tiles_per_s": b / ms * 1e3}
+                print(f"Detector {name} B={b} (tiles on the card): {ms:.3f} ms/batch, "
+                      f"{b / ms * 1e3:.1f} tiles/s [{card}]", flush=True)
+            del tiles
 
         tiles8 = torch.randint(0, 256, (8, 1536, 1536, 3), dtype=torch.uint8, device=dev,
                                generator=gen)
-        detector["b8"].update(profile_detector(det, tiles8))
-        print(f"Detector B=8 device time by kernel: {json.dumps(detector['b8'])} [{card}]",
-              flush=True)
+        for name, d in (("bf16", det), ("int8_full", full)):
+            detector[f"{name}_b8"].update(profile_detector(d, tiles8))
+            print(f"Detector {name} B=8 device time by kernel: "
+                  f"{json.dumps(detector[f'{name}_b8'])} [{card}]", flush=True)
         k1_ms = cuda_ms(lambda: resize_normalize(tiles8, 416))
         k1_plain_ms = cuda_ms(lambda: resize_normalize_plain(tiles8, 416))
         k1_bound = 8 * (416 * 1536 * 3 + 416 * 416 * 3 * 2) / PEAK_BYTES * 1e3
@@ -291,11 +451,41 @@ def main() -> int:
             print(f"K2 B=8 {h}x{h}x{c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"cuDNN 1x1+3x3 {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{card}]",
                   flush=True)
+            del x, xc, hc
 
-    def total(key):
-        return sum(s[key] * s["units"] for s in stages)
+        stages3 = []
+        for h, c, n in STAGES:
+            xq, pack = k3_stage_inputs(8, h, c, dev, gen)
+            ms = cuda_ms(lambda: fused_residual_block_int8(xq, *pack, sx=sx, s1=s1, s_out=s_out))
+            plain_ms = cuda_ms(lambda: fused_residual_block_int8_plain(
+                xq, *pack, sx=sx, s1=s1, s_out=s_out))
+            # yardstick: the two GEMMs alone, epilogues left out — the 1x1 on
+            # the map, the 3x3 as one GEMM on a prebuilt im2col matrix
+            a1x1 = xq.reshape(-1, c)
+            w1 = pack[0].t()
+            hq = torch.randint(-127, 128, (8, h + 2, h + 2, c // 2), dtype=torch.int8,
+                               device=dev, generator=gen)
+            cols = torch.cat([hq[:, di:di + h, dj:dj + h].reshape(-1, c // 2)
+                              for di in range(3) for dj in range(3)], dim=1)
+            w2 = pack[3].permute(1, 0, 2).reshape(c, 9 * (c // 2)).t()
+            lib_ms = (cuda_ms(lambda: torch._int_mm(a1x1, w1))
+                      + cuda_ms(lambda: torch._int_mm(cols, w2)))
+            bound, by = k3_bound(8, h, c)
+            stages3.append({"shape": f"8x{h}x{h}x{c}", "units": n, "ms": ms,
+                            "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": bound, "bound_by": by})
+            print(f"K3 B=8 {h}x{h}x{c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"_int_mm 1x1 + im2col 3x3 (GEMMs only) {lib_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by}) [{card}]", flush=True)
+            del xq, pack, hq, cols
 
-    ops_share = sum(s["bound_ms"] * s["units"] for s in stages if s["bound_by"] == "operations")
+    def total(rows, key):
+        return sum(s[key] * s["units"] for s in rows)
+
+    def bound_by(rows):
+        ops = sum(s["bound_ms"] * s["units"] for s in rows if s["bound_by"] == "operations")
+        return "operations" if ops >= total(rows, "bound_ms") / 2 else "bytes"
+
     kernels = [
         {"name": "resize_normalize", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/resize_normalize.cu",
@@ -310,11 +500,19 @@ def main() -> int:
          "replaces": "amyloid_yolo_tpu/pallas/conv_block.py:107",
          "launches": counts["fused_residual_block"], "max_abs_err": k2_err,
          "max_abs_diff": k2_err, "tol": f"rtol {K2_RTOL} atol {K2_ATOL}",
-         "ms": total("ms"), "kernel_ms": total("ms"), "plain_ms": total("plain_ms"),
-         "bound_ms": total("bound_ms"),
-         "bound_by": "operations" if ops_share >= total("bound_ms") / 2 else "bytes",
-         "library_ms": total("library_ms"),
+         "ms": total(stages, "ms"), "kernel_ms": total(stages, "ms"),
+         "plain_ms": total(stages, "plain_ms"), "bound_ms": total(stages, "bound_ms"),
+         "bound_by": bound_by(stages), "library_ms": total(stages, "library_ms"),
          "shape": "the 23 units of one B=8 batch", "stages": stages},
+        {"name": "fused_residual_block_int8", "route": "cuda",
+         "source": "amyloid_yolo_tpu_torch/csrc/int8_block.cu",
+         "replaces": "amyloid_yolo_tpu/pallas/int8_block.py:150",
+         "launches": k3_launches, "max_abs_err": k3_err,
+         "max_abs_diff": k3_err, "tol": "bit-exact",
+         "ms": total(stages3, "ms"), "kernel_ms": total(stages3, "ms"),
+         "plain_ms": total(stages3, "plain_ms"), "bound_ms": total(stages3, "bound_ms"),
+         "bound_by": bound_by(stages3), "library_ms": total(stages3, "library_ms"),
+         "shape": "the 23 units of one B=8 batch", "stages": stages3},
     ]
     print(json.dumps({"detector": detector, "card": card}))
     print(json.dumps({"kernels": kernels}))

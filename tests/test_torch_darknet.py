@@ -94,6 +94,27 @@ def test_yolov3_small_input_f32():
         np.testing.assert_allclose(g.numpy(), w, rtol=F32_TOL, atol=F32_TOL * np.abs(w).max())
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
+def test_unfolded_apply_matches_jax_apply(dtype, tol):
+    """Eval-mode ``apply`` over unfolded params (BN from running statistics)
+    against JAX ``apply(train=False)``.  f32: within 1e-4 of the largest
+    value; bf16: both round at the same points (measured identical on this
+    model; held to ``BF16_TOL`` like the folded path)."""
+    port_spec, ref_spec = port_mini_spec(), mini_spec()
+    params = jax_params_np(ref_spec, 6, bn_noise=True)
+    x = _image(2, 64, 3)
+    want, stats = jax_darknet.apply(params, ref_spec, jnp.asarray(x),
+                                    compute_dtype=getattr(jnp, dtype))
+    assert stats is None
+    got = port_darknet.apply(params_from_jax(params, port_spec), port_spec,
+                             torch.from_numpy(x), compute_dtype=getattr(torch, dtype))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        assert np.abs(g.numpy() - w).max() <= tol * np.abs(w).max()
+
+
 def test_maxpool_matches_reference():
     """MaxPool layers (tiny-YOLO cfgs): the zero-padded k2/s1 form and the
     symmetric -inf form."""

@@ -84,7 +84,8 @@ def test_bf16_pipeline_matches_jax_composition():
     np.testing.assert_allclose(dets.numpy()[v][:, :4], want_d[v][:, :4], atol=1.0)
     np.testing.assert_allclose(dets.numpy()[v][:, 4:6], want_d[v][:, 4:6], atol=1e-2)
     np.testing.assert_array_equal(dets.numpy()[v][:, 6], want_d[v][:, 6])
-    assert launch_counts() == {"resize_normalize": 0, "fused_residual_block": 0}
+    assert launch_counts() == {"resize_normalize": 0, "fused_residual_block": 0,
+                               "fused_residual_block_int8": 0}
 
 
 def test_overflow_accounting(golden_params):
@@ -113,13 +114,38 @@ def test_entry_points_need_cuda_or_explicit_cpu():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"precision": "int8_full"}, "ROADMAP"),
-    ({"fold_bn": False}, "ROADMAP"),
+    ({"s2d_stem": True}, "ROADMAP"),
+    ({"pallas_blocks": True}, "ROADMAP"),
     ({"compute_dtype": torch.float16}, "compute_dtype"),
+    ({"s2d_downsample": True}, "ROADMAP"),
+    ({"precision": "int8_full", "fold_bn": False}, "requires fold_bn"),
+    ({"precision": "fp8"}, "unknown precision"),
 ])
 def test_rejects_unported_options(kwargs, match):
     with pytest.raises(ValueError, match=match):
         Detector(port_mini_spec(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unfolded_matches_jax_detector(golden_params, dtype):
+    """``fold_bn=False`` runs the unfolded executor (no K2), against the JAX
+    ``Detector(fold_bn=False)``: same valid mask, classes and candidate
+    counts; boxes within 1e-2 px in f32 and 1 px in bf16 (the JAX pipeline
+    is compiled, so XLA fuses the bf16 BN epilogue differently)."""
+    atol = {"float32": 1e-2, "bfloat16": 1.0}[dtype]
+    params = jax_params_np(mini_spec(), 9, bn_noise=True)
+    ref = JaxDetector(mini_spec(), params, fold_bn=False, compute_dtype=getattr(jnp, dtype),
+                      **CFG)
+    want_d, want_v = (np.asarray(a) for a in ref(_tiles()))
+    det = Detector(port_mini_spec(), params_from_jax(params, port_mini_spec()),
+                   fold_bn=False, compute_dtype=getattr(torch, dtype), device="cpu", **CFG)
+    assert det.packs is None
+    dets, valid = det(_tiles())
+    v = valid.numpy()
+    np.testing.assert_array_equal(v, want_v)
+    np.testing.assert_array_equal(det._last_ncand.numpy(), np.asarray(ref._last_ncand))
+    np.testing.assert_allclose(dets.numpy()[v][:, :4], want_d[v][:, :4], atol=atol)
+    np.testing.assert_array_equal(dets.numpy()[v][:, 6], want_d[v][:, 6])
 
 
 def test_host_resize_checks_tile_size():
