@@ -7,36 +7,50 @@
 // pallas/conv_block.py:fused_residual_block (the pl.pallas_call at :107,
 // body _block_kernel at :50).  The TPU kernel holds a whole image in VMEM;
 // a Hopper block has at most 227 KB of shared memory, so here each block
-// owns (image, strip of output rows, tile of output channels):
+// owns one tile: (image, strip of output rows, range of output columns,
+// range of output channels), chosen by kernels/conv_block.py:plan_launch.
 //
-//   1. the 1x1 conv for the strip plus a one-row halo above and below goes
-//      into shared memory as bf16 (after the f32 bias and leaky), with a
-//      zero column on each side.  Hidden rows outside the image are written
-//      as zero: the hidden map is masked, not x, because 1x1(0) =
-//      leaky(b1) != 0;
-//   2. the 3x3 conv reads the nine taps from shared memory, then the f32
-//      epilogue adds b2, applies leaky, adds the residual x in f32 and
-//      rounds to bf16.
+//   1. The 1x1 for the tile's pixels plus a one-pixel halo goes into shared
+//      memory as bf16, after the f32 bias and leaky.  Only halo pixels inside
+//      the image are computed and stored; one extra zero pixel stands for
+//      every hidden pixel outside the image (the hidden map is zero there,
+//      not 1x1(0) = leaky(b1)), so the 3x3 taps that fall outside read it.
+//   2. The 3x3 reads its A operand straight from that hidden tile (nine
+//      shifted row addresses per pixel), then the f32 epilogue adds b2,
+//      applies leaky, adds the residual x in f32 and rounds to bf16.
 //
 // Both convs are implicit GEMMs on the tensor cores through
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate); each warp owns a 64-pixel by
-// 32-channel tile and loads the fragments of the next k-step before it
-// issues the MMAs of the current one.  Pixel rows outside the map load as
-// zero and are not stored, so W need not be a multiple of 16.  Hidden
-// pixels are stored with 8 bf16 of padding, which makes the fragment loads
-// free of bank conflicts.
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate).  Eight warps each own a
+// 64-pixel tile 32 or 64 channels wide (8*NT) of a block tile BM x BN.  K
+// advances in slices through a ring of shared-memory stages fed by
+// cp.async.cg (16-byte copies by all 256 threads, commit_group /
+// wait_group, one __syncthreads per slice): each weight slice is copied
+// once per block and read by every warp, and in the 1x1 the x pixels go
+// through the same ring (zero-filled past the tile's last pixel).  The 1x1
+// ring holds 3 stages of A + B in 32-channel slices (4 with 64-channel
+// warps); the 3x3 reuses its
+// bytes for 3 to 8 stages of B alone, in 64-channel slices (32 when C/2 is
+// 32).  Ring rows carry 8 bf16 of padding and hidden pixels C/2 + 8 bf16, so
+// the ldmatrix.x4 loads of both operands are free of bank conflicts.  m16
+// tiles past the tile's pixels and warps whose channels lie past the 1x1's
+// C/2 issue no MMA.  Where shared memory leaves room for two blocks an SM,
+// the kernel is built for two (128 registers a thread); otherwise for one,
+// which double-buffers its fragments across 16-deep steps or takes the
+// 64-channel warp tile (fewer ldmatrix per MMA).
 //
-// Output-channel tiling recomputes the 1x1: with oc_tile = 128 a 1024-ch
-// unit computes its 1x1 eight times (1.7x the unit's FLOPs), a 512-ch unit
-// four times (1.3x); units of <= 128 channels compute it once.  The
-// wrapper picks strip and oc_tile.
-//
-// Bound on an H100: compute for the deeper units (20*H*W*C*C/2 = 1.77 GFLOP
-// per image at every stage of YOLOv3-416, ~1.8 us at 989 TFLOP/s); the
-// 208^2 x 64 unit is memory-bound (4*H*W*C bytes per image, ~3.3 us).  This
-// version stages no weights in shared memory and uses neither cp.async/TMA
-// nor wgmma: every warp streams its own weight fragments from L2, which
-// keeps it far below the tensor-core peak (PERF.md has its times).
+// Bound on an H100: compute for the units of 128 channels and more
+// (20*H*W*C*C/2 FLOPs per image, 1.77 GFLOP at every stage of YOLOv3-416:
+// ~1.8 us at 989 TFLOP/s); the 208^2 x 64 unit is memory-bound (4*H*W*C
+// bytes per image, ~3.3 us).  mma.sync reaches only part of the tensor
+// cores' rate on Hopper; the full rate needs wgmma, with B in a 128-byte-
+// swizzled ring fed by TMA and A from registers (these ldmatrix fragments).
+// On this version the MMAs are not the limit: a build without them takes
+// most of the time of a launch (the warps' instruction stream of ldmatrix,
+// addressing, barriers and copies; PERF.md).  wgmma moves the fragment
+// loads off that stream.  That, and a thread-block cluster that shares
+// the 1x1 of the 512- and 1024-channel units through distributed shared
+// memory instead of each output-channel tile recomputing it, is the next
+// step (ROADMAP.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -45,20 +59,81 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPad = 8;         // bf16 of padding per hidden pixel
-constexpr float kSlope = 0.1f;  // LeakyReLU slope
+constexpr int kWarpM = 64;               // a warp's tile: 64 pixels x 8*NT channels
+constexpr int kMT = kWarpM / 16;
+constexpr int kSlice1 = 32;              // k per 1x1 ring stage
+constexpr int kRow1 = kSlice1 + 8;       // its ring row (80 bytes)
+constexpr int kPad = 8;                  // bf16 of padding per hidden pixel
+constexpr int kMaxSmem = 232448;         // shared memory of one block
+constexpr int kSmPerSm = 233472;         // of one SM
+constexpr int kSmemReserved = 1024;      // reserved per resident block
+constexpr float kSlope = 0.1f;           // LeakyReLU slope
+
+// Block tile BM x BN of warps 8*NT channels wide, and a ring of S1 1x1
+// stages (A + B)
+template <int BN, int S1, int NT>
+struct Tile {
+  static constexpr int kWN = BN / (8 * NT);
+  static constexpr int kWM = kWarps / kWN;
+  static constexpr int kBM = kWM * kWarpM;
+  static constexpr int kRing = S1 * (kBM + BN) * kRow1;  // bf16
+  static_assert(kWN * kWM == kWarps, "tile");
+};
+
+// 3x3 ring: slices of KS channels in rows of KS + 8, as many stages as the
+// ring holds (at most 8)
+template <int BN, int S1, int KS, int NT>
+struct Ring2 {
+  static constexpr int kRow = KS + 8;
+  static constexpr int n = Tile<BN, S1, NT>::kRing / (BN * kRow);
+  static constexpr int kStages = n < 8 ? n : 8;
+  static_assert(kStages >= 3, "ring");
+};
+
+// 1x1 ring stages: 3, or 4 for 64-channel warps (whose 3x3 needs the bytes)
+constexpr int ring_stages(int warp_n) { return warp_n == 64 ? 4 : 3; }
+
+int ring_bytes(int bn, int warp_n) {
+  const int bm = kWarps * kWarpM * warp_n / bn;
+  return 2 * ring_stages(warp_n) * (bm + bn) * kRow1;
+}
+
+struct Args {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w1t;
+  const float* b1;
+  const __nv_bfloat16* w2t;
+  const float* b2;
+  __nv_bfloat16* y;
+  int H, W, C, C2, strip, col_tile, oc_tile, n_strips, n_cols, n_oc;
+};
 
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : v * kSlope; }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// d += a * b for one m16n8k16 tile (PTX ISA fragment layouts:
-// a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]},
-// b = {B[2t..][g], B[2t+8..][g]}, d = {D[g][2t..], D[g+8][2t..]}).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// 16 bytes global -> shared, asynchronous; src-size 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a * b for one m16n8k16 tile (PTX ISA fragment layouts).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -66,207 +141,434 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A warp's tile: kMT m16 tiles (16*kMT pixels) by 4 n8 tiles (32 channels).
-constexpr int kMT = 4;
-constexpr int kTileM = 16 * kMT;
+template <int NT>
+using Acc = float[kMT][NT][4];
 
-struct Frags {
-  uint32_t a[kMT][4];
-  uint32_t b[4][2];
-};
-
-__device__ __forceinline__ void mma_tile(float (&acc)[kMT][4][4], const Frags& f) {
+template <int NT>
+__device__ __forceinline__ void zero(Acc<NT>& acc) {
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
+  for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
-    for (int mi = 0; mi < kMT; ++mi) mma_bf16(acc[mi][ni], f.a[mi], f.b[ni][0], f.b[ni][1]);
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 }
 
-// x, y: (B, H, W, C) bf16.  w1t: (C2, C) bf16 (out-channel major, input
-// channel contiguous).  w2t: (9, C, C2) bf16, tap = 3*di + dj.  b1: (C2,)
-// f32.  b2: (C,) f32.  grid = (ceil(H/strip) * C/oc_tile, B).  C2 % 32 == 0.
-// Each k-loop loads the fragments of step s+1 before it issues the MMAs of
-// step s, so the weight loads from L2 overlap the tensor-core work.
-__global__ void __launch_bounds__(kThreads)
-fused_residual_block_kernel(const __nv_bfloat16* __restrict__ x,
-                            const __nv_bfloat16* __restrict__ w1t,
-                            const float* __restrict__ b1,
-                            const __nv_bfloat16* __restrict__ w2t,
-                            const float* __restrict__ b2,
-                            __nv_bfloat16* __restrict__ y,
-                            int H, int W, int C, int C2, int strip, int oc_tile) {
+// The A and B fragments of 16-deep step kk of a slice (see mma_slice).
+template <int KS, int B_ROW, int NT>
+__device__ __forceinline__ void load_frags(uint32_t (&af)[kMT][4], uint32_t (&bf)[NT][2],
+                                           const uint32_t (&a)[kMT], int mt, uint32_t b,
+                                           int kk) {
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+    uint32_t r[4];
+    ldmatrix_x4(r, b + (j * 16 * B_ROW + kk * 16) * 2);
+    bf[2 * j][0] = r[0];
+    bf[2 * j][1] = r[1];
+    bf[2 * j + 1][0] = r[2];
+    bf[2 * j + 1][1] = r[3];
+  }
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+    if (mi < mt) ldmatrix_x4(af[mi], a[mi] + kk * 32);
+}
+
+template <int NT>
+__device__ __forceinline__ void mma_frags(Acc<NT>& acc, const uint32_t (&af)[kMT][4],
+                                          const uint32_t (&bf)[NT][2], int mt) {
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+    if (mi < mt) {
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+    }
+}
+
+// acc += A (the warp's 64 rows) x B (its 8*NT columns) over one KS-deep
+// slice.  a[mi]: shared address of this lane's ldmatrix row of m16 tile mi
+// (row lane % 16, k offset 8 * (lane / 16)); b: of this lane's row of the
+// first 16 columns (column 8 * (lane / 16) + lane % 8, k offset
+// 8 * (lane / 8 % 2)) in rows of B_ROW bf16.  Only m16 tiles < mt run.  With
+// DB the fragments of the next 16-deep step load while the MMAs of this one
+// issue (24 more registers).
+template <int KS, int B_ROW, bool DB, int NT>
+__device__ __forceinline__ void mma_slice(Acc<NT>& acc, const uint32_t (&a)[kMT], int mt,
+                                          uint32_t b) {
+  if constexpr (DB) {
+    uint32_t af[2][kMT][4], bf[2][NT][2];
+    load_frags<KS, B_ROW, NT>(af[0], bf[0], a, mt, b, 0);
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      if (kk + 1 < KS / 16)
+        load_frags<KS, B_ROW, NT>(af[(kk + 1) & 1], bf[(kk + 1) & 1], a, mt, b, kk + 1);
+      mma_frags<NT>(acc, af[kk & 1], bf[kk & 1], mt);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      uint32_t af[kMT][4], bf[NT][2];
+      load_frags<KS, B_ROW, NT>(af, bf, a, mt, b, kk);
+      mma_frags<NT>(acc, af, bf, mt);
+    }
+  }
+}
+
+// Position in a GEMM walked as (m chunk, n chunk, tap, k slice), k fastest.
+struct Cursor {
+  int k = 0, tap = 0, nc = 0, mc = 0;
+  __device__ __forceinline__ void next(int kpt, int taps, int ncn) {
+    if (++k < kpt) return;
+    k = 0;
+    if (++tap < taps) return;
+    tap = 0;
+    if (++nc < ncn) return;
+    nc = 0;
+    ++mc;
+  }
+};
+
+// A cp.async ring of S stages over `steps` k-slices: load(slot) issues the
+// next slice's copies into a slot, compute(slot) consumes the next slice.
+// One barrier per slice: after it, slice s has landed for every thread and
+// every warp is done with slice s - 1, whose slot the load of slice
+// s + S - 1 reuses.
+template <int S, class Load, class Compute>
+__device__ __forceinline__ void pipeline(int steps, Load&& load, Compute&& compute) {
+#pragma unroll 1
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+  int ls = S - 1, cs = 0;  // slots of the next load and the next compute
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (s + S - 1 < steps) load(ls);
+    cp_async_commit();
+    compute(cs);
+    ls = ls + 1 == S ? 0 : ls + 1;
+    cs = cs + 1 == S ? 0 : cs + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+__device__ __forceinline__ int m16_tiles(int m, int base) {
+  return max(0, min(kMT, (m - base + 15) / 16));
+}
+
+template <int BN, int KS2, int MINB, int S1, int NT>
+__global__ void __launch_bounds__(kThreads, MINB) fused_residual_block_kernel(const Args p) {
+  constexpr int kWarpN = 8 * NT;
+  constexpr bool DB = MINB == 1 && NT == 4;  // registers to spare: double-buffer fragments
+  using T = Tile<BN, S1, NT>;
+  constexpr int BM = T::kBM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* hid = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int cs = p.C2 + kPad;  // hidden pixel stride
+  __nv_bfloat16* ring =
+      hid + (min(p.strip + 2, p.H) * min(p.col_tile + 2, p.W) + 1) * cs;
 
-  const int n_oc = C / oc_tile;
-  const int r0 = (blockIdx.x / n_oc) * strip;
-  const int oc0 = (blockIdx.x % n_oc) * oc_tile;
-  const long long b = blockIdx.y;
-  const int rows = min(strip, H - r0);  // output rows of this block
-  const int hrows = rows + 2;           // hidden rows, halo included
-  const int Wp = W + 2;                 // hidden columns, zero pad included
-  const int cs = C2 + kPad;             // hidden pixel stride (elements)
+  int t = blockIdx.x;
+  const int oc0 = (t % p.n_oc) * p.oc_tile;
+  t /= p.n_oc;
+  const int c0 = (t % p.n_cols) * p.col_tile;
+  t /= p.n_cols;
+  const int r0 = (t % p.n_strips) * p.strip;
+  const long long img = t / p.n_strips;
+  const int rows = min(p.strip, p.H - r0), cols = min(p.col_tile, p.W - c0);
+  // hidden tile: image pixels [hr0, hr0 + nhr) x [hc0, hc0 + nhc), row-major;
+  // pixel m1 is the zero pixel
+  const int hr0 = max(r0 - 1, 0), hc0 = max(c0 - 1, 0);
+  const int nhr = min(r0 + rows, p.H - 1) - hr0 + 1;
+  const int nhc = min(c0 + cols, p.W - 1) - hc0 + 1;
+  const int m1 = nhr * nhc, m2 = rows * cols;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* xb = x + b * H * W * C;
+  const int wm = warp / T::kWN, wn = warp % T::kWN;
+  const int g = lane >> 2, tq = lane & 3;
+  const __nv_bfloat16* xb = p.x + img * p.H * p.W * p.C;
+  // this lane's ldmatrix row of the B tile, without the row stride
+  const int b_n = wn * kWarpN + (lane >> 4) * 8 + (lane & 7), b_k = ((lane >> 3) & 1) * 8;
 
-  // zero padding columns 0 and W+1 of every hidden row
-  for (int idx = threadIdx.x; idx < hrows * 2 * (C2 / 2); idx += kThreads) {
-    const int pair = idx % (C2 / 2);
-    const int rc = idx / (C2 / 2);
-    const int col = (rc & 1) ? (W + 1) : 0;
-    reinterpret_cast<uint32_t*>(hid + ((rc >> 1) * Wp + col) * cs)[pair] = 0u;
-  }
+  for (int i = threadIdx.x; i < cs / 8; i += kThreads)
+    reinterpret_cast<uint4*>(hid + m1 * cs)[i] = make_uint4(0u, 0u, 0u, 0u);
 
-  // ---- phase 1: hidden = leaky(x @ w1 + b1) for image rows r0-1 .. r0+rows
-  const int npix1 = hrows * W;
-  const int nt1 = C2 / 32;
-  for (int task = warp; task < ((npix1 + kTileM - 1) / kTileM) * nt1; task += kWarps) {
-    const int pm = (task / nt1) * kTileM, pn = (task % nt1) * 32;
-    const __nv_bfloat16* arow[kMT][2];
-    bool aval[kMT][2];
+  Acc<NT> acc;
+
+  // ---- phase 1: hidden = leaky(x @ w1 + b1) over the hidden tile
+  {
+    constexpr int kSlot = (BM + BN) * kRow1;
+    constexpr int kA = BM * 4 / kThreads, kB = BN * 4 / kThreads;  // copies a thread
+    const int kpt = p.C / kSlice1;
+    const int ncn = (p.C2 + BN - 1) / BN;
+    const int steps = (m1 + BM - 1) / BM * ncn * kpt;
+    Cursor lc, cc;
+    int a_mc = -1;
+    const __nv_bfloat16* asrc[kA];
+    bool aok[kA];
+    auto load = [&](int slot) {
+      if (lc.mc != a_mc) {  // the x pixels of a new m chunk
+        a_mc = lc.mc;
 #pragma unroll
-    for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int p = pm + mi * 16 + hh * 8 + g;
-        const int ir = r0 - 1 + p / W;
-        aval[mi][hh] = p < npix1 && ir >= 0 && ir < H;
-        arow[mi][hh] = (aval[mi][hh] ? xb + ((long long)ir * W + p % W) * C : xb) + 2 * t;
-      }
-    const __nv_bfloat16* wrow[4];
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) wrow[ni] = w1t + (long long)(pn + ni * 8 + g) * C + 2 * t;
-    auto load = [&](int k0, Frags& f) {
-#pragma unroll
-      for (int mi = 0; mi < kMT; ++mi) {
-        f.a[mi][0] = aval[mi][0] ? ld32(arow[mi][0] + k0) : 0u;
-        f.a[mi][1] = aval[mi][1] ? ld32(arow[mi][1] + k0) : 0u;
-        f.a[mi][2] = aval[mi][0] ? ld32(arow[mi][0] + k0 + 8) : 0u;
-        f.a[mi][3] = aval[mi][1] ? ld32(arow[mi][1] + k0 + 8) : 0u;
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        f.b[ni][0] = ld32(wrow[ni] + k0);
-        f.b[ni][1] = ld32(wrow[ni] + k0 + 8);
-      }
-    };
-    float acc[kMT][4][4] = {};
-    Frags f0, f1;
-    load(0, f0);
-    for (int k0 = 0; k0 < C; k0 += 32) {  // C % 32 == 0: steps come in pairs
-      load(k0 + 16, f1);
-      mma_tile(acc, f0);
-      if (k0 + 32 < C) load(k0 + 32, f0);
-      mma_tile(acc, f1);
-    }
-#pragma unroll
-    for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int p = pm + mi * 16 + hh * 8 + g;
-        if (p >= npix1) continue;
-        const int hr = p / W, col = p % W;
-        const int ir = r0 - 1 + hr;
-        const bool inside = ir >= 0 && ir < H;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int n = pn + ni * 8 + 2 * t;
-          const float v0 = leaky(acc[mi][ni][hh * 2 + 0] + b1[n]);
-          const float v1 = leaky(acc[mi][ni][hh * 2 + 1] + b1[n + 1]);
-          const __nv_bfloat162 hv = inside ? __floats2bfloat162_rn(v0, v1)
-                                           : __floats2bfloat162_rn(0.f, 0.f);
-          *reinterpret_cast<__nv_bfloat162*>(hid + (hr * Wp + col + 1) * cs + n) = hv;
+        for (int j = 0; j < kA; ++j) {
+          const int i = threadIdx.x + j * kThreads;
+          const int pix = a_mc * BM + (i >> 2);
+          aok[j] = pix < m1;
+          const int hr = aok[j] ? pix / nhc : 0, hc = aok[j] ? pix - hr * nhc : 0;
+          asrc[j] = xb + ((long long)(hr0 + hr) * p.W + hc0 + hc) * p.C + (i & 3) * 8;
         }
       }
-  }
-  __syncthreads();
-
-  // ---- phase 2: y = x + leaky(conv3x3(hidden) + b2) for this block's rows
-  const int npix2 = rows * W;
-  const int nt2 = oc_tile / 32;
-  const int kpt = C2 / 16;    // k-steps per tap
-  const int steps = 9 * kpt;  // even, since C2 % 32 == 0
-  for (int task = warp; task < ((npix2 + kTileM - 1) / kTileM) * nt2; task += kWarps) {
-    const int pm = (task / nt2) * kTileM, pn = oc0 + (task % nt2) * 32;
-    int hbase[kMT][2];  // hidden offset of tap (0, 0) for each loaded pixel row
+      const int k0 = lc.k * kSlice1;
+      __nv_bfloat16* sa = ring + slot * kSlot;
 #pragma unroll
-    for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        int p = pm + mi * 16 + hh * 8 + g;
-        if (p >= npix2) p = 0;  // computed, never stored
-        hbase[mi][hh] = ((p / W) * Wp + p % W) * cs + 2 * t;
+      for (int j = 0; j < kA; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        cp_async16(smem_u32(sa + (i >> 2) * kRow1 + (i & 3) * 8), asrc[j] + k0, aok[j]);
       }
-    auto load = [&](int s, Frags& f) {
-      const int tap = s / kpt;
-      const int k0 = (s - tap * kpt) * 16;
-      const int toff = ((tap / 3) * Wp + tap % 3) * cs + k0;
+      __nv_bfloat16* sb = sa + BM * kRow1;
 #pragma unroll
-      for (int mi = 0; mi < kMT; ++mi) {
-        const __nv_bfloat16* h0 = hid + hbase[mi][0] + toff;
-        const __nv_bfloat16* h1 = hid + hbase[mi][1] + toff;
-        f.a[mi][0] = ld32(h0);
-        f.a[mi][1] = ld32(h1);
-        f.a[mi][2] = ld32(h0 + 8);
-        f.a[mi][3] = ld32(h1 + 8);
+      for (int j = 0; j < kB; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        const int n = lc.nc * BN + (i >> 2);
+        const bool ok = n < p.C2;
+        cp_async16(smem_u32(sb + (i >> 2) * kRow1 + (i & 3) * 8),
+                   p.w1t + (long long)(ok ? n : 0) * p.C + k0 + (i & 3) * 8, ok);
       }
-      const __nv_bfloat16* wtap = w2t + (long long)tap * C * C2 + k0 + 2 * t;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* wr = wtap + (long long)(pn + ni * 8 + g) * C2;
-        f.b[ni][0] = ld32(wr);
-        f.b[ni][1] = ld32(wr + 8);
-      }
+      lc.next(kpt, 1, ncn);
     };
-    float acc[kMT][4][4] = {};
-    Frags f0, f1;
-    load(0, f0);
-    for (int s = 0; s < steps; s += 2) {
-      load(s + 1, f1);
-      mma_tile(acc, f0);
-      if (s + 2 < steps) load(s + 2, f0);
-      mma_tile(acc, f1);
-    }
+    auto compute = [&](int slot) {
+      const int mbase = cc.mc * BM + wm * kWarpM, nbase = cc.nc * BN + wn * kWarpN;
+      const int mt = nbase < p.C2 ? m16_tiles(m1, mbase) : 0;
+      if (cc.k == 0) zero(acc);
+      if (mt > 0) {
+        const __nv_bfloat16* sa = ring + slot * kSlot;
+        uint32_t a[kMT];
 #pragma unroll
-    for (int mi = 0; mi < kMT; ++mi)
+        for (int mi = 0; mi < kMT; ++mi)
+          a[mi] = smem_u32(sa + (wm * kWarpM + mi * 16 + (lane & 15)) * kRow1 + (lane >> 4) * 8);
+        mma_slice<kSlice1, kRow1, DB, NT>(acc, a, mt, smem_u32(sa + (BM + b_n) * kRow1 + b_k));
+        if (cc.k == kpt - 1) {
+          float2 bias[NT];
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int p = pm + mi * 16 + hh * 8 + g;
-        if (p >= npix2) continue;
-        const long long off = ((b * H + r0 + p / W) * W + p % W) * C;
+          for (int ni = 0; ni < NT; ++ni)
+            bias[ni] = *reinterpret_cast<const float2*>(p.b1 + nbase + ni * 8 + 2 * tq);
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int n = pn + ni * 8 + 2 * t;
-          const float v0 = leaky(acc[mi][ni][hh * 2 + 0] + b2[n]);
-          const float v1 = leaky(acc[mi][ni][hh * 2 + 1] + b2[n + 1]);
-          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + off + n);
-          *reinterpret_cast<__nv_bfloat162*>(y + off + n) = __floats2bfloat162_rn(
-              __bfloat162float(xv.x) + v0, __bfloat162float(xv.y) + v1);
+          for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int pix = mbase + mi * 16 + hh * 8 + g;
+              if (pix >= m1) continue;
+#pragma unroll
+              for (int ni = 0; ni < NT; ++ni) {
+                const int n = nbase + ni * 8 + 2 * tq;
+                const float v0 = leaky(acc[mi][ni][hh * 2 + 0] + bias[ni].x);
+                const float v1 = leaky(acc[mi][ni][hh * 2 + 1] + bias[ni].y);
+                *reinterpret_cast<__nv_bfloat162*>(hid + pix * cs + n) =
+                    __floats2bfloat162_rn(v0, v1);
+              }
+            }
         }
       }
+      cc.next(kpt, 1, ncn);
+    };
+    pipeline<S1>(steps, load, compute);
   }
+
+  // ---- phase 2: y = x + leaky(conv3x3(hidden) + b2) over the tile
+  {
+    using R = Ring2<BN, S1, KS2, NT>;
+    constexpr int kRow = R::kRow, kSlot = BN * kRow, kB = BN * (KS2 / 8) / kThreads;
+    const int kpt = p.C2 / KS2;  // k-slices per tap
+    const int ncn = p.oc_tile / BN;
+    const int steps = (m2 + BM - 1) / BM * ncn * 9 * kpt;
+    Cursor lc, cc;
+    auto load = [&](int slot) {
+      const __nv_bfloat16* src =
+          p.w2t + ((long long)lc.tap * p.C + oc0 + lc.nc * BN) * p.C2 + lc.k * KS2;
+      __nv_bfloat16* sb = ring + slot * kSlot;
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        const int row = i / (KS2 / 8), q = i % (KS2 / 8);
+        cp_async16(smem_u32(sb + row * kRow + q * 8), src + (long long)row * p.C2 + q * 8, true);
+      }
+      lc.next(kpt, 9, ncn);
+    };
+    int prow[kMT], pcol[kMT];  // image pixel of this lane's A row, per m16 tile
+    uint32_t a[kMT];
+    auto compute = [&](int slot) {
+      const int mbase = cc.mc * BM + wm * kWarpM, nbase = oc0 + cc.nc * BN + wn * kWarpN;
+      const int mt = m16_tiles(m2, mbase);
+      if (cc.k == 0 && cc.tap == 0) {
+        zero(acc);
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) {
+          const int q = mbase + mi * 16 + (lane & 15);
+          const int r = q / cols;
+          prow[mi] = q < m2 ? r0 + r : -8;  // -8: every tap reads the zero pixel
+          pcol[mi] = c0 + q - r * cols;
+        }
+      }
+      if (mt > 0) {
+        if (cc.k == 0) {
+          const int di = cc.tap / 3 - 1, dj = cc.tap % 3 - 1;
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi) {
+            const int hr = prow[mi] + di, hc = pcol[mi] + dj;
+            const bool in = hr >= 0 && hr < p.H && hc >= 0 && hc < p.W;
+            const int idx = in ? (hr - hr0) * nhc + hc - hc0 : m1;
+            a[mi] = smem_u32(hid + idx * cs + (lane >> 4) * 8);
+          }
+        }
+        uint32_t ak[kMT];
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) ak[mi] = a[mi] + cc.k * KS2 * 2;
+        mma_slice<KS2, kRow, DB, NT>(acc, ak, mt, smem_u32(ring + slot * kSlot + b_n * kRow + b_k));
+        if (cc.k == kpt - 1 && cc.tap == 8) {
+          // per m16 tile, every load of the residual first, then the stores
+          // (y may alias x as far as the compiler knows)
+          float2 bias[NT];
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni)
+            bias[ni] = *reinterpret_cast<const float2*>(p.b2 + nbase + ni * 8 + 2 * tq);
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi) {
+            if (mi >= mt) continue;
+            long long off[2];
+            __nv_bfloat162 xv[2][NT];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int q = mbase + mi * 16 + hh * 8 + g;
+              const int r = q / cols;
+              off[hh] = q < m2 ? ((img * p.H + r0 + r) * p.W + c0 + q - r * cols) * (long long)p.C
+                                   + nbase + 2 * tq
+                               : -1;
+#pragma unroll
+              for (int ni = 0; ni < NT; ++ni)
+                if (off[hh] >= 0)
+                  xv[hh][ni] = *reinterpret_cast<const __nv_bfloat162*>(p.x + off[hh] + ni * 8);
+            }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              if (off[hh] < 0) continue;
+#pragma unroll
+              for (int ni = 0; ni < NT; ++ni) {
+                const float v0 = leaky(acc[mi][ni][hh * 2 + 0] + bias[ni].x);
+                const float v1 = leaky(acc[mi][ni][hh * 2 + 1] + bias[ni].y);
+                *reinterpret_cast<__nv_bfloat162*>(p.y + off[hh] + ni * 8) =
+                    __floats2bfloat162_rn(__bfloat162float(xv[hh][ni].x) + v0,
+                                          __bfloat162float(xv[hh][ni].y) + v1);
+              }
+            }
+          }
+        }
+      }
+      cc.next(kpt, 9, ncn);
+    };
+    pipeline<R::kStages>(steps, load, compute);
+  }
+}
+
+template <int BN, int KS2, int MINB, int S1, int NT>
+cudaError_t prepare() {  // raise the shared-memory limit, once per process
+  static const cudaError_t err = [] {
+    auto* kernel = fused_residual_block_kernel<BN, KS2, MINB, S1, NT>;
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  return err;
+}
+
+// Launch (blocks > 0) or report the resident blocks per SM (blocks == 0,
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, or minus the CUDA error).
+template <int BN, int KS2, int MINB, int S1, int NT>
+int run(const Args& a, int blocks, int smem, cudaStream_t stream) {
+  auto* kernel = fused_residual_block_kernel<BN, KS2, MINB, S1, NT>;
+  cudaError_t err = prepare<BN, KS2, MINB, S1, NT>();
+  if (err != cudaSuccess) return blocks ? (int)err : -(int)err;
+  if (blocks == 0) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+    return err == cudaSuccess ? n : -(int)err;
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// 32-channel warps: two blocks an SM (128 registers) where shared memory
+// leaves room for them, else one that double-buffers its fragments.
+template <int BN, int KS2>
+int run32(const Args& a, int blocks, int smem, cudaStream_t stream) {
+  constexpr int S1 = ring_stages(32);
+  return kSmPerSm / (smem + kSmemReserved) >= 2 ? run<BN, KS2, 2, S1, 4>(a, blocks, smem, stream)
+                                                : run<BN, KS2, 1, S1, 4>(a, blocks, smem, stream);
+}
+
+// The kernel for (warp_n, bn, C/2, smem).  64-channel warps (C/2 a multiple
+// of 64, bn 128 or 256) run one block an SM; 32-channel warps take bn 64 or
+// 128.
+int dispatch(const Args& a, int warp_n, int bn, int blocks, int smem, cudaStream_t stream) {
+  constexpr int S64 = ring_stages(64);
+  const bool k64 = a.C2 % 64 == 0;
+  if (warp_n == 64 && k64) {
+    if (bn == 128) return run<128, 64, 1, S64, 8>(a, blocks, smem, stream);
+    if (bn == 256) return run<256, 64, 1, S64, 8>(a, blocks, smem, stream);
+  }
+  if (warp_n == 32) {
+    if (bn == 64)
+      return k64 ? run32<64, 64>(a, blocks, smem, stream) : run32<64, 32>(a, blocks, smem, stream);
+    if (bn == 128)
+      return k64 ? run32<128, 64>(a, blocks, smem, stream)
+                 : run32<128, 32>(a, blocks, smem, stream);
+  }
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int amyolo_conv_block_smem_bytes(int W, int C2, int strip) {
-  return (strip + 2) * (W + 2) * (C2 + kPad) * 2;
+// Shared memory of one block: the tile's hidden pixels (halo included,
+// image pixels only) plus the zero pixel, then the ring.  The same formula
+// as kernels/conv_block.py:smem_bytes.
+extern "C" int amyolo_conv_block_smem_bytes(int H, int W, int C2, int strip, int col_tile,
+                                            int warp_n, int bn) {
+  const int hidden = (strip + 2 < H ? strip + 2 : H) * (col_tile + 2 < W ? col_tile + 2 : W) + 1;
+  return 2 * hidden * (C2 + kPad) + ring_bytes(bn, warp_n);
 }
 
-extern "C" int amyolo_fused_residual_block(const void* x, const void* w1t,
-                                           const void* b1, const void* w2t,
-                                           const void* b2, void* y, int B, int H,
-                                           int W, int C, int C2, int strip,
-                                           int oc_tile, void* stream) {
-  const int smem = amyolo_conv_block_smem_bytes(W, C2, strip);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_residual_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(((H + strip - 1) / strip) * (C / oc_tile)), (unsigned)B);
-  fused_residual_block_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w1t, (const float*)b1,
-      (const __nv_bfloat16*)w2t, (const float*)b2, (__nv_bfloat16*)y, H, W, C,
-      C2, strip, oc_tile);
-  return (int)cudaGetLastError();
+// Resident blocks per SM of the kernel for (warp_n, bn, C/2) at `smem`
+// bytes (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA
+// error.
+extern "C" int amyolo_conv_block_blocks_per_sm(int warp_n, int bn, int C2, int smem) {
+  Args a{};
+  a.C2 = C2;
+  return dispatch(a, warp_n, bn, 0, smem, nullptr);
+}
+
+// x, y: (B, H, W, C) bf16.  w1t: (C2, C) bf16 (out-channel major, input
+// channel contiguous).  w2t: (9, C, C2) bf16, tap = 3*di + dj.  b1: (C2,)
+// f32.  b2: (C,) f32.  C % 64 == 0, C2 = C / 2; every pointer 16-byte
+// aligned.  One block per tile of strip rows x col_tile columns x oc_tile
+// channels; warp_n (32 or 64) channels a warp, bn the block tile width;
+// smem must equal amyolo_conv_block_smem_bytes.
+extern "C" int amyolo_fused_residual_block(const void* x, const void* w1t, const void* b1,
+                                           const void* w2t, const void* b2, void* y, int B,
+                                           int H, int W, int C, int C2, int strip,
+                                           int col_tile, int oc_tile, int warp_n, int bn,
+                                           int smem, void* stream) {
+  if (B <= 0 || C % 64 || C2 * 2 != C || oc_tile <= 0 || C % oc_tile || oc_tile % bn ||
+      strip <= 0 || col_tile <= 0 || smem > kMaxSmem ||
+      smem != amyolo_conv_block_smem_bytes(H, W, C2, strip, col_tile, warp_n, bn))
+    return (int)cudaErrorInvalidValue;
+  Args a{(const __nv_bfloat16*)x, (const __nv_bfloat16*)w1t, (const float*)b1,
+         (const __nv_bfloat16*)w2t, (const float*)b2, (__nv_bfloat16*)y,
+         H, W, C, C2, strip, col_tile, oc_tile,
+         (H + strip - 1) / strip, (W + col_tile - 1) / col_tile, C / oc_tile};
+  const int blocks = B * a.n_strips * a.n_cols * a.n_oc;
+  const int err = dispatch(a, warp_n, bn, blocks, smem, (cudaStream_t)stream);
+  return err < 0 ? -err : err;
 }

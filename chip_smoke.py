@@ -12,7 +12,11 @@ Phases (any failure exits non-zero; nothing is caught):
 3. K1 (``resize_normalize``) against its plain version at B=4, 1536² → 416²:
    bit-exact;
 4. K2 (``fused_residual_block``) against its plain version in bf16 at the
-   five stage shapes of YOLOv3-416 (B=4), within one bf16 ulp;
+   five stage shapes of YOLOv3-416 and a ragged unit (20², 128 channels),
+   at B=1, 4, 8 and 32 (the tiling depends on B: 8 and 32 are the batches
+   phases 6 and 9 run), within one bf16 ulp; each launch plan's shared memory
+   from Python (``smem_bytes``) must equal the C side's, and its blocks per
+   SM the ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` count;
 5. K3 (``fused_residual_block_int8``) against its plain version at the five
    stage shapes (B=4), random int8 inputs with the reference tool's weight
    and scale ranges (``tools/bench_int8_block.py``): bit-exact;
@@ -37,7 +41,9 @@ Phases (any failure exits non-zero; nothing is caught):
    on the card), a ``torch.profiler`` breakdown of the bf16 and
    ``int8_full`` device time at B=8, and each kernel's time beside its plain
    version, a PyTorch library yardstick where one exists, and its bound
-   (H100 SXM peaks: 989 TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s);
+   (H100 SXM peaks: 989 TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s); K2 per
+   stage at B=8 and B=32 with its launch plan (grid, blocks per SM, waves,
+   executed-work ratio) and achieved TFLOP/s;
 10. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -57,6 +63,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 STAGES = ((208, 64, 1), (104, 128, 2), (52, 256, 8), (26, 512, 8), (13, 1024, 4))
+DETECTOR_BATCHES = (8, 32)                   # phases 6 (the first) and 9
+K2_CHECK_BATCHES = (1, 4) + DETECTOR_BATCHES  # K2's plan depends on B
+K2_RAGGED = (20, 128)                        # H = W = 20: no tile size divides it
 K2_RTOL, K2_ATOL = 2.0 ** -7, 2.0 ** -6      # one bf16 ulp, relative
 HEAD_TOL = 5e-2                              # max |Δ| / max |plain| per head
 SEED = 0
@@ -174,6 +183,30 @@ def k2_bound(b: int, h: int, c: int):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def k2_stage_inputs(b, h, c, dev, gen):
+    """Random bf16 unit at (b, h, h, c): x ~ N(0, 1), weights of variance
+    1/fan-in, f32 biases 0.1·N(0, 1); (x, w1t, b1, w2t, b2) in the kernel's
+    layouts."""
+    import torch
+    c2 = c // 2
+    x = torch.randn(b, h, h, c, device=dev, generator=gen).to(torch.bfloat16)
+    w1t = (torch.randn(c2, c, device=dev, generator=gen) / c ** 0.5).to(torch.bfloat16)
+    w2t = (torch.randn(9, c, c2, device=dev, generator=gen) / (9 * c2) ** 0.5).to(torch.bfloat16)
+    b1 = 0.1 * torch.randn(c2, device=dev, generator=gen)
+    b2 = 0.1 * torch.randn(c, device=dev, generator=gen)
+    return x, w1t, b1, w2t, b2
+
+
+def detector_ms(det, b, dev, gen) -> float:
+    """ms per call of ``det`` on b random uint8 1536² tiles already on the
+    card: 5 calls after 2, host cost included."""
+    import torch
+    tiles = torch.randint(0, 256, (b, 1536, 1536, 3), dtype=torch.uint8, device=dev,
+                          generator=gen)
+    with torch.inference_mode():
+        return cuda_ms(lambda: det(tiles), iters=5, warmup=2, hold=False)
+
+
 def k3_bound(b: int, h: int, c: int):
     ops = b * 20 * h * h * c * (c // 2)
     nbytes = b * 2 * h * h * c + 10 * c * (c // 2)
@@ -242,7 +275,8 @@ def main() -> int:
     from amyloid_yolo_tpu_torch.io.weights import params_from_jax
     from amyloid_yolo_tpu_torch.kernels import _build, launch_counts, reset_launch_counts
     from amyloid_yolo_tpu_torch.kernels.conv_block import (
-        fused_residual_block, fused_residual_block_plain)
+        blocks_per_sm, c_blocks_per_sm, c_smem_bytes, fused_residual_block,
+        fused_residual_block_plain, plan_launch, plan_stats, smem_bytes, unit_flops)
     from amyloid_yolo_tpu_torch.kernels.int8_block import (
         fused_residual_block_int8, fused_residual_block_int8_plain, pack_model_int8_units)
     from amyloid_yolo_tpu_torch.kernels.preprocess_kernel import (
@@ -257,6 +291,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # 2. build
     t0 = time.perf_counter()
@@ -274,25 +309,34 @@ def main() -> int:
         raise AssertionError("K1 is not bit-exact to its plain version")
 
     # 4. K2 against its plain version at the five stage shapes
-    def stage_inputs(b, h, c):
-        c2 = c // 2
-        x = torch.randn(b, h, h, c, device=dev, generator=gen).to(torch.bfloat16)
-        w1t = (torch.randn(c2, c, device=dev, generator=gen) / c ** 0.5).to(torch.bfloat16)
-        w2t = (torch.randn(9, c, c2, device=dev, generator=gen) / (9 * c2) ** 0.5).to(torch.bfloat16)
-        b1 = 0.1 * torch.randn(c2, device=dev, generator=gen)
-        b2 = 0.1 * torch.randn(c, device=dev, generator=gen)
-        return x, w1t, b1, w2t, b2
+    def k2_plan(b, h, c):
+        """The launch plan, its statistics, and the C side's blocks per SM;
+        Python's and C's shared memory and blocks per SM must agree."""
+        plan = plan_launch(b, h, h, c, sms)
+        stats = plan_stats(b, h, h, c, plan, sms)
+        c_smem = c_smem_bytes(h, h, c, plan)
+        c_bps = c_blocks_per_sm(c, plan, stats.smem)
+        if c_smem != stats.smem or c_bps != blocks_per_sm(stats.smem, plan):
+            raise AssertionError(f"K2 plan {plan} at B={b} {h}x{h}x{c}: shared memory "
+                                 f"{stats.smem} (Python) vs {c_smem} (C), blocks per SM "
+                                 f"{blocks_per_sm(stats.smem, plan)} vs {c_bps}")
+        return plan, stats, c_bps
 
     k2_err = 0.0
-    for h, c, _ in STAGES:
-        args = stage_inputs(4, h, c)
-        y, r = fused_residual_block(*args), fused_residual_block_plain(*args)
-        torch.cuda.synchronize()
-        err = (y.float() - r.float()).abs().max().item()
-        k2_err = max(k2_err, err)
-        print(f"K2 fused_residual_block B=4 {h}x{h}x{c}: max|diff| {err} "
-              f"(tolerance: rtol {K2_RTOL} atol {K2_ATOL}; max|plain| {r.float().abs().max().item()})")
-        torch.testing.assert_close(y.float(), r.float(), rtol=K2_RTOL, atol=K2_ATOL)
+    for b in K2_CHECK_BATCHES:
+        for h, c in [s[:2] for s in STAGES] + [K2_RAGGED]:
+            plan, stats, _ = k2_plan(b, h, c)
+            args = k2_stage_inputs(b, h, c, dev, gen)
+            y, r = fused_residual_block(*args), fused_residual_block_plain(*args)
+            torch.cuda.synchronize()
+            err = (y.float() - r.float()).abs().max().item()
+            k2_err = max(k2_err, err)
+            print(f"K2 fused_residual_block B={b} {h}x{h}x{c}: max|diff| {err} "
+                  f"(tolerance: rtol {K2_RTOL} atol {K2_ATOL}; max|plain| "
+                  f"{r.float().abs().max().item()}); plan {tuple(plan)}, shared memory "
+                  f"{stats.smem} B (Python = C)")
+            torch.testing.assert_close(y.float(), r.float(), rtol=K2_RTOL, atol=K2_ATOL)
+            del args, y, r
 
     # 5. K3 against its plain version at the five stage shapes: bit-exact
     sx, s1, s_out = K3_SCALES
@@ -315,7 +359,8 @@ def main() -> int:
     params = params_from_jax(random_jax_params(spec, SEED), spec)
     det = Detector(spec, params, conf_thres=0.3)
     rng = np.random.RandomState(SEED)
-    batches = [rng.randint(0, 256, (8, 1536, 1536, 3)).astype(np.uint8) for _ in range(3)]
+    batches = [rng.randint(0, 256, (DETECTOR_BATCHES[0], 1536, 1536, 3)).astype(np.uint8)
+               for _ in range(3)]
     drive(det, batches, {"resize_normalize": 3, "fused_residual_block": 69,
                          "fused_residual_block_int8": 0})
     counts = launch_counts()
@@ -410,14 +455,11 @@ def main() -> int:
     detector = {}
     with torch.inference_mode():
         for name, d in (("bf16", det), *int8_dets.items()):
-            for b in (8, 32):
-                tiles = torch.randint(0, 256, (b, 1536, 1536, 3), dtype=torch.uint8,
-                                      device=dev, generator=gen)
-                ms = cuda_ms(lambda: d(tiles), iters=5, warmup=2, hold=False)
+            for b in DETECTOR_BATCHES:
+                ms = detector_ms(d, b, dev, gen)
                 detector[f"{name}_b{b}"] = {"ms_per_batch": ms, "tiles_per_s": b / ms * 1e3}
                 print(f"Detector {name} B={b} (tiles on the card): {ms:.3f} ms/batch, "
                       f"{b / ms * 1e3:.1f} tiles/s [{card}]", flush=True)
-            del tiles
 
         tiles8 = torch.randint(0, 256, (8, 1536, 1536, 3), dtype=torch.uint8, device=dev,
                                generator=gen)
@@ -431,27 +473,41 @@ def main() -> int:
         print(f"K1 B=8: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
               f"bound {k1_bound:.4f} ms (bytes) [{card}]")
 
-        stages = []
-        for h, c, n in STAGES:
-            x, w1t, b1, w2t, b2 = stage_inputs(8, h, c)
-            ms = cuda_ms(lambda: fused_residual_block(x, w1t, b1, w2t, b2))
-            plain_ms = cuda_ms(lambda: fused_residual_block_plain(x, w1t, b1, w2t, b2))
-            xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-            w1c = w1t[:, :, None, None].contiguous(memory_format=torch.channels_last)
-            w2c = w2t.reshape(3, 3, c, c // 2).permute(2, 3, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-            hc = torch.randn(8, c // 2, h, h, device=dev, generator=gen).to(
-                torch.bfloat16).contiguous(memory_format=torch.channels_last)
-            lib_ms = (cuda_ms(lambda: F.conv2d(xc, w1c))
-                      + cuda_ms(lambda: F.conv2d(hc, w2c, padding=1)))
-            bound, by = k2_bound(8, h, c)
-            stages.append({"shape": f"8x{h}x{h}x{c}", "units": n, "ms": ms,
-                           "plain_ms": plain_ms, "library_ms": lib_ms,
-                           "bound_ms": bound, "bound_by": by})
-            print(f"K2 B=8 {h}x{h}x{c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"cuDNN 1x1+3x3 {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{card}]",
-                  flush=True)
-            del x, xc, hc
+        k2_rows = {}
+        for b in DETECTOR_BATCHES:
+            k2_rows[b] = []
+            for h, c, n in STAGES:
+                plan, stats, c_bps = k2_plan(b, h, c)
+                x, w1t, b1, w2t, b2 = k2_stage_inputs(b, h, c, dev, gen)
+                ms = cuda_ms(lambda: fused_residual_block(x, w1t, b1, w2t, b2))
+                plain_ms = (cuda_ms(lambda: fused_residual_block_plain(x, w1t, b1, w2t, b2))
+                            if b == 8 else None)
+                xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+                w1c = w1t[:, :, None, None].contiguous(memory_format=torch.channels_last)
+                w2c = w2t.reshape(3, 3, c, c // 2).permute(2, 3, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                hc = torch.randn(b, c // 2, h, h, device=dev, generator=gen).to(
+                    torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                lib_ms = (cuda_ms(lambda: F.conv2d(xc, w1c))
+                          + cuda_ms(lambda: F.conv2d(hc, w2c, padding=1)))
+                bound, by = k2_bound(b, h, c)
+                tflops = b * unit_flops(h, h, c) / ms / 1e9
+                k2_rows[b].append({
+                    "shape": f"{b}x{h}x{h}x{c}", "units": n, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                    "plan": list(plan), "grid": stats.grid, "blocks_per_sm": c_bps,
+                    "waves": stats.grid / (sms * c_bps), "work_ratio": stats.work_ratio,
+                    "tflops": tflops})
+                plain = f"{plain_ms:.4f} ms" if plain_ms is not None else "not measured"
+                print(f"K2 B={b} {h}x{h}x{c}: grid {stats.grid}, {c_bps} blocks/SM, "
+                      f"{stats.grid / (sms * c_bps):.2f} waves, executed-work ratio "
+                      f"{stats.work_ratio:.3f}, {tflops:.1f} TFLOP/s; kernel {ms:.4f} ms, "
+                      f"plain {plain}, cuDNN 1x1+3x3 {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({by}) [{card}]", flush=True)
+                del x, xc, hc
+        stages = k2_rows[8]
+        print(f"K2 23 units: B=8 {sum(s['ms'] * s['units'] for s in stages):.4f} ms, "
+              f"B=32 {sum(s['ms'] * s['units'] for s in k2_rows[32]):.4f} ms [{card}]")
 
         stages3 = []
         for h, c, n in STAGES:
@@ -503,7 +559,8 @@ def main() -> int:
          "ms": total(stages, "ms"), "kernel_ms": total(stages, "ms"),
          "plain_ms": total(stages, "plain_ms"), "bound_ms": total(stages, "bound_ms"),
          "bound_by": bound_by(stages), "library_ms": total(stages, "library_ms"),
-         "shape": "the 23 units of one B=8 batch", "stages": stages},
+         "shape": "the 23 units of one B=8 batch", "stages": stages,
+         "stages_b32": k2_rows[32]},
         {"name": "fused_residual_block_int8", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/int8_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/int8_block.py:150",

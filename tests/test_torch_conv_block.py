@@ -42,7 +42,7 @@ def test_plain_matches_pallas_f32(rng, shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 8, 16, 8), (2, 7, 9, 64, 32)])
+@pytest.mark.parametrize("shape", [(1, 8, 8, 16, 8), (2, 7, 9, 64, 32), (1, 20, 20, 128, 64)])
 def test_plain_matches_pallas_bf16(rng, shape):
     x, w1, b1, w2, b2 = _case(rng, *shape)
     xb = jnp.asarray(x).astype(jnp.bfloat16)

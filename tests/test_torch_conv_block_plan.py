@@ -1,0 +1,162 @@
+"""K2's launch plan (``kernels/conv_block.py:plan_launch``) on the CPU: the
+tilings it picks for the stage shapes of YOLOv3-416 and a ragged unit fit in
+shared memory, cover every output exactly once, and execute at most 0.05
+more MMA work than the row-strip tiling; a model of the kernel's tile
+arithmetic reproduces the plain version."""
+
+import numpy as np
+import pytest
+import torch
+
+from amyloid_yolo_tpu_torch.kernels.conv_block import (
+    COST_MODEL,
+    MAX_SMEM_BYTES,
+    Plan,
+    feasible_plans,
+    fit_cost_model,
+    fused_residual_block_plain,
+    load_plan_times,
+    plan_launch,
+    plan_stats,
+    smem_bytes,
+    strip_work_ratio,
+    tiles,
+)
+
+STAGES = [(208, 64), (104, 128), (52, 256), (26, 512), (13, 1024), (20, 128)]
+CASES = [(b, h, c) for b in (1, 8, 32) for h, c in STAGES]
+PICK_SLACK = 1.05  # measured time of the plan over the fastest tiling's
+
+
+def _id(case):
+    b, h, c = case
+    return f"B{b}-{h}x{h}x{c}"
+
+
+@pytest.mark.parametrize("case", CASES, ids=_id)
+def test_plan_fits_in_shared_memory(case):
+    b, h, c = case
+    plan = plan_launch(b, h, h, c)
+    stats = plan_stats(b, h, h, c, plan)
+    assert stats.smem == smem_bytes(h, h, c, plan) <= MAX_SMEM_BYTES
+    assert stats.blocks_per_sm >= 1
+    assert c % plan.oc_tile == 0 and plan.oc_tile % plan.block_n == 0
+    assert plan.block_m * plan.block_n == 8 * 64 * plan.warp_n  # 8 warps of 64 pixels
+
+
+@pytest.mark.parametrize("case", CASES, ids=_id)
+def test_plan_covers_every_output_once(case):
+    b, h, c = case
+    plan = plan_launch(b, h, h, c)
+    count = np.zeros((b, h, h, c // plan.oc_tile), np.int32)
+    n = 0
+    for img, r0, rows, c0, cols, oc0 in tiles(b, h, h, c, plan):
+        assert oc0 % plan.oc_tile == 0
+        count[img, r0:r0 + rows, c0:c0 + cols, oc0 // plan.oc_tile] += 1
+        n += 1
+    assert (count == 1).all()
+    assert n == plan_stats(b, h, h, c, plan).grid
+
+
+@pytest.mark.parametrize("case", CASES, ids=_id)
+def test_plan_adds_little_work(case):
+    b, h, c = case
+    stats = plan_stats(b, h, h, c, plan_launch(b, h, h, c))
+    assert 1.0 <= stats.work_ratio <= strip_work_ratio(h, h, c) + 0.05
+
+
+def test_strip_work_ratio_of_the_row_strip_tiling():
+    # 8-row strips, a one-row halo and 64-pixel warp tiles; 128-channel
+    # output tiles recompute the 1x1 at 256 channels and more
+    got = [strip_work_ratio(h, h, c) for h, c in STAGES[:5]]
+    np.testing.assert_allclose(got, [1.027, 1.031, 1.259, 1.591, 2.575], atol=1e-3)
+
+
+@pytest.mark.parametrize("b", [8, 32])
+def test_plan_fills_the_card(b):
+    # at the batches the detector runs, every stage is within 0.1 of a whole
+    # number of waves or runs at least 3
+    for h, c in STAGES[:5]:
+        w = plan_stats(b, h, h, c, plan_launch(b, h, h, c)).waves
+        assert w >= 3 or w - int(w) >= 0.9 or w == int(w), (h, c, w)
+
+
+def test_cost_model_is_the_fit_to_the_measured_tilings():
+    # COST_MODEL is what fit_cost_model makes of the committed H100 times
+    sms, rows = load_plan_times()
+    np.testing.assert_allclose(fit_cost_model(rows, sms), COST_MODEL, rtol=0.01)
+
+
+@pytest.mark.parametrize("b", [8, 32])
+def test_plan_is_near_the_fastest_measured_tiling(b):
+    # the committed table times every feasible tiling of the five stages;
+    # the plan is one of them, and within PICK_SLACK of the fastest
+    sms, rows = load_plan_times()
+    for h, c in STAGES[:5]:
+        timed = {plan: s for bb, hh, _, cc, plan, s in rows if (bb, hh, cc) == (b, h, c)}
+        assert set(timed) == set(feasible_plans(h, h, c))
+        pick = timed[plan_launch(b, h, h, c, sms)]
+        assert pick <= PICK_SLACK * min(timed.values()), (h, c, pick, min(timed.values()))
+
+
+def _leaky(v):
+    return np.where(v >= 0, v, v * np.float32(0.1))
+
+
+def _bf16(v):
+    return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _tiled(x, w1t, b1, w2t, b2, plan):
+    """The kernel's tile arithmetic in numpy, f32 with the hidden map rounded
+    to bf16: per tile, the 1x1 over the tile's in-image halo pixels, one zero
+    pixel for every tap outside the image, the 3x3 from that compact tile."""
+    b, h, w, c = x.shape
+    y = np.full_like(x, np.nan)
+    for img, r0, rows, c0, cols, oc0 in tiles(b, h, w, c, plan):
+        hr0, hc0 = max(r0 - 1, 0), max(c0 - 1, 0)
+        nhr = min(r0 + rows, h - 1) - hr0 + 1
+        nhc = min(c0 + cols, w - 1) - hc0 + 1
+        px = x[img, hr0:hr0 + nhr, hc0:hc0 + nhc].reshape(-1, c)
+        hid = _bf16(_leaky(px @ w1t.T + b1))
+        hid = np.concatenate([hid, np.zeros((1, c // 2), np.float32)])  # the zero pixel
+        oc = slice(oc0, oc0 + plan.oc_tile)
+        acc = np.zeros((rows * cols, plan.oc_tile), np.float32)
+        q = np.arange(rows * cols)
+        r, col = r0 + q // cols, c0 + q % cols
+        for tap in range(9):
+            hr, hc = r + tap // 3 - 1, col + tap % 3 - 1
+            inside = (hr >= 0) & (hr < h) & (hc >= 0) & (hc < w)
+            idx = np.where(inside, (hr - hr0) * nhc + hc - hc0, len(hid) - 1)
+            acc += hid[idx] @ w2t[tap, oc].T
+        out = x[img, r, col][:, oc] + _leaky(acc + b2[oc])
+        y[img, r, col, oc0:oc0 + plan.oc_tile] = out
+    return y
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((2, 7, 9, 64), Plan(3, 4, 64, 64)),
+    ((1, 20, 20, 128), Plan(3, 20, 64, 64)),
+    ((1, 5, 6, 128), Plan(5, 6, 128, 128)),
+])
+def test_tile_arithmetic_matches_plain(rng, shape, plan):
+    b, h, w, c = shape
+    x = rng.randn(b, h, w, c).astype(np.float32)
+    w1t = (rng.randn(c // 2, c) / np.sqrt(c)).astype(np.float32)
+    w2t = (rng.randn(9, c, c // 2) / np.sqrt(9 * c // 2)).astype(np.float32)
+    b1 = (0.1 * rng.randn(c // 2)).astype(np.float32)
+    b2 = (0.1 * rng.randn(c)).astype(np.float32)
+    got = _tiled(x, w1t, b1, w2t, b2, plan)
+    # the plain version rounds the hidden map to x's dtype: give it f32 x and
+    # compare with a bf16-rounded hidden by building it the same way
+    t = [torch.from_numpy(a) for a in (x, w1t, b1, w2t, b2)]
+    xf, w1, bb1, w2, bb2 = t
+    hid = torch.from_numpy(_bf16(_leaky((xf @ w1.t() + bb1).numpy())))
+    conv = torch.nn.functional.conv2d(
+        hid.permute(0, 3, 1, 2), w2.reshape(3, 3, c, c // 2).permute(2, 3, 0, 1), padding=1)
+    want = (xf + torch.from_numpy(_leaky((conv.permute(0, 2, 3, 1) + bb2).numpy()))).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # and the plain version itself on the same f32 inputs agrees up to the
+    # bf16 rounding of the hidden map
+    plain = fused_residual_block_plain(*t).numpy()
+    np.testing.assert_allclose(got, plain, rtol=0.05, atol=0.05)

@@ -8,10 +8,11 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "amyloid_yolo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "amyloid_yolo_tpu")
+SCRIPTS = ("chip_smoke", "bench_k2")  # the port's scripts at the repo root
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f"{m}.py") for m in SCRIPTS]
     for root, _, names in os.walk(os.path.join(REPO, PKG)):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return files
@@ -19,7 +20,7 @@ def _port_files():
 
 def _port_modules():
     mods = []
-    for path in _port_files()[1:]:
+    for path in _port_files()[len(SCRIPTS):]:
         mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
         mods.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
     return mods
@@ -32,8 +33,7 @@ def _forbidden(name: str) -> bool:
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        f"for m in {_port_modules() + list(SCRIPTS)!r}: importlib.import_module(m)\n"
         f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
         "print(sorted(bad))\n"
         "sys.exit(1 if bad else 0)\n"
