@@ -51,22 +51,17 @@
 // the 1x1 of the 512- and 1024-channel units through distributed shared
 // memory instead of each output-channel tile recomputing it, is the next
 // step (ROADMAP.md).
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "mma_ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kWarpM = 64;               // a warp's tile: 64 pixels x 8*NT channels
-constexpr int kMT = kWarpM / 16;
+using namespace mma_ring;
+
 constexpr int kSlice1 = 32;              // k per 1x1 ring stage
 constexpr int kRow1 = kSlice1 + 8;       // its ring row (80 bytes)
 constexpr int kPad = 8;                  // bf16 of padding per hidden pixel
-constexpr int kMaxSmem = 232448;         // shared memory of one block
-constexpr int kSmPerSm = 233472;         // of one SM
-constexpr int kSmemReserved = 1024;      // reserved per resident block
 constexpr float kSlope = 0.1f;           // LeakyReLU slope
 
 // Block tile BM x BN of warps 8*NT channels wide, and a ring of S1 1x1
@@ -90,9 +85,6 @@ struct Ring2 {
   static_assert(kStages >= 3, "ring");
 };
 
-// 1x1 ring stages: 3, or 4 for 64-channel warps (whose 3x3 needs the bytes)
-constexpr int ring_stages(int warp_n) { return warp_n == 64 ? 4 : 3; }
-
 int ring_bytes(int bn, int warp_n) {
   const int bm = kWarps * kWarpM * warp_n / bn;
   return 2 * ring_stages(warp_n) * (bm + bn) * kRow1;
@@ -109,27 +101,6 @@ struct Args {
 };
 
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : v * kSlope; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; src-size 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 // d += a * b for one m16n8k16 tile (PTX ISA fragment layouts).
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -211,51 +182,6 @@ __device__ __forceinline__ void mma_slice(Acc<NT>& acc, const uint32_t (&a)[kMT]
       mma_frags<NT>(acc, af, bf, mt);
     }
   }
-}
-
-// Position in a GEMM walked as (m chunk, n chunk, tap, k slice), k fastest.
-struct Cursor {
-  int k = 0, tap = 0, nc = 0, mc = 0;
-  __device__ __forceinline__ void next(int kpt, int taps, int ncn) {
-    if (++k < kpt) return;
-    k = 0;
-    if (++tap < taps) return;
-    tap = 0;
-    if (++nc < ncn) return;
-    nc = 0;
-    ++mc;
-  }
-};
-
-// A cp.async ring of S stages over `steps` k-slices: load(slot) issues the
-// next slice's copies into a slot, compute(slot) consumes the next slice.
-// One barrier per slice: after it, slice s has landed for every thread and
-// every warp is done with slice s - 1, whose slot the load of slice
-// s + S - 1 reuses.
-template <int S, class Load, class Compute>
-__device__ __forceinline__ void pipeline(int steps, Load&& load, Compute&& compute) {
-#pragma unroll 1
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < steps) load(s);
-    cp_async_commit();
-  }
-  int ls = S - 1, cs = 0;  // slots of the next load and the next compute
-#pragma unroll 1
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    if (s + S - 1 < steps) load(ls);
-    cp_async_commit();
-    compute(cs);
-    ls = ls + 1 == S ? 0 : ls + 1;
-    cs = cs + 1 == S ? 0 : cs + 1;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-__device__ __forceinline__ int m16_tiles(int m, int base) {
-  return max(0, min(kMT, (m - base + 15) / 16));
 }
 
 template <int BN, int KS2, int MINB, int S1, int NT>

@@ -3,8 +3,9 @@ with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``<package>/_build/<name>-<hash>.so`` (a git-ignored directory);
-the hash covers the source and the flags, so an edited source rebuilds and
-an unchanged one loads the existing library.  :func:`build_all` starts one
+the hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source rebuilds and an unchanged one loads the
+existing library.  :func:`build_all` starts one
 ``nvcc`` per source, all at once.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
@@ -47,8 +48,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -25,10 +25,15 @@ width and ring depth.  It ranks the tilings by a cost model of whole waves
 on the card's SMs (:func:`modelled_seconds`, its constants fitted by
 :func:`fit_cost_model` to the measured times in ``PLAN_TIMES``), and trades
 at most ``MAX_EXTRA_WORK`` of recomputed 1×1 and padded rows for
-parallelism, measured against the row-strip tiling of :func:`pick_strip`
-(which K3 still uses).  :func:`smem_bytes` is the same formula as the C
-side's ``amyolo_conv_block_smem_bytes``; the plan is computed once per
-shape.
+parallelism, measured against the row-strip tiling of :func:`pick_strip`.
+:func:`smem_bytes` is the same formula as the C side's
+``amyolo_conv_block_smem_bytes``; the plan is computed once per shape.
+
+The planner serves K3 (``kernels/int8_block.py``) too, whose kernel has
+the same geometry in bytes: each function takes a :class:`KernelDesc`
+(``kernel=``, K2's :data:`K2` by default) with the element size, the
+padding and slice depths in elements, and the kernel's own cost model and
+table of measured tilings.
 
 Bound on an H100, per launch: ``max(B·20·H·W·C·C/2 / 989 TFLOP/s,
 (B·4·H·W·C + 20·C·C/2) B / 3.35 TB/s)`` — compute for the units of 128
@@ -61,16 +66,15 @@ LEAKY_SLOPE = 0.1
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on Hopper
 MAX_STRIP = 8
 
-# The kernel's geometry (csrc/conv_block.cu): 8 warps, each owning a
-# 64-pixel tile 32 or 64 channels wide; a ring of 32-channel k-slices in
-# rows of 40 bf16 (80 bytes, so ldmatrix is free of bank conflicts) for the
-# 1x1, whose bytes the 3x3 reuses for 64-channel slices (32 when C/2 is
-# 32).  32-channel warps run two blocks an SM where shared memory allows
-# (128 registers a thread); 64-channel warps one, in block tiles 128 or 256
-# channels wide, with a 4-stage ring.
+# The kernels' geometry (csrc/conv_block.cu, csrc/int8_block.cu): 8 warps,
+# each owning a 64-pixel tile 32 or 64 channels wide; a ring of 64-byte
+# k-slices in rows of 80 bytes (so ldmatrix is free of bank conflicts) for
+# the 1x1, whose bytes the 3x3 reuses for deeper slices; hidden pixels
+# padded by 16 bytes.  32-channel warps run two blocks an SM where shared
+# memory allows (128 registers a thread); 64-channel warps one, in block
+# tiles 128 or 256 channels wide, with a 4-stage ring.
 WARPS = 8
-WARP_M, K_SLICE, RING_ROW = 64, 32, 40
-HIDDEN_PAD = 8                 # bf16 of padding per hidden pixel
+WARP_M, RING_ROW_BYTES = 64, 80
 BLOCK_N = {32: (64, 128), 64: (128, 256)}  # block tile widths by warp width
 RING_STAGES = {32: 3, 64: 4}   # 1x1 ring stages by warp width
 SM_SMEM_BYTES = 233472         # shared memory of one SM
@@ -90,6 +94,26 @@ MAX_COL_TILES = 8
 COST_MODEL = (2.343e12, 2.343e12, 0.5373e-6, 0.7590e-6)
 PLAN_TIMES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "conv_block_plan_times.json")
+
+
+class KernelDesc(NamedTuple):
+    """What the planner needs of a residual-unit kernel on this geometry:
+    element size, padding per hidden pixel and k-slice depths in elements
+    (16 and 64 bytes), the cost model and its table of measured tilings."""
+
+    name: str
+    elem_bytes: int
+    hidden_pad: int
+    k_slice1: int                    # 1x1 channels per ring stage
+    k_slices2: Tuple[int, ...]       # 3x3 slice depths: the first that divides C/2
+    cost_model: Tuple[float, float, float, float]
+    plan_times: str
+
+    def k_slice2(self, c2: int) -> int:
+        return next(k for k in self.k_slices2 if c2 % k == 0)
+
+
+K2 = KernelDesc("fused_residual_block", 2, 8, 32, (64, 32), COST_MODEL, PLAN_TIMES)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -181,13 +205,14 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def smem_bytes(h: int, w: int, c: int, plan: Plan) -> int:
+def smem_bytes(h: int, w: int, c: int, plan: Plan, kernel: KernelDesc = K2) -> int:
     """Dynamic shared memory of one block: the tile's hidden pixels (halo
-    included, image pixels only) plus one zero pixel, each ``C/2 + 8`` bf16,
-    then the ring.  Mirrors ``amyolo_conv_block_smem_bytes``."""
+    included, image pixels only) plus one zero pixel, each ``C/2`` elements
+    and the padding, then the ring.  Mirrors ``amyolo_conv_block_smem_bytes``
+    (``amyolo_int8_block_smem_bytes`` for K3)."""
     hidden = min(plan.strip + 2, h) * min(plan.col_tile + 2, w) + 1
-    ring = RING_STAGES[plan.warp_n] * (plan.block_m + plan.block_n) * RING_ROW
-    return 2 * (hidden * (c // 2 + HIDDEN_PAD) + ring)
+    ring = RING_STAGES[plan.warp_n] * (plan.block_m + plan.block_n) * RING_ROW_BYTES
+    return kernel.elem_bytes * hidden * (c // 2 + kernel.hidden_pad) + ring
 
 
 def blocks_per_sm(smem: int, plan: Plan) -> int:
@@ -227,7 +252,8 @@ def tiles(b: int, h: int, w: int, c: int, plan: Plan) -> Iterator[Tuple[int, int
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_costs(h: int, w: int, c: int, plan: Plan) -> Tuple[int, Tuple[int, int]]:
+def _tile_costs(h: int, w: int, c: int, plan: Plan,
+                kernel: KernelDesc = K2) -> Tuple[int, Tuple[int, int]]:
     """Executed MMA FLOPs of one image, and (FLOPs, k-steps) of its
     largest tile."""
     c2 = c // 2
@@ -238,8 +264,8 @@ def _tile_costs(h: int, w: int, c: int, plan: Plan) -> Tuple[int, Tuple[int, int
     total, worst = 0, (0, 0)
     for (nhr, rr), k_r in _count(rows).items():
         for (nhc, cc), k_c in _count(cols).items():
-            f1, s1 = _gemm(nhr * nhc, c2, c, bm, bn, K_SLICE)
-            f2, s2 = _gemm(rr * cc, plan.oc_tile, 9 * c2, bm, bn, 64 if c2 % 64 == 0 else 32)
+            f1, s1 = _gemm(nhr * nhc, c2, c, bm, bn, kernel.k_slice1)
+            f2, s2 = _gemm(rr * cc, plan.oc_tile, 9 * c2, bm, bn, kernel.k_slice2(c2))
             total += k_r * k_c * n_oc * (f1 + f2)
             worst = max(worst, (f1 + f2, s1 + s2))
     return total, worst
@@ -257,20 +283,22 @@ def unit_flops(h: int, w: int, c: int) -> int:
     return 20 * h * w * c * (c // 2)
 
 
-def plan_stats(b: int, h: int, w: int, c: int, plan: Plan, sms: int = 132) -> PlanStats:
-    smem = smem_bytes(h, w, c, plan)
+def plan_stats(b: int, h: int, w: int, c: int, plan: Plan, sms: int = 132,
+               kernel: KernelDesc = K2) -> PlanStats:
+    smem = smem_bytes(h, w, c, plan, kernel)
     bps = blocks_per_sm(smem, plan)
     grid = b * _cdiv(h, plan.strip) * _cdiv(w, plan.col_tile) * (c // plan.oc_tile)
-    flops, _ = _tile_costs(h, w, c, plan)
+    flops, _ = _tile_costs(h, w, c, plan, kernel)
     return PlanStats(grid, smem, bps, grid / (sms * max(bps, 1)), flops / unit_flops(h, w, c))
 
 
-def strip_work_ratio(h: int, w: int, c: int) -> float:
-    """Executed-work ratio of the row-strip tiling: strips from
-    :func:`pick_strip`, whole rows, 128-channel output tiles, 64-pixel warp
-    tiles, halo rows computed everywhere."""
+def strip_work_ratio(h: int, w: int, c: int, kernel: KernelDesc = K2) -> float:
+    """Executed-work ratio of the row-strip tiling (each kernel's first
+    version): strips from :func:`pick_strip`, whole rows, 128-channel output
+    tiles, 64-pixel warp tiles, halo rows computed everywhere."""
     c2 = c // 2
-    strip = pick_strip(h, lambda s: (s + 2) * (w + 2) * (c2 + HIDDEN_PAD) * 2 <= MAX_SMEM_BYTES)
+    strip = pick_strip(h, lambda s: (s + 2) * (w + 2) * (c2 + kernel.hidden_pad)
+                       * kernel.elem_bytes <= MAX_SMEM_BYTES)
     oc = min(c, 128)
     flops = 0
     for _, rows in _spans(h, strip):
@@ -279,8 +307,10 @@ def strip_work_ratio(h: int, w: int, c: int) -> float:
     return flops / unit_flops(h, w, c)
 
 
-def _candidates(h: int, w: int, c: int) -> Iterator[Plan]:
-    strips = sorted({_cdiv(h, n) for n in range(_cdiv(h, MAX_TILE_ROWS), h + 1)})
+def _candidates(h: int, w: int, c: int, strips: Optional[Sequence[int]] = None
+                ) -> Iterator[Plan]:
+    if strips is None:
+        strips = sorted({_cdiv(h, n) for n in range(_cdiv(h, MAX_TILE_ROWS), h + 1)})
     col_tiles = sorted({_cdiv(w, n) for n in range(1, min(MAX_COL_TILES, w) + 1)})
     for strip in strips:
         for col in col_tiles:
@@ -295,40 +325,48 @@ def _candidates(h: int, w: int, c: int) -> Iterator[Plan]:
                             yield Plan(strip, col, oc, bn, warp_n)
 
 
-def feasible_plans(h: int, w: int, c: int) -> Iterator[Plan]:
+def fits_in_smem(h: int, w: int, c: int, plan: Plan, kernel: KernelDesc = K2) -> bool:
+    """Whether a block of ``plan`` fits in shared memory."""
+    smem = smem_bytes(h, w, c, plan, kernel)
+    return smem <= MAX_SMEM_BYTES and blocks_per_sm(smem, plan) > 0
+
+
+def feasible_plans(h: int, w: int, c: int, kernel: KernelDesc = K2) -> Iterator[Plan]:
     """The tilings :func:`plan_launch` weighs: those that fit in shared
     memory and execute at most ``MAX_EXTRA_WORK`` more MMA work than
     :func:`strip_work_ratio`."""
     if c % 64:
-        raise ValueError(f"fused_residual_block needs C % 64 == 0, got C={c}")
-    cap = strip_work_ratio(h, w, c) + MAX_EXTRA_WORK
+        raise ValueError(f"{kernel.name} needs C % 64 == 0, got C={c}")
+    cap = strip_work_ratio(h, w, c, kernel) + MAX_EXTRA_WORK
     for plan in _candidates(h, w, c):
-        smem = smem_bytes(h, w, c, plan)
-        if smem > MAX_SMEM_BYTES or blocks_per_sm(smem, plan) == 0:
-            continue
-        if _tile_costs(h, w, c, plan)[0] / unit_flops(h, w, c) <= cap:
+        if (fits_in_smem(h, w, c, plan, kernel)
+                and _tile_costs(h, w, c, plan, kernel)[0] / unit_flops(h, w, c) <= cap):
             yield plan
 
 
-def _cost_terms(b: int, h: int, w: int, c: int, plan: Plan, sms: int) -> Tuple[int, int, int]:
+def _cost_terms(b: int, h: int, w: int, c: int, plan: Plan, sms: int,
+                kernel: KernelDesc) -> Tuple[int, int, int]:
     """(whole waves, MMA FLOPs of an SM's blocks in a wave, k-steps of a
     block), the waves and blocks counted at the largest tile."""
-    bps = blocks_per_sm(smem_bytes(h, w, c, plan), plan)
+    bps = blocks_per_sm(smem_bytes(h, w, c, plan, kernel), plan)
     grid = b * _cdiv(h, plan.strip) * _cdiv(w, plan.col_tile) * (c // plan.oc_tile)
-    _, (tile_flops, tile_steps) = _tile_costs(h, w, c, plan)
+    _, (tile_flops, tile_steps) = _tile_costs(h, w, c, plan, kernel)
     return _cdiv(grid, sms * bps), bps * tile_flops, tile_steps
 
 
 def modelled_seconds(b: int, h: int, w: int, c: int, plan: Plan, sms: int = 132,
-                     model: Sequence[float] = COST_MODEL) -> float:
-    flops32, flops64, step_s, tile_s = model
-    waves, sm_flops, steps = _cost_terms(b, h, w, c, plan, sms)
+                     model: Optional[Sequence[float]] = None,
+                     kernel: KernelDesc = K2) -> float:
+    """The cost model's time of a launch; ``model`` defaults to the
+    kernel's own."""
+    flops32, flops64, step_s, tile_s = model or kernel.cost_model
+    waves, sm_flops, steps = _cost_terms(b, h, w, c, plan, sms, kernel)
     rate = flops32 if plan.warp_n == 32 else flops64
     return waves * (sm_flops / rate + steps * step_s + tile_s)
 
 
 def fit_cost_model(rows: Iterable[Tuple[int, int, int, int, Plan, float]],
-                   sms: int = 132) -> Tuple[float, float, float, float]:
+                   sms: int = 132, kernel: KernelDesc = K2) -> Tuple[float, float, float, float]:
     """``COST_MODEL`` from measured times, rows of (B, H, W, C, plan,
     seconds) that time every feasible tiling of some shapes.  The model only
     ranks tilings, so its shape is chosen on a log grid (32- over 64-channel
@@ -340,7 +378,7 @@ def fit_cost_model(rows: Iterable[Tuple[int, int, int, int, Plan, float]],
     import numpy as np
     feats, secs, shape_of = [], [], []
     for b, h, w, c, plan, seconds in rows:
-        waves, sm_flops, steps = _cost_terms(b, h, w, c, plan, sms)
+        waves, sm_flops, steps = _cost_terms(b, h, w, c, plan, sms, kernel)
         wide = plan.warp_n == 64
         feats.append([waves * sm_flops * (not wide), waves * sm_flops * wide,
                       waves * steps, waves])
@@ -380,14 +418,20 @@ def load_plan_times(path: str = PLAN_TIMES):
 
 
 @functools.lru_cache(maxsize=None)
-def plan_launch(b: int, h: int, w: int, c: int, sms: int = 132) -> Plan:
+def plan_launch(b: int, h: int, w: int, c: int, sms: int = 132, kernel: KernelDesc = K2,
+                strip: Optional[int] = None) -> Plan:
     """The tiling of a (B, H, W, C) unit on a card with ``sms`` SMs: of
-    :func:`feasible_plans`, the one of least :func:`modelled_seconds`."""
-    plans = list(feasible_plans(h, w, c))
+    :func:`feasible_plans`, the one of least :func:`modelled_seconds`.  A
+    caller's ``strip`` restricts the choice to the tilings of that strip
+    that fit in shared memory, whatever work they add."""
+    if strip is None:
+        plans = list(feasible_plans(h, w, c, kernel))
+    else:
+        plans = [p for p in _candidates(h, w, c, [strip]) if fits_in_smem(h, w, c, p, kernel)]
     if not plans:
-        raise ValueError(f"fused_residual_block: no tiling of H={h}, W={w}, C={c} "
-                         "fits in shared memory")
-    return min(plans, key=lambda p: modelled_seconds(b, h, w, c, p, sms))
+        raise ValueError(f"{kernel.name}: no tiling of H={h}, W={w}, C={c}, "
+                         f"strip={strip} fits in shared memory")
+    return min(plans, key=lambda p: modelled_seconds(b, h, w, c, p, sms, kernel=kernel))
 
 
 def fused_residual_block(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
@@ -424,7 +468,7 @@ def fused_residual_block(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("fused_residual_block: tensors must be 16-byte aligned (cp.async)")
     if plan is None:
-        plan = plan_launch(b, h, w, c, _sm_count(x.device))
+        plan = plan_launch(b, h, w, c, sm_count(x.device))
     y = torch.empty_like(x)
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -442,7 +486,8 @@ fused_residual_block.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -461,8 +506,8 @@ def c_blocks_per_sm(c: int, plan: Plan, smem: int) -> int:
 
 
 __all__ = ["fused_residual_block", "fused_residual_block_plain", "pack_block_weights",
-           "Plan", "PlanStats", "plan_launch", "plan_stats", "smem_bytes", "tiles",
-           "feasible_plans", "modelled_seconds", "fit_cost_model", "load_plan_times",
-           "strip_work_ratio",
-           "unit_flops", "pick_strip", "c_smem_bytes", "c_blocks_per_sm", "COST_MODEL",
-           "PLAN_TIMES", "LEAKY_SLOPE", "MAX_SMEM_BYTES"]
+           "Plan", "PlanStats", "KernelDesc", "K2", "plan_launch", "plan_stats",
+           "smem_bytes", "blocks_per_sm", "fits_in_smem", "tiles", "feasible_plans",
+           "modelled_seconds", "fit_cost_model", "load_plan_times", "strip_work_ratio",
+           "unit_flops", "pick_strip", "sm_count", "c_smem_bytes", "c_blocks_per_sm",
+           "COST_MODEL", "PLAN_TIMES", "LEAKY_SLOPE", "MAX_SMEM_BYTES"]

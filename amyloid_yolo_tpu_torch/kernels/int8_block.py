@@ -22,10 +22,19 @@ does not call it; K3's path is :func:`pack_model_int8_units` (the units of a
 calibrated ``int8_full`` model) run through the kernel, as the reference's
 ``tools/bench_int8_block.py`` runs it.
 
-The CUDA source is ``csrc/int8_block.cu``: a block owns (image, strip of
-output rows, tile of output channels), computes the strip's 1×1 plus a
-one-row halo into shared memory as int8, then the nine 3×3 taps from there,
-both on the tensor cores (``mma.sync`` m16n8k32 s8·s8 → s32).
+The CUDA source is ``csrc/int8_block.cu``, K2's design in int8: a block
+owns one tile, (image, strip of output rows, range of output columns, range
+of output channels); it computes the 1×1 of the tile's in-image pixels and
+their one-pixel halo into shared memory as int8 (one zero pixel stands for
+the halo outside the image), then the nine 3×3 taps from there, both on the
+tensor cores (``mma.sync`` m16n8k32 s8·s8 → s32, fragments loaded with
+``ldmatrix``).  Weight k-slices, and in the 1×1 the ``x`` pixels, stream
+through a ring of shared-memory stages fed by ``cp.async``.
+
+The tiling comes from K2's planner (``conv_block.plan_launch``) with
+:data:`K3`, this kernel's description: int8 elements, its own
+:data:`COST_MODEL`, fitted to the H100 times of every tiling the plan
+weighs in ``PLAN_TIMES`` (``bench_k2.py --plans k3``, then ``--fit k3``).
 
 Bound on an H100, per launch: ``max(B·20·H·W·C·C/2 / 1979 TOP/s,
 (B·2·H·W·C + 10·C·C/2) B / 3.35 TB/s)`` — bytes for the 208² × 64 unit,
@@ -40,6 +49,7 @@ version; anything else raises.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -48,9 +58,22 @@ import torch
 from ..graphspec import GraphSpec
 from ..ops.int8 import conv_int8, int_mm, requant
 from . import _build
-from .conv_block import MAX_SMEM_BYTES, pick_strip
+from .conv_block import KernelDesc, Plan, fits_in_smem, plan_launch, sm_count, smem_bytes
 
 LEAKY_SLOPE = 0.1
+
+# The planner's cost model for this kernel (see conv_block.COST_MODEL):
+# (SM int8 op/s with 32-channel warps, with 64-channel warps, s per k-step,
+# s per tile), fitted by conv_block.fit_cost_model to the H100 times in
+# PLAN_TIMES of every tiling the plan weighs at the five stages of
+# YOLOv3-416, B=8 and 32.
+COST_MODEL = (4.343e12, 4.496e12, 0.7281e-6, 1.727e-6)
+PLAN_TIMES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "int8_block_plan_times.json")
+# int8 elements; 16 bytes of padding per hidden pixel; 64-channel 1x1
+# slices; 3x3 slices of 128 channels, or C/2 below that
+K3 = KernelDesc("fused_residual_block_int8", 1, 16, 64, (128, 64, 32), COST_MODEL,
+                PLAN_TIMES)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,10 +93,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("int8_block")
     if lib.amyolo_fused_residual_block_int8.argtypes is None:
         lib.amyolo_fused_residual_block_int8.argtypes = (
-            [_P] * 8 + [_I] * 7 + [_F] * 3 + [_P])
+            [_P] * 8 + [_I] * 11 + [_F] * 3 + [_P])
         lib.amyolo_fused_residual_block_int8.restype = ctypes.c_int
-        lib.amyolo_int8_block_smem_bytes.argtypes = [_I, _I, _I]
+        lib.amyolo_int8_block_smem_bytes.argtypes = [_I] * 7
         lib.amyolo_int8_block_smem_bytes.restype = ctypes.c_int
+        lib.amyolo_int8_block_blocks_per_sm.argtypes = [_I] * 4
+        lib.amyolo_int8_block_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -118,30 +143,16 @@ def fused_residual_block_int8_plain(xq: torch.Tensor, w1t: torch.Tensor,
     return requant(y, s_out).reshape(b, h, w, c)
 
 
-def launch_config(h: int, w: int, c: int, strip: Optional[int] = None) -> Tuple[int, int]:
-    """``(strip, oc_tile)`` for a (H, W, C) unit: the caller's ``strip`` or
-    one from :func:`~.conv_block.pick_strip`; output-channel tiles of 128
-    above 128 channels."""
-    lib = _lib()
-
-    def fits(s: int) -> bool:
-        return lib.amyolo_int8_block_smem_bytes(w, c // 2, s) <= MAX_SMEM_BYTES
-
-    if strip is None:
-        strip = pick_strip(h, fits)
-    if strip == 0 or not fits(strip):
-        raise ValueError(f"fused_residual_block_int8: W={w}, C={c}, strip={strip} "
-                         "does not fit in shared memory")
-    return strip, min(c, 128)
-
-
 def fused_residual_block_int8(xq: torch.Tensor, w1t: torch.Tensor, a1: torch.Tensor,
                               b1: torch.Tensor, w2t: torch.Tensor, a2: torch.Tensor,
                               b2: torch.Tensor, *, sx: float, s1: float, s_out: float,
-                              strip: Optional[int] = None) -> torch.Tensor:
+                              strip: Optional[int] = None,
+                              plan: Optional[Plan] = None) -> torch.Tensor:
     """(B, H, W, C) int8 → (B, H, W, C) int8; packed weights from
     :func:`pack_int8_block`.  ``strip`` (output rows per block), if given,
-    must divide H; the kernel picks one otherwise."""
+    must divide H.  On the card, ``plan`` is the tiling, by default
+    ``plan_launch``'s for :data:`K3`, restricted to the caller's strip; a
+    plan that does not fit raises."""
     if xq.dim() != 4:
         raise ValueError(f"fused_residual_block_int8 takes NHWC xq, got {tuple(xq.shape)}")
     b, h, w, c = xq.shape
@@ -153,6 +164,8 @@ def fused_residual_block_int8(xq: torch.Tensor, w1t: torch.Tensor, a1: torch.Ten
                          f"xq's {c} channels")
     if strip is not None and h % strip:
         raise ValueError(f"strip {strip} must divide H {h}")
+    if strip is not None and plan is not None and plan.strip != strip:
+        raise ValueError(f"plan {tuple(plan)} does not have strip {strip}")
     if xq.device.type == "cpu":
         return fused_residual_block_int8_plain(xq, w1t, a1, b1, w2t, a2, b2,
                                                sx=sx, s1=s1, s_out=s_out)
@@ -172,7 +185,11 @@ def fused_residual_block_int8(xq: torch.Tensor, w1t: torch.Tensor, a1: torch.Ten
         raise ValueError("fused_residual_block_int8: tensors must be contiguous (xq NHWC)")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("fused_residual_block_int8: tensors must be 16-byte aligned")
-    strip, oc_tile = launch_config(h, w, c, strip)
+    if plan is None:
+        plan = plan_launch(b, h, w, c, sm_count(xq.device), K3, strip)
+    elif not fits_in_smem(h, w, c, plan, K3):
+        raise ValueError(f"fused_residual_block_int8: plan {tuple(plan)} does not fit "
+                         "in shared memory")
     y = torch.empty_like(xq)
     lib = _lib()
     f32 = np.float32
@@ -180,7 +197,8 @@ def fused_residual_block_int8(xq: torch.Tensor, w1t: torch.Tensor, a1: torch.Ten
         err = lib.amyolo_fused_residual_block_int8(
             xq.data_ptr(), w1t.data_ptr(), a1.data_ptr(), b1.data_ptr(),
             w2t.data_ptr(), a2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            b, h, w, c, c2, strip, oc_tile,
+            b, h, w, c, c2, plan.strip, plan.col_tile, plan.oc_tile, plan.warp_n,
+            plan.block_n, smem_bytes(h, w, c, plan, K3),
             float(f32(sx)), float(f32(1.0 / s1)), float(f32(1.0 / s_out)),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "fused_residual_block_int8 kernel launch")
@@ -216,6 +234,20 @@ def pack_model_int8_units(qparams: Mapping[str, Mapping[str, torch.Tensor]],
     return units
 
 
+def c_smem_bytes(h: int, w: int, c: int, plan: Plan) -> int:
+    """The C side's shared-memory formula (needs the built library)."""
+    return _lib().amyolo_int8_block_smem_bytes(h, w, c // 2, plan.strip, plan.col_tile,
+                                               plan.warp_n, plan.block_n)
+
+
+def c_blocks_per_sm(c: int, plan: Plan, smem: int) -> int:
+    """Resident blocks per SM from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    n = _lib().amyolo_int8_block_blocks_per_sm(plan.warp_n, plan.block_n, c // 2, smem)
+    if n < 0:
+        _build.check(-n, "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+    return n
+
+
 __all__ = ["fused_residual_block_int8", "fused_residual_block_int8_plain",
-           "pack_int8_block", "pack_model_int8_units", "launch_config", "Int8Unit",
-           "LEAKY_SLOPE"]
+           "pack_int8_block", "pack_model_int8_units", "Int8Unit", "K3", "COST_MODEL",
+           "PLAN_TIMES", "c_smem_bytes", "c_blocks_per_sm", "LEAKY_SLOPE"]

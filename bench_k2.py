@@ -1,28 +1,30 @@
 #!/usr/bin/env python3
-"""K2 (``fused_residual_block``) on one NVIDIA GPU: an A/B of several
-checkouts, the times of every tiling its launch plan weighs, and the fit of
-the plan's cost model to those times.  Run from the root of the repo.
+"""K2 (``fused_residual_block``) and K3 (``fused_residual_block_int8``) on
+one NVIDIA GPU: an A/B of several checkouts, the times of every tiling
+their launch plan weighs, and the fit of the plan's cost model to those
+times.  Run from the root of the repo.
 
-    python3 bench_k2.py ROOT [ROOT ...]     # e.g. output/parent . . output/parent
-    python3 bench_k2.py --plans OUT.json
-    python3 bench_k2.py --fit [TABLE.json]  # on the CPU
+    python3 bench_k2.py ROOT [ROOT ...]          # e.g. output/parent . . output/parent
+    python3 bench_k2.py --plans k2|k3 OUT.json
+    python3 bench_k2.py --fit k2|k3 [TABLE.json]  # on the CPU
 
 A/B: each ROOT is the root of a checkout (one inside this one, in a
 git-ignored directory such as ``output/parent``), run in a process of its
 own that imports ``amyloid_yolo_tpu_torch`` from that root and everything
 else from this checkout's ``chip_smoke.py``: the same inputs
-(``k2_stage_inputs``, seed 0) and timing on every side.  Per run, K2 at the
-five stage shapes of YOLOv3-416 at B=8 and 32 (device time:
-``chip_smoke.cuda_ms``, 20 launches queued behind a device sleep) and the
-bf16 ``Detector(conf_thres=0.3)`` at B=8 and 32
+(``k2_stage_inputs``, ``k3_stage_inputs``, seed 0) and timing on every
+side.  Per run, K2 and K3 at the five stage shapes of YOLOv3-416 at B=8 and
+32 (device time: ``chip_smoke.cuda_ms``, 20 launches queued behind a device
+sleep) and the bf16 ``Detector(conf_thres=0.3)`` at B=8 and 32
 (``chip_smoke.detector_ms``, host cost included); one JSON line per run,
 then the card's name and power limit.
 
-``--plans``: every tiling of ``conv_block.feasible_plans`` at those ten
-shapes, checked against the plain version (rtol 2⁻⁷, atol 2⁻⁶) and timed
-as above (10 launches), written to OUT.json in the layout of
-``conv_block.PLAN_TIMES``.  ``--fit`` fits ``conv_block.COST_MODEL`` to such
-a table and prints, per shape, the modelled pick's time beside the fastest.
+``--plans``: every tiling of ``conv_block.feasible_plans`` for the kernel
+at those ten shapes, checked against its plain version (K2 within rtol 2⁻⁷,
+atol 2⁻⁶; K3 bit-exact) and timed as above (10 launches), written to
+OUT.json in the layout of the kernel's ``PLAN_TIMES``.  ``--fit`` fits the
+kernel's ``COST_MODEL`` to such a table and prints, per shape, the modelled
+pick's time beside the fastest.
 """
 
 from __future__ import annotations
@@ -46,19 +48,26 @@ def _ab(root: str) -> dict:
     from amyloid_yolo_tpu_torch.io.weights import params_from_jax
     from amyloid_yolo_tpu_torch.kernels import _build
     from amyloid_yolo_tpu_torch.kernels.conv_block import fused_residual_block
+    from amyloid_yolo_tpu_torch.kernels.int8_block import fused_residual_block_int8
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
     _build.build_all()
-    out = {"root": root, "k2_ms": {}, "detector_ms": {}}
-    for b in chip_smoke.DETECTOR_BATCHES:
-        total = 0.0
-        for h, c, n in chip_smoke.STAGES:
-            args = chip_smoke.k2_stage_inputs(b, h, c, dev, gen)
-            ms = chip_smoke.cuda_ms(lambda: fused_residual_block(*args))
-            out["k2_ms"][f"{b}x{h}x{h}x{c}"] = ms
-            total += n * ms
-        out["k2_ms"][f"total_b{b}"] = total
+    sx, s1, s_out = chip_smoke.K3_SCALES
+    out = {"root": root, "k2_ms": {}, "k3_ms": {}, "detector_ms": {}}
+    for key, inputs, fn in (
+            ("k2_ms", chip_smoke.k2_stage_inputs, fused_residual_block),
+            ("k3_ms", chip_smoke.k3_stage_inputs,
+             lambda xq, pack: fused_residual_block_int8(xq, *pack, sx=sx, s1=s1, s_out=s_out))):
+        for b in chip_smoke.DETECTOR_BATCHES:
+            total = 0.0
+            for h, c, n in chip_smoke.STAGES:
+                args = inputs(b, h, c, dev, gen)
+                ms = chip_smoke.cuda_ms(lambda: fn(*args))
+                out[key][f"{b}x{h}x{h}x{c}"] = ms
+                total += n * ms
+                del args
+            out[key][f"total_b{b}"] = total
     spec = yolov3_spec(num_classes=2)
     det = Detector(spec, params_from_jax(chip_smoke.random_jax_params(spec, chip_smoke.SEED),
                                          spec), conf_thres=0.3)
@@ -67,13 +76,45 @@ def _ab(root: str) -> dict:
     return out
 
 
-def _plans(path: str) -> None:
+def _kernel(name: str):
+    """(KernelDesc, case) of K2 or K3: ``case(b, h, c, dev, gen)`` makes a
+    stage's inputs and returns ``(run(plan), check(y, plan))``."""
+    import torch
+
+    from amyloid_yolo_tpu_torch.kernels import conv_block, int8_block
+
+    def k2_case(b, h, c, dev, gen):
+        args = chip_smoke.k2_stage_inputs(b, h, c, dev, gen)
+        want = conv_block.fused_residual_block_plain(*args).float()
+
+        def check(y, plan):
+            torch.testing.assert_close(y.float(), want, rtol=chip_smoke.K2_RTOL,
+                                       atol=chip_smoke.K2_ATOL, msg=f"plan {plan}")
+
+        return lambda plan: conv_block.fused_residual_block(*args, plan=plan), check
+
+    def k3_case(b, h, c, dev, gen):
+        xq, pack = chip_smoke.k3_stage_inputs(b, h, c, dev, gen)
+        sx, s1, s_out = chip_smoke.K3_SCALES
+        want = int8_block.fused_residual_block_int8_plain(xq, *pack, sx=sx, s1=s1, s_out=s_out)
+
+        def check(y, plan):
+            if not torch.equal(y, want):
+                raise AssertionError(f"K3 plan {plan} is not bit-exact at {b}x{h}x{h}x{c}")
+
+        return (lambda plan: int8_block.fused_residual_block_int8(
+            xq, *pack, sx=sx, s1=s1, s_out=s_out, plan=plan)), check
+
+    return {"k2": (conv_block.K2, k2_case), "k3": (int8_block.K3, k3_case)}[name]
+
+
+def _plans(name: str, path: str) -> None:
     import torch
 
     from amyloid_yolo_tpu_torch.kernels import _build
-    from amyloid_yolo_tpu_torch.kernels.conv_block import (
-        feasible_plans, fused_residual_block, fused_residual_block_plain)
+    from amyloid_yolo_tpu_torch.kernels.conv_block import feasible_plans
 
+    kernel, case = _kernel(name)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -82,13 +123,10 @@ def _plans(path: str) -> None:
     rows = []
     for b in chip_smoke.DETECTOR_BATCHES:
         for h, c, _ in chip_smoke.STAGES:
-            args = chip_smoke.k2_stage_inputs(b, h, c, dev, gen)
-            want = fused_residual_block_plain(*args).float()
-            for plan in feasible_plans(h, h, c):
-                got = fused_residual_block(*args, plan=plan).float()
-                torch.testing.assert_close(got, want, rtol=chip_smoke.K2_RTOL,
-                                           atol=chip_smoke.K2_ATOL, msg=f"plan {plan}")
-                ms = chip_smoke.cuda_ms(lambda: fused_residual_block(*args, plan=plan), iters=10)
+            run, check = case(b, h, c, dev, gen)
+            for plan in feasible_plans(h, h, c, kernel):
+                check(run(plan), plan)
+                ms = chip_smoke.cuda_ms(lambda: run(plan), iters=10)
                 rows.append([b, h, h, c, *plan, ms])
             print(f"B={b} {h}x{h}x{c}: {sum(r[:4] == [b, h, h, c] for r in rows)} tilings "
                   f"within tolerance and timed [{card}]", flush=True)
@@ -99,19 +137,21 @@ def _plans(path: str) -> None:
     print(card)
 
 
-def _fit(path: str) -> None:
+def _fit(name: str, path: str) -> None:
     from amyloid_yolo_tpu_torch.kernels.conv_block import (
-        COST_MODEL, fit_cost_model, load_plan_times, modelled_seconds)
+        fit_cost_model, load_plan_times, modelled_seconds)
 
-    sms, rows = load_plan_times(path)
-    model = fit_cost_model(rows, sms)
-    print(f"fitted COST_MODEL = ({model[0]:.3g}, {model[1]:.3g}, {model[2]:.3g}, "
-          f"{model[3]:.3g}); in the code {COST_MODEL}")
+    kernel, _ = _kernel(name)
+    sms, rows = load_plan_times(path or kernel.plan_times)
+    model = fit_cost_model(rows, sms, kernel)
+    print(f"fitted COST_MODEL = ({model[0]:.4g}, {model[1]:.4g}, {model[2]:.4g}, "
+          f"{model[3]:.4g}); in the code {kernel.cost_model}")
     shapes = {}
     for b, h, w, c, plan, seconds in rows:
         shapes.setdefault((b, h, w, c), []).append((plan, seconds))
     for (b, h, w, c), timed in shapes.items():
-        pick = min(timed, key=lambda pt: modelled_seconds(b, h, w, c, pt[0], sms, model))
+        pick = min(timed, key=lambda pt: modelled_seconds(b, h, w, c, pt[0], sms, model,
+                                                          kernel))
         best = min(timed, key=lambda pt: pt[1])
         print(f"B={b} {h}x{w}x{c}: {len(timed)} tilings; pick {tuple(pick[0])} "
               f"{pick[1] * 1e3:.4f} ms, fastest {tuple(best[0])} {best[1] * 1e3:.4f} ms "
@@ -122,12 +162,12 @@ def main(argv) -> int:
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(_ab(argv[1])), flush=True)
         return 0
-    if len(argv) == 2 and argv[0] == "--plans":
-        _plans(argv[1])
+    kernels = ("k2", "k3")
+    if len(argv) == 3 and argv[0] == "--plans" and argv[1] in kernels:
+        _plans(argv[1], argv[2])
         return 0
-    if argv[:1] == ["--fit"] and len(argv) <= 2:
-        from amyloid_yolo_tpu_torch.kernels.conv_block import PLAN_TIMES
-        _fit(argv[1] if len(argv) == 2 else PLAN_TIMES)
+    if argv[:1] == ["--fit"] and len(argv) in (2, 3) and argv[1] in kernels:
+        _fit(argv[1], argv[2] if len(argv) == 3 else None)
         return 0
     if not argv or argv[0].startswith("-"):
         print(__doc__, file=sys.stderr)

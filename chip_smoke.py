@@ -18,8 +18,10 @@ Phases (any failure exits non-zero; nothing is caught):
    from Python (``smem_bytes``) must equal the C side's, and its blocks per
    SM the ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` count;
 5. K3 (``fused_residual_block_int8``) against its plain version at the five
-   stage shapes (B=4), random int8 inputs with the reference tool's weight
-   and scale ranges (``tools/bench_int8_block.py``): bit-exact;
+   stage shapes and the ragged unit, at B=1, 4, 8 and 32 (its tiling, too,
+   depends on B), random int8 inputs with the reference tool's weight and
+   scale ranges (``tools/bench_int8_block.py``): bit-exact; shared memory
+   and blocks per SM of each plan, Python against C, as in phase 4;
 6. the main path: ``Detector(conf_thres=0.3)`` at the full width of
    ``yolov3_spec(num_classes=2)``, 416 on 1536² tiles, random weights from a
    numpy seed carried over with ``params_from_jax``, 3 batches of 8 tiles.
@@ -35,15 +37,15 @@ Phases (any failure exits non-zero; nothing is caught):
    batch: launches 1/0/0, outputs finite and shaped;
 8. K3's path: the 23 residual units of the calibrated ``int8_full`` model
    (``pack_model_int8_units``), chained stage by stage from a random int8
-   stage input at B=8: 23 launches; then each unit bit-exact against the
-   plain version at B=4;
+   stage input at B=8: 23 launches, each unit bit-exact against the plain
+   version; then the same chain at B=4, bit-exact;
 9. timings on the card: the three Detectors at B=8 and B=32 (tiles already
    on the card), a ``torch.profiler`` breakdown of the bf16 and
    ``int8_full`` device time at B=8, and each kernel's time beside its plain
    version, a PyTorch library yardstick where one exists, and its bound
-   (H100 SXM peaks: 989 TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s); K2 per
-   stage at B=8 and B=32 with its launch plan (grid, blocks per SM, waves,
-   executed-work ratio) and achieved TFLOP/s;
+   (H100 SXM peaks: 989 TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s); K2 and
+   K3 per stage at B=8 and B=32 with their launch plans (grid, blocks per
+   SM, waves, executed-work ratio) and achieved TFLOP/s or TOP/s;
 10. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -64,8 +66,8 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 STAGES = ((208, 64, 1), (104, 128, 2), (52, 256, 8), (26, 512, 8), (13, 1024, 4))
 DETECTOR_BATCHES = (8, 32)                   # phases 6 (the first) and 9
-K2_CHECK_BATCHES = (1, 4) + DETECTOR_BATCHES  # K2's plan depends on B
-K2_RAGGED = (20, 128)                        # H = W = 20: no tile size divides it
+CHECK_BATCHES = (1, 4) + DETECTOR_BATCHES  # K2's and K3's plans depend on B
+RAGGED_UNIT = (20, 128)                    # H = W = 20: no tile size divides it
 K2_RTOL, K2_ATOL = 2.0 ** -7, 2.0 ** -6      # one bf16 ulp, relative
 HEAD_TOL = 5e-2                              # max |Δ| / max |plain| per head
 SEED = 0
@@ -274,11 +276,13 @@ def main() -> int:
     from amyloid_yolo_tpu_torch.graphspec import yolov3_spec
     from amyloid_yolo_tpu_torch.io.weights import params_from_jax
     from amyloid_yolo_tpu_torch.kernels import _build, launch_counts, reset_launch_counts
+    from amyloid_yolo_tpu_torch.kernels import conv_block
     from amyloid_yolo_tpu_torch.kernels.conv_block import (
-        blocks_per_sm, c_blocks_per_sm, c_smem_bytes, fused_residual_block,
-        fused_residual_block_plain, plan_launch, plan_stats, smem_bytes, unit_flops)
+        K2, blocks_per_sm, fused_residual_block, fused_residual_block_plain, plan_launch,
+        plan_stats, unit_flops)
+    from amyloid_yolo_tpu_torch.kernels import int8_block
     from amyloid_yolo_tpu_torch.kernels.int8_block import (
-        fused_residual_block_int8, fused_residual_block_int8_plain, pack_model_int8_units)
+        K3, fused_residual_block_int8, fused_residual_block_int8_plain, pack_model_int8_units)
     from amyloid_yolo_tpu_torch.kernels.preprocess_kernel import (
         resize_normalize, resize_normalize_plain)
     from amyloid_yolo_tpu_torch.models import darknet
@@ -309,23 +313,25 @@ def main() -> int:
         raise AssertionError("K1 is not bit-exact to its plain version")
 
     # 4. K2 against its plain version at the five stage shapes
-    def k2_plan(b, h, c):
-        """The launch plan, its statistics, and the C side's blocks per SM;
-        Python's and C's shared memory and blocks per SM must agree."""
-        plan = plan_launch(b, h, h, c, sms)
-        stats = plan_stats(b, h, h, c, plan, sms)
-        c_smem = c_smem_bytes(h, h, c, plan)
-        c_bps = c_blocks_per_sm(c, plan, stats.smem)
+    def checked_plan(b, h, c, kernel):
+        """The launch plan of K2 or K3, its statistics, and the C side's
+        blocks per SM; Python's and C's shared memory and blocks per SM must
+        agree."""
+        lib = int8_block if kernel is K3 else conv_block
+        plan = plan_launch(b, h, h, c, sms, kernel)
+        stats = plan_stats(b, h, h, c, plan, sms, kernel)
+        c_smem = lib.c_smem_bytes(h, h, c, plan)
+        c_bps = lib.c_blocks_per_sm(c, plan, stats.smem)
         if c_smem != stats.smem or c_bps != blocks_per_sm(stats.smem, plan):
-            raise AssertionError(f"K2 plan {plan} at B={b} {h}x{h}x{c}: shared memory "
-                                 f"{stats.smem} (Python) vs {c_smem} (C), blocks per SM "
-                                 f"{blocks_per_sm(stats.smem, plan)} vs {c_bps}")
+            raise AssertionError(f"{kernel.name} plan {plan} at B={b} {h}x{h}x{c}: shared "
+                                 f"memory {stats.smem} (Python) vs {c_smem} (C), blocks "
+                                 f"per SM {blocks_per_sm(stats.smem, plan)} vs {c_bps}")
         return plan, stats, c_bps
 
     k2_err = 0.0
-    for b in K2_CHECK_BATCHES:
-        for h, c in [s[:2] for s in STAGES] + [K2_RAGGED]:
-            plan, stats, _ = k2_plan(b, h, c)
+    for b in CHECK_BATCHES:
+        for h, c in [s[:2] for s in STAGES] + [RAGGED_UNIT]:
+            plan, stats, _ = checked_plan(b, h, c, K2)
             args = k2_stage_inputs(b, h, c, dev, gen)
             y, r = fused_residual_block(*args), fused_residual_block_plain(*args)
             torch.cuda.synchronize()
@@ -341,18 +347,23 @@ def main() -> int:
     # 5. K3 against its plain version at the five stage shapes: bit-exact
     sx, s1, s_out = K3_SCALES
     k3_err = 0
-    for h, c, _ in STAGES:
-        xq, pack = k3_stage_inputs(4, h, c, dev, gen)
-        y = fused_residual_block_int8(xq, *pack, sx=sx, s1=s1, s_out=s_out)
-        r = fused_residual_block_int8_plain(xq, *pack, sx=sx, s1=s1, s_out=s_out)
-        torch.cuda.synchronize()
-        err = (y.int() - r.int()).abs().max().item()
-        k3_err = max(k3_err, err)
-        print(f"K3 fused_residual_block_int8 B=4 {h}x{h}x{c}: max|diff| {err}, "
-              f"{(y != r).sum().item()} of {y.numel()} differ (tolerance: bit-exact); "
-              f"{(r.abs() == 127).float().mean().item():.4f} of the outputs saturate", flush=True)
-        if not torch.equal(y, r):
-            raise AssertionError(f"K3 is not bit-exact to its plain version at {h}x{h}x{c}")
+    for b in CHECK_BATCHES:
+        for h, c in [s[:2] for s in STAGES] + [RAGGED_UNIT]:
+            plan, stats, _ = checked_plan(b, h, c, K3)
+            xq, pack = k3_stage_inputs(b, h, c, dev, gen)
+            y = fused_residual_block_int8(xq, *pack, sx=sx, s1=s1, s_out=s_out)
+            r = fused_residual_block_int8_plain(xq, *pack, sx=sx, s1=s1, s_out=s_out)
+            torch.cuda.synchronize()
+            err = (y.int() - r.int()).abs().max().item()
+            k3_err = max(k3_err, err)
+            print(f"K3 fused_residual_block_int8 B={b} {h}x{h}x{c}: max|diff| {err}, "
+                  f"{(y != r).sum().item()} of {y.numel()} differ (tolerance: bit-exact); "
+                  f"{(r.abs() == 127).float().mean().item():.4f} of the outputs saturate; "
+                  f"plan {tuple(plan)}, shared memory {stats.smem} B (Python = C)", flush=True)
+            if not torch.equal(y, r):
+                raise AssertionError(f"K3 is not bit-exact to its plain version at "
+                                     f"B={b} {h}x{h}x{c}")
+            del xq, pack, y, r
 
     # 6. the main path
     spec = yolov3_spec(num_classes=2)
@@ -430,26 +441,32 @@ def main() -> int:
             x = y
         return outs
 
+    def check_chain(b, outs):
+        nonlocal k3_err
+        n_diff = n_sat = n_all = 0
+        for i, x, y in outs:
+            u = units[i]
+            r = fused_residual_block_int8_plain(x, *u.pack, sx=u.sx, s1=u.s1, s_out=u.s_out)
+            n_diff += (y != r).sum().item()
+            n_sat += (r.abs() == 127).sum().item()
+            n_all += r.numel()
+            k3_err = max(k3_err, (y.int() - r.int()).abs().max().item())
+        print(f"K3 on the model's 23 units (B={b}): {n_diff} of {n_all} values differ from "
+              f"the plain version (tolerance: bit-exact); {n_sat / n_all:.4f} of the outputs "
+              "saturate", flush=True)
+        if n_diff:
+            raise AssertionError(f"K3 is not bit-exact on the model's units at B={b}")
+
     reset_launch_counts()
-    chain(8, fused_residual_block_int8)
+    outs8 = chain(8, fused_residual_block_int8)
     torch.cuda.synchronize()
     k3_launches = launch_counts()["fused_residual_block_int8"]
     print(f"K3 path (23 units of the int8_full model, B=8): {launch_counts()}")
     if k3_launches != 23:
         raise AssertionError(f"K3 path launched K3 {k3_launches} times, want 23")
-    n_diff = n_sat = n_all = 0
-    for i, x, y in chain(4, fused_residual_block_int8):
-        u = units[i]
-        r = fused_residual_block_int8_plain(x, *u.pack, sx=u.sx, s1=u.s1, s_out=u.s_out)
-        n_diff += (y != r).sum().item()
-        n_sat += (r.abs() == 127).sum().item()
-        n_all += r.numel()
-        k3_err = max(k3_err, (y.int() - r.int()).abs().max().item())
-    print(f"K3 on the model's 23 units (B=4): {n_diff} of {n_all} values differ from the "
-          f"plain version (tolerance: bit-exact); {n_sat / n_all:.4f} of the outputs "
-          "saturate", flush=True)
-    if n_diff:
-        raise AssertionError("K3 is not bit-exact on the model's units")
+    check_chain(8, outs8)
+    del outs8
+    check_chain(4, chain(4, fused_residual_block_int8))
 
     # 9. timings
     detector = {}
@@ -477,7 +494,7 @@ def main() -> int:
         for b in DETECTOR_BATCHES:
             k2_rows[b] = []
             for h, c, n in STAGES:
-                plan, stats, c_bps = k2_plan(b, h, c)
+                plan, stats, c_bps = checked_plan(b, h, c, K2)
                 x, w1t, b1, w2t, b2 = k2_stage_inputs(b, h, c, dev, gen)
                 ms = cuda_ms(lambda: fused_residual_block(x, w1t, b1, w2t, b2))
                 plain_ms = (cuda_ms(lambda: fused_residual_block_plain(x, w1t, b1, w2t, b2))
@@ -509,31 +526,46 @@ def main() -> int:
         print(f"K2 23 units: B=8 {sum(s['ms'] * s['units'] for s in stages):.4f} ms, "
               f"B=32 {sum(s['ms'] * s['units'] for s in k2_rows[32]):.4f} ms [{card}]")
 
-        stages3 = []
-        for h, c, n in STAGES:
-            xq, pack = k3_stage_inputs(8, h, c, dev, gen)
-            ms = cuda_ms(lambda: fused_residual_block_int8(xq, *pack, sx=sx, s1=s1, s_out=s_out))
-            plain_ms = cuda_ms(lambda: fused_residual_block_int8_plain(
-                xq, *pack, sx=sx, s1=s1, s_out=s_out))
-            # yardstick: the two GEMMs alone, epilogues left out — the 1x1 on
-            # the map, the 3x3 as one GEMM on a prebuilt im2col matrix
-            a1x1 = xq.reshape(-1, c)
-            w1 = pack[0].t()
-            hq = torch.randint(-127, 128, (8, h + 2, h + 2, c // 2), dtype=torch.int8,
-                               device=dev, generator=gen)
-            cols = torch.cat([hq[:, di:di + h, dj:dj + h].reshape(-1, c // 2)
-                              for di in range(3) for dj in range(3)], dim=1)
-            w2 = pack[3].permute(1, 0, 2).reshape(c, 9 * (c // 2)).t()
-            lib_ms = (cuda_ms(lambda: torch._int_mm(a1x1, w1))
-                      + cuda_ms(lambda: torch._int_mm(cols, w2)))
-            bound, by = k3_bound(8, h, c)
-            stages3.append({"shape": f"8x{h}x{h}x{c}", "units": n, "ms": ms,
-                            "plain_ms": plain_ms, "library_ms": lib_ms,
-                            "bound_ms": bound, "bound_by": by})
-            print(f"K3 B=8 {h}x{h}x{c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"_int_mm 1x1 + im2col 3x3 (GEMMs only) {lib_ms:.4f} ms, "
-                  f"bound {bound:.4f} ms ({by}) [{card}]", flush=True)
-            del xq, pack, hq, cols
+        k3_rows = {}
+        for b in DETECTOR_BATCHES:
+            k3_rows[b] = []
+            for h, c, n in STAGES:
+                plan, stats, c_bps = checked_plan(b, h, c, K3)
+                xq, pack = k3_stage_inputs(b, h, c, dev, gen)
+                ms = cuda_ms(lambda: fused_residual_block_int8(xq, *pack, sx=sx, s1=s1,
+                                                               s_out=s_out))
+                plain_ms = (cuda_ms(lambda: fused_residual_block_int8_plain(
+                    xq, *pack, sx=sx, s1=s1, s_out=s_out)) if b == 8 else None)
+                # yardstick: the two GEMMs alone, epilogues left out — the 1x1
+                # on the map, the 3x3 as one GEMM on a prebuilt im2col matrix
+                a1x1 = xq.reshape(-1, c)
+                w1 = pack[0].t()
+                hq = torch.randint(-127, 128, (b, h + 2, h + 2, c // 2), dtype=torch.int8,
+                                   device=dev, generator=gen)
+                cols = torch.cat([hq[:, di:di + h, dj:dj + h].reshape(-1, c // 2)
+                                  for di in range(3) for dj in range(3)], dim=1)
+                del hq
+                w2 = pack[3].permute(1, 0, 2).reshape(c, 9 * (c // 2)).t()
+                lib_ms = (cuda_ms(lambda: torch._int_mm(a1x1, w1))
+                          + cuda_ms(lambda: torch._int_mm(cols, w2)))
+                bound, by = k3_bound(b, h, c)
+                tops = b * unit_flops(h, h, c) / ms / 1e9
+                k3_rows[b].append({
+                    "shape": f"{b}x{h}x{h}x{c}", "units": n, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                    "plan": list(plan), "grid": stats.grid, "blocks_per_sm": c_bps,
+                    "waves": stats.grid / (sms * c_bps), "work_ratio": stats.work_ratio,
+                    "tops": tops})
+                plain = f"{plain_ms:.4f} ms" if plain_ms is not None else "not measured"
+                print(f"K3 B={b} {h}x{h}x{c}: grid {stats.grid}, {c_bps} blocks/SM, "
+                      f"{stats.grid / (sms * c_bps):.2f} waves, executed-work ratio "
+                      f"{stats.work_ratio:.3f}, {tops:.1f} TOP/s; kernel {ms:.4f} ms, "
+                      f"plain {plain}, _int_mm 1x1 + im2col 3x3 (GEMMs only) {lib_ms:.4f} ms, "
+                      f"bound {bound:.4f} ms ({by}) [{card}]", flush=True)
+                del xq, pack, cols
+        stages3 = k3_rows[8]
+        print(f"K3 23 units: B=8 {sum(s['ms'] * s['units'] for s in stages3):.4f} ms, "
+              f"B=32 {sum(s['ms'] * s['units'] for s in k3_rows[32]):.4f} ms [{card}]")
 
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
@@ -569,7 +601,8 @@ def main() -> int:
          "ms": total(stages3, "ms"), "kernel_ms": total(stages3, "ms"),
          "plain_ms": total(stages3, "plain_ms"), "bound_ms": total(stages3, "bound_ms"),
          "bound_by": bound_by(stages3), "library_ms": total(stages3, "library_ms"),
-         "shape": "the 23 units of one B=8 batch", "stages": stages3},
+         "shape": "the 23 units of one B=8 batch", "stages": stages3,
+         "stages_b32": k3_rows[32]},
     ]
     print(json.dumps({"detector": detector, "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,7 @@ import torch
 
 from amyloid_yolo_tpu_torch.kernels.conv_block import (
     COST_MODEL,
+    K2,
     MAX_SMEM_BYTES,
     Plan,
     feasible_plans,
@@ -56,6 +57,28 @@ def test_plan_covers_every_output_once(case):
         n += 1
     assert (count == 1).all()
     assert n == plan_stats(b, h, h, c, plan).grid
+
+
+# K2's picks at every case, as fitted to conv_block_plan_times.json; the
+# planner serves K3 too, and K2's tilings must not move with it
+K2_PICKS = {
+    (1, 208, 64): (5, 35, 64, 64, 32), (1, 104, 128): (6, 21, 128, 128, 64),
+    (1, 52, 256): (6, 8, 128, 128, 64), (1, 26, 512): (4, 4, 256, 256, 64),
+    (1, 13, 1024): (2, 7, 256, 256, 64), (1, 20, 128): (3, 5, 128, 128, 64),
+    (8, 208, 64): (8, 30, 64, 64, 32), (8, 104, 128): (8, 21, 128, 64, 32),
+    (8, 52, 256): (13, 13, 256, 128, 64), (8, 26, 512): (7, 13, 256, 256, 64),
+    (8, 13, 1024): (7, 7, 256, 256, 64), (8, 20, 128): (3, 10, 128, 128, 64),
+    (32, 208, 64): (7, 35, 64, 64, 32), (32, 104, 128): (13, 35, 128, 128, 64),
+    (32, 52, 256): (9, 26, 256, 128, 64), (32, 26, 512): (7, 13, 512, 256, 64),
+    (32, 13, 1024): (7, 13, 512, 128, 32), (32, 20, 128): (10, 10, 128, 128, 64),
+}
+
+
+@pytest.mark.parametrize("case", CASES, ids=_id)
+def test_k2_picks_are_unchanged(case):
+    b, h, c = case
+    assert tuple(plan_launch(b, h, h, c)) == K2_PICKS[case]
+    assert tuple(plan_launch(b, h, h, c, 132, K2)) == K2_PICKS[case]
 
 
 @pytest.mark.parametrize("case", CASES, ids=_id)
