@@ -8,17 +8,22 @@
       → rescale to tile pixels                          (ops.boxes)
     → (B, capacity, 7) boxes + (B, capacity) validity
 
-Counterpart of the reference package's ``detectors.py:Detector``
-(``:86-458``, ``:507-561``): the precisions ``bf16`` (BN folded or not),
-``int8_early`` and ``int8_full`` (int8 executors in ``models.darknet``, no
-K2), calibration and its sidecars.  ``detect_folder``, the merge/CAA
-post-passes, meshes and the TPU-only options are not ported yet (see
-ROADMAP.md).
+Counterpart of the reference package's ``detectors.py``: the precisions
+``bf16`` (BN folded or not), ``int8_early`` and ``int8_full`` (int8
+executors in ``models.darknet``, no K2), calibration and its sidecars, and
+:meth:`Detector.detect_folder`, the path of ``detect``: a folder of tiles
+through the reader (:mod:`.io.datasets`, :mod:`.io.native`), the call
+above, the border rescale, the union merge (:mod:`.ops.merge`) and the CAA
+filter (:mod:`.domain`).  Meshes and the TPU-only options are not ported
+yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import collections
+import hashlib
 import json
+import os
 import warnings
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -26,12 +31,24 @@ import numpy as np
 import torch
 
 from .graphspec import GraphSpec, yolov3_spec
+from .io.datasets import ImageFolder
+from .io.tissue import prefilter_tile_paths
 from .kernels.preprocess_kernel import resize_normalize
 from .models import darknet, heads
 from .ops import nms as nms_ops
-from .ops.boxes import rescale_boxes
+from .ops.boxes import rescale_boxes, rescale_from_tile_frame
+from .ops.merge import merge_detections
 from .ops.preprocess import f32_from_bf16_input, preprocess_tiles
 from .utils.device import DeviceLike, resolve_device
+
+
+def resolve_batch_size(batch_size, n_images: int) -> int:
+    """A ``batch_size`` that may be ``"auto"``: batch 32 when the queue
+    fills at least two of them (``n_images >= 64``), else 16, as the
+    reference chooses.  Integers and numeric strings pass through."""
+    if isinstance(batch_size, str) and batch_size.strip().lower() == "auto":
+        return 32 if n_images >= 64 else 16
+    return int(batch_size)
 
 
 class Detector:
@@ -300,9 +317,40 @@ class Detector:
         self._calib_meta = {**d.get("meta", {}), "loaded_from": path}
         return self._act_scales
 
-    def _calibrate_from_folder(self, folder_ds, batch_size: int) -> None:
-        raise NotImplementedError("folder calibration is not ported yet: it needs "
-                                  "detect_folder (ROADMAP.md Queue 1 item 7)")
+    #: tiles a folder run calibrates on (one batch of 8 under-covers the
+    #: activation range)
+    CALIB_TILES = 48
+
+    def _calibrate_from_folder(self, folder_ds: ImageFolder, batch_size: int) -> None:
+        """int8 scales from the first ~:attr:`CALIB_TILES` tiles of a folder
+        (amax accumulated batch by batch), with their provenance (tile
+        names, an order-sensitive sha256, the first four) in the sidecar's
+        ``meta``."""
+        chunks, got, used = [], 0, []
+        for paths, batch, n_valid in folder_ds.iter_batches(batch_size):
+            take = min(n_valid, self.CALIB_TILES - got)
+            used.extend(paths[:take])
+            c = np.asarray(batch)[:take]
+            if len(c) < batch_size:
+                # pad by cycling the chunk's real tiles, so a percentile
+                # statistic weighs every real tile about equally
+                c = np.concatenate([c, c[np.arange(batch_size - len(c)) % len(c)]], axis=0)
+            chunks.append(c)
+            got += take
+            if got >= self.CALIB_TILES:
+                break
+        if not chunks:
+            return
+        names = [os.path.basename(str(p)) for p in used]
+        self._calib_meta = {
+            "source": "folder",
+            "n_tiles": len(names),
+            "tiles_sha256": hashlib.sha256("\n".join(names).encode()).hexdigest(),
+            "first_tiles": names[:4],
+        }
+        for c in chunks[:-1]:
+            self.calibrate(c, accumulate=True, rebuild=False)
+        self.calibrate(chunks[-1], accumulate=True)
 
     @torch.inference_mode()
     def __call__(self, tiles_u8) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -356,5 +404,70 @@ class Detector:
         self.account_overflow(n_valid)
         return out
 
+    def detect_folder(self, folder: str, batch_size=16, merge_boxes: bool = False,
+                      caa_filter=None, pipeline_depth: int = 2, fast_decode: bool = False,
+                      background_skip: bool = False) -> Dict[str, Optional[np.ndarray]]:
+        """Detections for every image of a folder: ``{path: (N, 7) rows in
+        the image's own pixels, or None}``.  Unreadable files are reported
+        and left out.
 
-__all__ = ["Detector"]
+        ``batch_size``: an int or ``"auto"`` (:func:`resolve_batch_size`).
+        ``merge_boxes``: union-merge overlapping same-class boxes
+        (:func:`~.ops.merge.merge_detections`).  ``caa_filter``: a callable
+        ``(path, dets) -> dets``, e.g. :meth:`.domain.CAAFilter.filter_path`.
+        ``fast_decode``: the native reader's DCT-scaled decode with
+        ``host_resize`` (:class:`~.io.datasets.ImageFolder`).
+        ``background_skip``: drop background tiles before decoding them
+        (:func:`~.io.tissue.prefilter_tile_paths`); they come back as
+        ``None``.  The int8 precisions calibrate on the folder's first
+        tiles (:meth:`_calibrate_from_folder`) when they have no scales.
+
+        Up to ``pipeline_depth`` batches are on the device while the host
+        merges and filters earlier ones: launches are asynchronous, and the
+        only sync is :func:`~.ops.nms.dense_to_ragged` in the drain.
+        """
+        folder_ds = ImageFolder(folder, tile_size=self.tile_size,
+                                resize_to=self.model_size if self.host_resize else None,
+                                fast_decode=fast_decode)
+        results: Dict[str, Optional[np.ndarray]] = {}
+        if background_skip:
+            folder_ds.files, skipped = prefilter_tile_paths(folder_ds.files)
+            for p in skipped:
+                results[p] = None
+            if skipped:
+                print(f"background prefilter skipped {len(skipped)}/"
+                      f"{len(skipped) + len(folder_ds.files)} tiles", flush=True)
+            if not folder_ds.files:
+                return results
+        inflight: "collections.deque" = collections.deque()
+
+        def drain_one():
+            paths, n_valid, (dets, valid), n_cand = inflight.popleft()
+            ragged = nms_ops.dense_to_ragged(dets, valid)  # the sync point
+            self.account_overflow(n_valid, n_cand)
+            for path, det in list(zip(paths, ragged))[:n_valid]:
+                if det is not None:
+                    orig = folder_ds.orig_shapes.get(path)
+                    if orig is not None:  # WSI borders: back to the image's pixels
+                        det = rescale_from_tile_frame(det, self.tile_size, orig)
+                if det is not None and merge_boxes:
+                    det = merge_detections(det)
+                if det is not None and caa_filter is not None:
+                    det = caa_filter(path, det)
+                    if det is not None and len(det) == 0:
+                        det = None
+                results[path] = det
+
+        batch_size = resolve_batch_size(batch_size, len(folder_ds))
+        if self.precision.startswith("int8") and self._act_scales is None:
+            self._calibrate_from_folder(folder_ds, batch_size)
+        for paths, batch, n_valid in folder_ds.iter_batches(batch_size):
+            inflight.append((paths, n_valid, self(batch), self._last_ncand))
+            if len(inflight) > pipeline_depth:
+                drain_one()
+        while inflight:
+            drain_one()
+        return results
+
+
+__all__ = ["Detector", "resolve_batch_size"]

@@ -35,7 +35,6 @@ accumulate in float32 over bf16 values and keep the float32 result.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple
 
 import numpy as np
@@ -54,6 +53,7 @@ from ..graphspec import (
 from ..io.weights import StateDict, _bn_key, _conv_key, _np32
 from ..kernels.conv_block import LEAKY_SLOPE, fused_residual_block, pack_block_weights
 from ..ops import int8 as q8
+from ..utils.device import no_tf32
 
 Folded = Dict[str, Dict[str, torch.Tensor]]
 Packs = Dict[int, Tuple[torch.Tensor, ...]]
@@ -349,17 +349,6 @@ def quantize_folded_int8_full(folded: Folded, spec: GraphSpec) -> QParams:
     return _quantize(folded, int8_full_conv_indices(spec))
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """float32 convolutions and matmuls in full float32 on the card."""
-    cudnn, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, mm
-
-
 def _act_stat(t: torch.Tensor, percentile: float) -> torch.Tensor:
     """max |t| at ``percentile >= 100``, else that percentile of |t| by
     ``jnp.quantile``'s linear rule in float32: position ``q·(n−1)``, the
@@ -389,7 +378,7 @@ def _calibrate(folded: Folded, spec: GraphSpec, x: torch.Tensor, upto: int,
     stats = {"in": _act_stat(prev, percentile)}
     last_use = _last_use(spec)
     saved: Dict[int, torch.Tensor] = {}
-    with _no_tf32():
+    with no_tf32():
         for i, layer in enumerate(spec.layers[:upto]):
             if isinstance(layer, ConvSpec):
                 out = F.conv2d(prev, folded[f"conv_{i}"]["w"].to(f32),

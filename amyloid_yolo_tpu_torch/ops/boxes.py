@@ -1,4 +1,4 @@
-"""Box coordinate and IoU primitives (reference package ``ops/boxes.py:22-129``).
+"""Box coordinate and IoU primitives (reference package ``ops/boxes.py``).
 
 :func:`bbox_iou` keeps the detection-ops convention of the reference
 (``utils/utils.py:202-232``): **+1 pixel** on widths/heights and a 1e-16
@@ -7,6 +7,7 @@ epsilon in the denominator.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -49,4 +50,29 @@ def rescale_boxes(boxes: torch.Tensor, current_dim: int, orig_h: int,
     return torch.cat([torch.stack([x1, y1, x2, y2], dim=-1), boxes[..., 4:]], dim=-1)
 
 
-__all__ = ["xywh2xyxy", "bbox_iou", "rescale_boxes"]
+def rescale_from_tile_frame(dets: np.ndarray, tile_size: int,
+                            original_shape) -> np.ndarray:
+    """Map host detections from the square tile frame back to an image's
+    own pixels.
+
+    :class:`~amyloid_yolo_tpu_torch.io.datasets.ImageFolder` frames a
+    non-square or undersized tile (a WSI border) by centre-padding it to
+    ``side = max(h, w)`` and nearest-resizing that square to ``tile_size``.
+    The inverse scales by ``side / tile_size`` and subtracts the centre pads.
+    Standard ``(tile_size, tile_size)`` tiles pass through unchanged.
+    """
+    h, w = int(original_shape[0]), int(original_shape[1])
+    if (h, w) == (tile_size, tile_size):
+        return np.asarray(dets)
+    side = max(h, w)
+    p1 = abs(h - w) // 2
+    # h < w: vertical pad (top = p1); w < h: horizontal pad (left = p1)
+    pad_l, pad_t = (0, p1) if h < w else (p1, 0) if w < h else (0, 0)
+    s = side / float(tile_size)
+    out = np.array(dets, np.float32, copy=True)
+    out[:, [0, 2]] = out[:, [0, 2]] * s - pad_l
+    out[:, [1, 3]] = out[:, [1, 3]] * s - pad_t
+    return out
+
+
+__all__ = ["xywh2xyxy", "bbox_iou", "rescale_boxes", "rescale_from_tile_frame"]

@@ -7,6 +7,7 @@ CPU run.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -24,4 +25,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "DeviceLike"]
+@contextlib.contextmanager
+def no_tf32():
+    """float32 convolutions and matmuls in full float32 on the card."""
+    cudnn, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, mm
+
+
+__all__ = ["resolve_device", "DeviceLike", "no_tf32"]

@@ -46,7 +46,27 @@ Phases (any failure exits non-zero; nothing is caught):
    (H100 SXM peaks: 989 TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s); K2 and
    K3 per stage at B=8 and B=32 with their launch plans (grid, blocks per
    SM, waves, executed-work ratio) and achieved TFLOP/s or TOP/s;
-10. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
+10. the folder path (``Detector.detect_folder``, the path of ``detect``): a
+   temporary folder that PIL writes (37 synthetic stain tiles of 1536², one
+   1536×1000 border tile, two near-blank tiles, one corrupt ``.jpg``); the
+   decoder is the port's native tile reader where the libjpeg headers are
+   present (then it must build) and PIL where they are absent.  The bf16
+   Detector of phase 6 runs ``detect_folder(batch_size=8, merge_boxes=True,
+   caa_filter=CAAFilter(...).filter_path)`` with a random classifier from a
+   numpy seed: K1 launches = K2 launches / 23 = the batch count; every
+   readable path in the result, the corrupt one reported and absent; the
+   border tile's boxes in its own pixels; the result equal, box for box, to
+   an explicit recomputation (reader, ``Detector.__call__``,
+   ``dense_to_ragged``, ``rescale_from_tile_frame``, ``merge_detections``,
+   the filter); the classifier on the card within ``CAA_TOL`` of its CPU
+   float32 run; ``background_skip=True`` returns the blank tiles as
+   ``None``; an ``int8_full`` Detector calibrates from the folder and its
+   sidecar records the 40 readable tiles.  Then tiles/s of
+   ``detect_folder`` at B=8 and B=32 from the JPEGs on disk to the filtered
+   boxes, beside the reader alone and ``Detector.__call__`` on the same
+   tiles already on the card, and a ``torch.profiler`` trace of one B=8
+   folder run for the device's busy time and idle share;
+11. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
@@ -54,8 +74,11 @@ f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -72,6 +95,8 @@ K2_RTOL, K2_ATOL = 2.0 ** -7, 2.0 ** -6      # one bf16 ulp, relative
 HEAD_TOL = 5e-2                              # max |Δ| / max |plain| per head
 SEED = 0
 K3_SCALES = (0.011, 0.017, 0.023)            # sx, s1, s_out of the reference tool
+CAA_TOL = 1e-3                               # classifier probabilities, card vs CPU f32
+FOLDER = dict(n_tiles=37, side=1536, border=(1000, 1536), blank=2)
 
 
 def nvidia_smi_line() -> str:
@@ -234,6 +259,298 @@ def k3_stage_inputs(b, h, c, dev, gen):
         ri(c2, c, 1, 1), ru(1e-3, 2e-2, c2), ru(-1, 1, c2),
         ri(c, c2, 3, 3), ru(1e-3, 2e-2, c), ru(-1, 1, c))
     return ri(b, h, h, c), (w1t, ws1 * sx, b1, w2t, ws2 * s1, b2)
+
+
+def libjpeg_present() -> bool:
+    """Whether ``g++`` compiles and links a program against libjpeg, which
+    is what the port's tile reader needs to build."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        return False
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [cxx, "-x", "c++", "-", "-o", os.path.join(tmp, "probe"), "-ljpeg"],
+            input="#include <cstdio>\n#include <jpeglib.h>\n"
+                  "int main() { jpeg_error_mgr e; return jpeg_std_error(&e) == nullptr; }\n",
+            capture_output=True, text=True, timeout=120)
+    return proc.returncode == 0
+
+
+def stain_tile(rng, h: int, w: int):
+    """A smooth synthetic stained-tissue tile, uint8 (h, w, 3): dark stain
+    blobs over a bright background at quarter resolution, upsampled, plus
+    grain, so its JPEG has a real tile's size (0.1-1 MB at 1536²)."""
+    import numpy as np
+    hq, wq = -(-h // 4), -(-w // 4)
+    yy, xx = np.mgrid[0:hq, 0:wq] / float(max(hq, wq))
+    img = np.full((hq, wq, 3), 236.0)
+    for _ in range(10):
+        cy, cx = rng.rand(2)
+        blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / rng.uniform(0.002, 0.03))
+        img -= blob[..., None] * rng.uniform([50, 80, 100], [110, 150, 170])
+    img = np.repeat(np.repeat(img, 4, axis=0), 4, axis=1)[:h, :w]
+    img += rng.randint(-5, 6, (h, w, 1))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_folder(folder: str, seed: int, n_tiles: int, side: int, border, blank: int):
+    """The phase-10 folder; returns (readable paths, border path, blank
+    paths, corrupt path)."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    tiles = [os.path.join(folder, f"t{i:03d}.jpg") for i in range(n_tiles)]
+    for p in tiles:
+        Image.fromarray(stain_tile(rng, side, side)).save(p, quality=90)
+    border_p = os.path.join(folder, "u_border.jpg")
+    Image.fromarray(stain_tile(rng, *border)).save(border_p, quality=90)
+    blanks = [os.path.join(folder, f"v_blank{i}.jpg") for i in range(blank)]
+    for p in blanks:
+        img = np.full((side, side, 3), 243, np.uint8) + rng.randint(0, 3, (side, side, 1)).astype(np.uint8)
+        Image.fromarray(img).save(p, quality=90)
+    corrupt = os.path.join(folder, "c_bad.jpg")
+    with open(corrupt, "wb") as fh:
+        fh.write(b"not a jpeg")
+    return sorted(tiles + [border_p] + blanks), border_p, blanks, corrupt
+
+
+def random_classifier_params(seed: int):
+    """The CAA classifier's weights in the reference package's layout
+    (numpy): He-normal HWIO convs, random BN statistics, a linear layer
+    N(0, 0.01²)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    params, in_ch = {}, 3
+    for i, w in enumerate((16, 32, 48, 64, 80, 96)):
+        params[f"conv_{i}"] = {
+            "w": (rng.randn(3, 3, in_ch, w) * np.sqrt(2.0 / (9 * in_ch))).astype(np.float32),
+            "b": (0.05 * rng.randn(w)).astype(np.float32)}
+        params[f"bn_{i}"] = {"scale": (1 + 0.1 * rng.randn(w)).astype(np.float32),
+                             "bias": (0.1 * rng.randn(w)).astype(np.float32),
+                             "mean": (0.05 * rng.randn(w)).astype(np.float32),
+                             "var": (0.5 + rng.rand(w)).astype(np.float32)}
+        in_ch = w
+    params["fc"] = {"w": (0.01 * rng.randn(96 * 16, 3)).astype(np.float32),
+                    "b": np.zeros(3, np.float32)}
+    return params
+
+
+def recompute_folder(det, folder: str, batch_size: int, caa):
+    """``detect_folder(merge_boxes=True, caa_filter=caa.filter_path)``
+    spelled out, one stage after another: the reader, ``Detector.__call__``,
+    ``dense_to_ragged``, ``rescale_from_tile_frame``, ``merge_detections``,
+    the filter.  Returns (results, batches, host seconds per stage)."""
+    from amyloid_yolo_tpu_torch.io.datasets import ImageFolder
+    from amyloid_yolo_tpu_torch.ops.boxes import rescale_from_tile_frame
+    from amyloid_yolo_tpu_torch.ops.merge import merge_detections
+    from amyloid_yolo_tpu_torch.ops.nms import dense_to_ragged
+    ds = ImageFolder(folder, tile_size=det.tile_size)
+    out, n_batches = {}, 0
+    secs = {"waiting for the reader": 0.0, "Detector call + dense_to_ragged": 0.0,
+            "rescale + merge": 0.0, "CAA filter (decode + crops + classifier)": 0.0}
+    stages = list(secs)
+    batches = ds.iter_batches(batch_size)
+    while True:
+        t0 = time.perf_counter()
+        item = next(batches, None)
+        t1 = time.perf_counter()
+        secs[stages[0]] += t1 - t0
+        if item is None:
+            break
+        paths, batch, n_valid = item
+        n_batches += 1
+        ragged = dense_to_ragged(*det(batch))
+        secs[stages[1]] += time.perf_counter() - t1
+        for p, d in list(zip(paths, ragged))[:n_valid]:
+            if d is not None:
+                t0 = time.perf_counter()
+                d = merge_detections(rescale_from_tile_frame(d, det.tile_size,
+                                                             ds.orig_shapes[p]))
+                t1 = time.perf_counter()
+                d = caa.filter_path(p, d)
+                secs[stages[2]] += t1 - t0
+                secs[stages[3]] += time.perf_counter() - t1
+                d = d if len(d) else None
+            out[p] = d
+    return out, n_batches, secs
+
+
+def folder_phase(det, spec, params, card: str) -> dict:
+    """Phase 10 (see the module docstring); returns its JSON record."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    from amyloid_yolo_tpu_torch.domain import CAAFilter, _crop
+    from amyloid_yolo_tpu_torch.io import native
+    from amyloid_yolo_tpu_torch.io.datasets import ImageFolder, load_image_rgb
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from amyloid_yolo_tpu_torch.models import classifier
+
+    record = {}
+    if libjpeg_present():
+        t0 = time.perf_counter()
+        if not native.available():
+            raise AssertionError("libjpeg is present but the port's tile reader did not build")
+        record["decoder"] = "native"
+        print(f"decoder: native (amyloid_yolo_tpu_torch/csrc/tile_reader.cc, built and "
+              f"loaded in {time.perf_counter() - t0:.2f} s)", flush=True)
+    else:
+        record["decoder"] = "pil"
+        print("decoder: pil (no libjpeg headers or library for g++ on this machine)",
+              flush=True)
+    cparams = classifier.from_jax_params(random_classifier_params(SEED))
+    caa = CAAFilter(cparams)
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        readable, border, blanks, corrupt = write_folder(folder, SEED, **FOLDER)
+        sizes = [os.path.getsize(p) for p in readable]
+        print(f"folder: {len(readable)} readable tiles + 1 corrupt written in "
+              f"{time.perf_counter() - t0:.2f} s; JPEG sizes {min(sizes)}-{max(sizes)} B, "
+              f"median {int(np.median(sizes))} B", flush=True)
+
+        # the run, with its launch counts and the reader's report
+        log = io.StringIO()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(log):
+            res = det.detect_folder(folder, batch_size=8, merge_boxes=True,
+                                    caa_filter=caa.filter_path)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(log.getvalue().strip())
+        print(f"detect_folder B=8 launches: {counts}", flush=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            want, n_batches, secs = recompute_folder(det, folder, 8, caa)
+        record["recompute_b8_host_s"] = secs
+        print(f"recomputation B=8, host seconds by stage (run in turn, the reader "
+              f"decoding ahead): {json.dumps({k: round(v, 4) for k, v in secs.items()})} "
+              f"[{card}]", flush=True)
+        if counts != {"resize_normalize": n_batches, "fused_residual_block": 23 * n_batches,
+                      "fused_residual_block_int8": 0}:
+            raise AssertionError(f"detect_folder launches {counts} over {n_batches} batches")
+        if sorted(res) != readable:
+            raise AssertionError(f"result keys {sorted(res)} are not the readable tiles")
+        if corrupt in res or not ("Could not read image" in log.getvalue()
+                                  and corrupt in log.getvalue()):
+            raise AssertionError("the corrupt file was not reported and left out")
+        if sorted(want) != sorted(res) or any(
+                (want[p] is None) != (res[p] is None)
+                or (res[p] is not None and not np.array_equal(res[p], want[p])) for p in res):
+            raise AssertionError("detect_folder differs from its explicit recomputation")
+        rows = [len(v) for v in res.values() if v is not None]
+        n_caa = sum(int((v[:, 6] == 0).sum()) for v in res.values() if v is not None)
+        print(f"detect_folder = recomputation, box for box: {len(res)} tiles, "
+              f"{sum(rows)} boxes after merge and filter ({n_caa} CAA), "
+              f"{sum(v is None for v in res.values())} tiles without boxes", flush=True)
+        b = res[border]
+        if b is not None:
+            h, w = FOLDER["border"]
+            pad = (w - h) // 2
+            cx, cy = (b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2
+            if not ((cx >= 0).all() and (cx <= w).all() and (cy >= -pad).all()
+                    and (cy <= h + pad).all()):
+                raise AssertionError("border boxes are not in the border tile's own pixels")
+            print(f"border tile {h}x{w}: {len(b)} boxes, centres x {cx.min():.1f}-"
+                  f"{cx.max():.1f}, y {cy.min():.1f}-{cy.max():.1f} (its own pixels; the "
+                  f"padded square spans y -{pad}..{h + pad})")
+
+        # the classifier on the card against its CPU float32 run
+        img = load_image_rgb(readable[0])
+        rng = np.random.RandomState(SEED)
+        xy = rng.randint(0, det.tile_size, (8, 2))
+        crops = np.stack([_crop(img, np.array([x, y, x + 64, y + 64], np.float32))
+                          for x, y in xy])
+        p_card = caa.predict_crops(crops)
+        p_cpu = CAAFilter(cparams, device="cpu").predict_crops(crops)
+        caa_err = float(np.abs(p_card - p_cpu).max())
+        print(f"CAA classifier card vs CPU f32 on 8 crops: max|diff| {caa_err} "
+              f"(tolerance {CAA_TOL}); p(CAA) {np.round(p_cpu[:, 2], 4).tolist()}", flush=True)
+        if caa_err > CAA_TOL:
+            raise AssertionError("the CAA classifier on the card disagrees with the CPU")
+
+        skipped = det.detect_folder(folder, batch_size=8, background_skip=True)
+        if sorted(skipped) != readable or any(skipped[p] is not None for p in blanks):
+            raise AssertionError("background_skip did not return the blank tiles as None")
+        print(f"background_skip: {[os.path.basename(p) for p in blanks]} -> None", flush=True)
+
+        d8 = Detector(spec, params, conf_thres=0.3, precision="int8_full")
+        reset_launch_counts()
+        res8 = d8.detect_folder(folder, batch_size=8)
+        torch.cuda.synchronize()
+        counts8 = launch_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(d8.save_calibration(os.path.join(tmp, "int8_full.json"))) as fh:
+                meta = json.load(fh)["meta"]
+        print(f"int8_full detect_folder: launches {counts8}, {len(res8)} tiles; calibration "
+              f"meta {meta}", flush=True)
+        if meta["n_tiles"] != len(readable) or meta["source"] != "folder" or sorted(res8) != readable:
+            raise AssertionError("int8_full did not calibrate on the folder's readable tiles")
+        if counts8["fused_residual_block"] or counts8["fused_residual_block_int8"]:
+            raise AssertionError(f"int8_full launched K2 or K3: {counts8}")
+        del d8
+
+        # timings: from the JPEGs on disk to the filtered boxes
+        n = len(readable)
+        record.update({"tiles": n, "batches_b8": n_batches, "caa_err": caa_err,
+                       "launches_b8": counts})
+        for bs in DETECTOR_BATCHES:
+            reader_s = []
+            for _ in range(2):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    t0 = time.perf_counter()
+                    batches = list(ImageFolder(folder, tile_size=det.tile_size).iter_batches(bs))
+                    reader_s.append(time.perf_counter() - t0)
+            folder_s = []
+            for _ in range(2):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    t0 = time.perf_counter()
+                    det.detect_folder(folder, batch_size=bs, merge_boxes=True,
+                                      caa_filter=caa.filter_path)
+                    torch.cuda.synchronize()
+                    folder_s.append(time.perf_counter() - t0)
+            on_card = [torch.from_numpy(b).cuda() for _, b, _ in batches]
+            with torch.inference_mode():
+                call_ms = sum(cuda_ms(lambda: det(t), iters=5, warmup=2, hold=False)
+                              for t in on_card)
+            best = min(folder_s)
+            record[f"b{bs}"] = {
+                "folder_s": folder_s, "folder_tiles_per_s": [n / t for t in folder_s],
+                "reader_s": reader_s, "reader_tiles_per_s": [n / t for t in reader_s],
+                "call_ms_on_card": call_ms, "call_tiles_per_s": n / call_ms * 1e3,
+                "host_share": 1.0 - call_ms / 1e3 / best}
+            print(f"detect_folder B={bs} ({record['decoder']} decoder, merge + CAA filter, "
+                  f"{n} tiles, {len(on_card)} batches): {[round(t, 3) for t in folder_s]} s = "
+                  f"{[round(n / t, 1) for t in folder_s]} tiles/s; reader alone "
+                  f"{[round(n / t, 1) for t in reader_s]} tiles/s; Detector.__call__ on the "
+                  f"same tiles on the card {call_ms:.2f} ms = {n / call_ms * 1e3:.1f} tiles/s; "
+                  f"host share {record[f'b{bs}']['host_share']:.4f} [{card}]", flush=True)
+            del on_card, batches
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                det.detect_folder(folder, batch_size=8, merge_boxes=True,
+                                  caa_filter=caa.filter_path)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        groups = {}
+        for e in events:
+            g = groups.setdefault("copies and fills" if "Mem" in e.name[:6]
+                                  else kernel_group(e.name), [0, 0.0])
+            g[0] += 1
+            g[1] += e.time_range.elapsed_us() / 1e3
+        record["traced_b8"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                               "idle_share": 1.0 - busy_ms / wall_ms,
+                               "device_launches": len(events),
+                               "by_group": {k: {"launches": c, "ms": ms}
+                                            for k, (c, ms) in sorted(groups.items())}}
+        print(f"detect_folder B=8 traced: wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms "
+              f"in {len(events)} launches, idle share {1.0 - busy_ms / wall_ms:.4f}; by group "
+              f"{json.dumps(record['traced_b8']['by_group'])} [{card}]", flush=True)
+    return record
 
 
 def drive(det, batches, want_counts: dict) -> None:
@@ -567,6 +884,9 @@ def main() -> int:
         print(f"K3 23 units: B=8 {sum(s['ms'] * s['units'] for s in stages3):.4f} ms, "
               f"B=32 {sum(s['ms'] * s['units'] for s in k3_rows[32]):.4f} ms [{card}]")
 
+    # 10. the folder path
+    folder = folder_phase(det, spec, params, card)
+
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
 
@@ -605,6 +925,7 @@ def main() -> int:
          "stages_b32": k3_rows[32]},
     ]
     print(json.dumps({"detector": detector, "card": card}))
+    print(json.dumps({"folder": folder, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

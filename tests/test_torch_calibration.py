@@ -156,6 +156,14 @@ def test_first_call_calibrates_lazily():
     assert det._act_scales == want
 
 
-def test_folder_calibration_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _port("int8_full")._calibrate_from_folder(None, 2)
+def test_folder_calibration_not_ported(tmp_path):
+    """The name is historical: folder calibration is ported now
+    (``tests/test_torch_folder.py`` holds it against the JAX package).  A
+    folder without a readable tile leaves the detector uncalibrated, as in
+    the reference."""
+    from amyloid_yolo_tpu_torch.io.datasets import ImageFolder
+
+    (tmp_path / "bad.jpg").write_bytes(b"nope")
+    det = _port("int8_full")
+    det._calibrate_from_folder(ImageFolder(str(tmp_path), tile_size=64), 2)
+    assert det._act_scales is None and det._calib_meta == {}

@@ -2,6 +2,7 @@
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -62,3 +63,23 @@ def test_port_sources_name_no_jax_module():
             found += [(os.path.relpath(path, REPO), n) for n in names if _forbidden(n.strip())]
     assert not found, found
     assert len(_port_files()) > 15
+
+
+def test_port_builds_and_reads_nothing_in_the_jax_package():
+    """No file of the port (Python, CUDA or C++ source) names a path into the
+    JAX package, and the tile reader's source, build directory and library
+    lie inside the port."""
+    pattern = re.compile(r"amyloid_yolo_tpu(?!_torch)")
+    found = []
+    for root, _, names in os.walk(os.path.join(REPO, PKG)):
+        for n in names:
+            if n.endswith((".py", ".cu", ".cuh", ".cc")):
+                with open(os.path.join(root, n)) as fh:
+                    found += [(n, m.group(0)) for m in pattern.finditer(fh.read())]
+    assert not found, found
+    from amyloid_yolo_tpu_torch.io import native
+
+    port = os.path.join(REPO, PKG) + os.sep
+    for p in (native.SOURCE, native.BUILD_DIR + os.sep, native.library_path()):
+        assert os.path.abspath(p).startswith(port), p
+    assert os.path.exists(native.SOURCE)
