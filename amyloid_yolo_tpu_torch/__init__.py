@@ -6,7 +6,8 @@ The JAX package beside this one stays the reference; this package imports
 mirror the reference's so each counterpart is easy to find:
 
 * :mod:`.graphspec`, :mod:`.parsecfg` — the static model graph;
-* :mod:`.io.weights` — JAX pytrees, reference ``.pth`` and darknet binaries;
+* :mod:`.io.weights` — JAX pytrees, reference ``.pth`` and darknet binaries
+  (read and written), and the ``Trainer``'s checkpoints;
 * :mod:`.models.darknet` — BN folding and the folded inference executor;
 * :mod:`.models.heads` — score → top-k → sparse decode (and dense decode);
 * :mod:`.ops.preprocess`, :mod:`.ops.boxes`, :mod:`.ops.nms`;
@@ -18,7 +19,12 @@ mirror the reference's so each counterpart is easy to find:
 * :mod:`.ops.merge`, :mod:`.models.classifier`, :mod:`.domain` — the union
   merge and the consensus-model CAA filter;
 * :mod:`.detectors` — :class:`~.detectors.Detector`, the end-to-end path,
-  and its ``detect_folder``.
+  and its ``detect_folder``;
+* training: :mod:`.training` (``Trainer``, ``TrainConfig``) over
+  ``io.datasets.ListDataset``, :mod:`.parallel.steps` (the train steps,
+  Adam, accumulation, EMA), :mod:`.ops.augment`, :mod:`.ops.targets`,
+  :mod:`.ops.loss`, the train mode of ``models.darknet.apply``,
+  :mod:`.evaluate` with :mod:`.ops.metrics`, and :mod:`.utils.logging`.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise.

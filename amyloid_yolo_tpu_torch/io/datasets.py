@@ -1,12 +1,13 @@
-"""Folder inference stream: a sorted folder of tiles as padded uint8 batches.
+"""Host datasets: the folder inference stream and the training list.
 
-Counterpart of the reference package's ``io/datasets.py:46-268``
-(``load_image_rgb``, ``pad_to_square_np``, ``ImageFolder``); the training
-``ListDataset`` is not ported yet.  Tiles stay uint8 at tile resolution on
-the host; the resize and scale run on the device (K1).  A producer thread
-decodes ahead of the consumer: the native pool (:mod:`.native`) when the
-folder is all JPEG and a tile size is declared and the library is built,
-PIL otherwise.
+Counterpart of the reference package's ``io/datasets.py``:
+``load_image_rgb``, ``pad_to_square_np``, :class:`ImageFolder`
+(``:46-268``) and :class:`ListDataset` (``:271-554``), numpy and PIL code
+of which the port keeps its own copy.  Images stay uint8 at tile
+resolution on the host; the resize and scale run on the device.  A producer
+thread decodes ahead of the consumer.  JPEGs decode through the native
+libjpeg reader (:mod:`.native`) where it is built, PIL otherwise: the two
+give the same pixels (``tests/test_torch_native.py``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ from __future__ import annotations
 import glob
 import os
 import queue
+import random
 import threading
-from typing import Iterator, List, Optional, Tuple
+import warnings
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -231,4 +234,231 @@ class ImageFolder:
         return paths, batch, n_valid
 
 
-__all__ = ["ImageFolder", "load_image_rgb", "pad_to_square_np"]
+def _decode_native_or_pil(path: str) -> np.ndarray:
+    """HWC uint8 RGB through the native reader for a JPEG when it is built
+    (the size read from the header), PIL otherwise or when the reader
+    refuses the file (a colour space it does not take)."""
+    if path.lower().endswith((".jpg", ".jpeg")) and _HAVE_PIL:
+        from . import native
+
+        if native.available():
+            with Image.open(path) as im:
+                w, h = im.size
+            img = native.decode_one(path, h, w)
+            if img is not None:
+                return img
+    return load_image_rgb(path)
+
+
+class ListDataset:
+    """Training dataset over a ``train.txt``-style list with YOLO labels
+    (reference ``io/datasets.py:271-554``).
+
+    Label paths come from the image paths (``images`` → ``labels``,
+    ``.png``/``.jpg`` → ``.txt``).  Each item is the image centre-padded to
+    its square, uint8, with its ``(class, cx, cy, w, h)`` labels
+    renormalised to the square; an unreadable image or label file is
+    reported and dropped at collate.  All randomness is derived, never
+    streamed: the epoch shuffle seeds on ``(seed, epoch)`` and the
+    multiscale size is a pure function of the global batch index
+    (:meth:`size_for_count`), so an epoch abandoned early
+    (``max_batches_per_epoch``) leaves later epochs unchanged.
+
+    ``cache_images`` keeps decoded items in RAM across epochs;
+    ``host_resize`` applies the nearest resize to the batch's size on the
+    host (the device resize then gathers with identity indices, so the
+    samples are bit-identical); ``native_side`` is the collate fallback side
+    of a batch that failed to read entirely (:meth:`probe_native_side`).
+    """
+
+    def __init__(self, list_path: str, img_size: int = 416, multiscale: bool = True,
+                 max_objects: int = 100, augment: bool = True, seed: int = 0,
+                 cache_images: bool = False, host_resize: bool = False,
+                 native_side: Optional[int] = None):
+        with open(list_path, "r") as fh:
+            self.img_files = [ln.rstrip() for ln in fh.readlines() if ln.strip()]
+        self.label_files = [
+            p.replace("images", "labels").replace(".png", ".txt").replace(".jpg", ".txt")
+            for p in self.img_files
+        ]
+        self.img_size = img_size
+        self.max_objects = max_objects
+        self.multiscale = multiscale
+        self.min_size = img_size - 3 * 32
+        self.max_size = img_size + 3 * 32
+        self.augment = augment
+        self.batch_count = 0
+        self.seed = seed
+        self._base_img_size = img_size
+        self._epoch = 0
+        self._planned_batches = 0
+        self.native_side = native_side
+        self._seen_side: Optional[int] = None
+        self.cache_images = cache_images
+        self._cache: dict = {}
+        self.host_resize = host_resize
+
+    def __len__(self) -> int:
+        return len(self.img_files)
+
+    def __getitem__(self, index: int):
+        """``(path, square uint8 HWC image, (n, 5) normalized labels)``, or
+        ``None`` when the image or its labels cannot be read (dropped at
+        collate, as ``utils/datasets.py:88-127``).  Failures are never
+        cached: a transient error retries next epoch."""
+        index = index % len(self.img_files)
+        if self.cache_images and index in self._cache:
+            return self._cache[index]
+        img_path = self.img_files[index]
+        try:
+            img = _decode_native_or_pil(img_path)
+        except Exception:  # any decode failure drops the sample
+            print(f"Could not read image '{img_path}'.")
+            return None
+        label_path = self.label_files[index]
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                boxes = np.loadtxt(label_path).reshape(-1, 5).astype(np.float32)
+        except Exception:  # a missing or malformed label file drops the sample
+            print(f"Could not read label '{label_path}'.")
+            return None
+        h, w = img.shape[:2]
+        # absolute coords -> pad -> renormalize (transforms.py:56-86 chain)
+        boxes = boxes.copy()
+        boxes[:, 1] *= w
+        boxes[:, 3] *= w
+        boxes[:, 2] *= h
+        boxes[:, 4] *= h
+        img, (pl, pr, pt, pb) = pad_to_square_np(img)
+        side = img.shape[0]
+        boxes[:, 1] = (boxes[:, 1] + pl) / side
+        boxes[:, 2] = (boxes[:, 2] + pt) / side
+        boxes[:, 3] = boxes[:, 3] / side
+        boxes[:, 4] = boxes[:, 4] / side
+        item = (img_path, img, boxes)
+        self._seen_side = img.shape[0]
+        if self.cache_images:
+            self._cache[index] = item
+        return item
+
+    def probe_native_side(self) -> Optional[int]:
+        """Set :attr:`native_side` from the first readable image header."""
+        if self.native_side is None and _HAVE_PIL:
+            for p in self.img_files:
+                try:
+                    with Image.open(p) as im:
+                        self.native_side = int(max(im.size))
+                    break
+                except OSError:
+                    continue
+        return self.native_side
+
+    def size_for_count(self, count: int) -> int:
+        """Multiscale size of global batch ``count`` (1-based, across
+        epochs): a new size from ``[img_size − 96, img_size + 96]`` step 32
+        every 10th batch, held for the next 10 (``utils/datasets.py:132-133``)."""
+        if not self.multiscale or count < 10:
+            return self._base_img_size
+        rng = random.Random(self.seed * 1_000_003 + 7919 * (count // 10))
+        return rng.choice(range(self.min_size, self.max_size + 1, 32))
+
+    def next_size(self) -> int:
+        self.batch_count += 1
+        self.img_size = self.size_for_count(self.batch_count)
+        return self.img_size
+
+    def collate(self, samples: Sequence, row_offset: int = 0, fixed_size: bool = False,
+                batch_count: Optional[int] = None) -> Optional[dict]:
+        """Stack the readable samples and pad their labels into one
+        ``(B·max_objects, 6)`` block of rows ``(batch_idx, class, cx, cy, w,
+        h)`` with a validity mask.  ``row_offset`` shifts the batch index;
+        ``fixed_size`` keeps failed reads as blank images without labels;
+        ``batch_count`` (the global 1-based batch index) fixes the
+        multiscale size, else the stateful :meth:`next_size` advances."""
+        if fixed_size:
+            side = next((s[1].shape[0] for s in samples if s is not None),
+                        self.native_side or self._seen_side or self.img_size)
+            samples = [s if s is not None else
+                       ("<failed>", np.zeros((side, side, 3), np.uint8),
+                        np.zeros((0, 5), np.float32))
+                       for s in samples]
+        else:
+            samples = [s for s in samples if s is not None]
+        if not samples:
+            return None
+        if batch_count is not None:
+            self.batch_count = batch_count
+            self.img_size = img_size = self.size_for_count(batch_count)
+        else:
+            img_size = self.next_size()
+        paths, imgs, boxes_list = zip(*samples)
+        batch = np.stack(imgs)
+        if self.host_resize and batch.shape[1] != img_size:
+            idx = nearest_indices(img_size, batch.shape[1])
+            batch = np.ascontiguousarray(batch[:, idx][:, :, idx])
+        bsz = len(samples)
+        cap = self.max_objects
+        targets = np.zeros((bsz * cap, 6), np.float32)
+        mask = np.zeros((bsz * cap,), bool)
+        for bi, bx in enumerate(boxes_list):
+            n = min(len(bx), cap)
+            rows = slice(bi * cap, bi * cap + n)
+            targets[rows, 0] = row_offset + bi
+            targets[rows, 1:] = bx[:n]
+            mask[bi * cap:bi * cap + n] = True
+        return {"paths": list(paths), "images": batch, "targets": targets,
+                "target_mask": mask, "img_size": img_size}
+
+    def iter_epoch(self, batch_size: int, shuffle: bool = True, prefetch: int = 2,
+                   shard=None) -> Iterator[dict]:
+        """Collated batches of one epoch, decoded ahead by a producer thread.
+
+        ``shard=(process_id, num_processes)``: every process derives the
+        same global shuffle and batches and collates only its contiguous row
+        block, with ragged tails dropped and failed reads blanked, so all
+        yield the same batch count and shapes.  Multiscale counts go by
+        planned batch position and the epoch's count is reserved up front.
+        """
+        self._epoch += 1
+        order = list(range(len(self)))
+        if shuffle:
+            random.Random(self.seed * 2_654_435_761
+                          + 1_442_695_041 * self._epoch).shuffle(order)
+        pid, nproc = shard if shard is not None else (0, 1)
+        if shard is not None:
+            if batch_size % nproc:
+                raise ValueError(f"global batch {batch_size} must divide over {nproc} hosts")
+            order = order[: len(order) - (len(order) % batch_size)]
+        local_b = batch_size // nproc
+        count_base = self._planned_batches
+        self._planned_batches += (len(order) + batch_size - 1) // batch_size
+
+        stop = threading.Event()
+
+        def produce(q: "queue.Queue"):
+            try:
+                for j, start in enumerate(range(0, len(order), batch_size)):
+                    if stop.is_set():
+                        break
+                    idxs = order[start:start + batch_size]
+                    if shard is None:
+                        batch = self.collate([self[i] for i in idxs],
+                                             batch_count=count_base + j + 1)
+                    else:
+                        mine = idxs[pid * local_b:(pid + 1) * local_b]
+                        batch = self.collate([self[i] for i in mine], row_offset=pid * local_b,
+                                             fixed_size=True, batch_count=count_base + j + 1)
+                    if batch is not None:
+                        q.put(batch)
+            except BaseException as e:  # handed to the consumer, which re-raises
+                q.put(e)
+            q.put(None)
+
+        q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        t = threading.Thread(target=produce, args=(q,), daemon=True)
+        t.start()
+        yield from _consume_prefetched(q, t, stop)
+
+
+__all__ = ["ImageFolder", "ListDataset", "load_image_rgb", "pad_to_square_np"]

@@ -12,8 +12,10 @@ layout (the reference's ``models.py`` module builder, ``train.py:205-206``):
 So a reference ``.pth`` checkpoint loads through the same path as weights
 carried over from the JAX package, whose pytree is
 ``{"conv_i": {"w": HWIO, "b"?}, "bn_i": {"scale", "bias", "mean", "var"}}``.
-Orbax checkpoints are not read here: export them to a ``.pth`` with the JAX
-CLI first.
+The port writes ``.pth`` state dicts and darknet binaries too, and its
+``Trainer`` checkpoints are torch files (:func:`load_pretrained` reads
+them).  Orbax checkpoints are not read here: export them to a ``.pth`` with
+the JAX CLI first.
 """
 
 from __future__ import annotations
@@ -91,12 +93,9 @@ def params_to_jax(sd: Mapping[str, torch.Tensor], spec: GraphSpec) -> Dict:
     return out
 
 
-def load_torch_state_dict(spec: GraphSpec, path: str) -> StateDict:
-    """Import a reference ``.pth`` checkpoint (a state dict, or a pickled
-    module that has one), keeping the keys ``spec`` reads, as float32."""
-    sd = torch.load(path, map_location="cpu", weights_only=False)
-    if hasattr(sd, "state_dict"):
-        sd = sd.state_dict()
+def _select(spec: GraphSpec, sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The keys ``spec`` reads from a reference-layout state dict, as
+    float32 CPU copies."""
     out: StateDict = {}
     for i in spec.conv_indices:
         layer: ConvSpec = spec.layers[i]  # type: ignore[assignment]
@@ -107,8 +106,83 @@ def load_torch_state_dict(spec: GraphSpec, path: str) -> StateDict:
         else:
             names.append(f"{_conv_key(i)}.bias")
         for n in names:
-            out[n] = sd[n].detach().to(torch.float32).clone()
+            out[n] = torch.as_tensor(sd[n]).detach().to("cpu", torch.float32).clone()
     return out
+
+
+def load_torch_state_dict(spec: GraphSpec, path: str) -> StateDict:
+    """Import a reference ``.pth`` checkpoint (a state dict, or a pickled
+    module that has one), keeping the keys ``spec`` reads, as float32."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return _select(spec, sd)
+
+
+def params_to_torch_state_dict(spec: GraphSpec, params: Mapping[str, torch.Tensor]
+                               ) -> StateDict:
+    """The reference's ``.pth`` layout (CPU float32 copies, with
+    ``num_batches_tracked``), loadable by the reference codebase and by the
+    reference package's ``load_torch_state_dict``."""
+    sd = _select(spec, params)
+    for i in spec.conv_indices:
+        if spec.layers[i].batch_normalize:  # type: ignore[union-attr]
+            sd[f"{_bn_key(i)}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    return sd
+
+
+def save_darknet_weights(spec: GraphSpec, params: Mapping[str, torch.Tensor], path: str,
+                         seen: int = 0, cutoff: int = -1) -> None:
+    """Write a darknet binary (reference ``io/weights.py:84-101``, after
+    ``models.py:310-336``): the int32[5] header with ``seen`` at index 3,
+    then per conv block ``[bn_bias, bn_weight, running_mean, running_var]``
+    or ``[conv_bias]``, then the OIHW weights; ``cutoff`` ≥ 0 stops before
+    that layer index."""
+    header = np.array([0, 0, 0, seen, 0], dtype=np.int32)
+    with open(path, "wb") as fh:
+        header.tofile(fh)
+        for i in spec.conv_indices:
+            if cutoff != -1 and i >= cutoff:
+                break
+            if spec.layers[i].batch_normalize:  # type: ignore[union-attr]
+                p = _bn_key(i)
+                for n in ("bias", "weight", "running_mean", "running_var"):
+                    _np32(params[f"{p}.{n}"]).tofile(fh)
+            else:
+                _np32(params[f"{_conv_key(i)}.bias"]).tofile(fh)
+            _np32(params[f"{_conv_key(i)}.weight"]).tofile(fh)
+
+
+def load_pretrained(spec: GraphSpec, path: str,
+                    params: Optional[Mapping[str, torch.Tensor]] = None) -> StateDict:
+    """Dispatch on the file, as the reference CLIs (``train.py:64-68``;
+    reference ``io/weights.py:160-192``): a ``.pth``/``.pt``/``.pkl`` file
+    is a reference state dict or a checkpoint of the port's ``Trainer`` (a
+    dict with ``params``; the suffix ``#ema`` selects its EMA parameters),
+    anything else a darknet binary (``params`` fills the layers a backbone
+    file lacks).  Orbax checkpoints of the reference package are not read:
+    export them to a ``.pth`` with its CLI first."""
+    use_ema = path.endswith("#ema")
+    if use_ema:
+        path = path[: -len("#ema")]
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"weights file not found: {path!r} (expected a darknet binary, a torch "
+            f".pth/.pt/.pkl state dict, or a checkpoint of the port's Trainer)")
+    obj = (torch.load(path, map_location="cpu", weights_only=False)
+           if path.endswith((".pth", ".pt", ".pkl")) else None)
+    if isinstance(obj, dict) and "params" in obj:  # a Trainer checkpoint
+        if use_ema and obj.get("ema") is None:
+            raise KeyError(f"{path!r} has no EMA parameters: it was saved by a run "
+                           "without ema_decay")
+        return _select(spec, obj["ema"] if use_ema else obj["params"])
+    if use_ema:
+        raise ValueError(f"'#ema' selects the EMA parameters of a Trainer checkpoint; "
+                         f"{path!r} is not one")
+    if obj is not None:
+        return _select(spec, obj.state_dict() if hasattr(obj, "state_dict") else obj)
+    loaded, _ = load_darknet_weights(spec, path, params)
+    return loaded
 
 
 def load_darknet_weights(spec: GraphSpec, path: str,
@@ -158,5 +232,6 @@ def load_darknet_weights(spec: GraphSpec, path: str,
     return out, header
 
 
-__all__ = ["StateDict", "params_from_jax", "params_to_jax",
-           "load_torch_state_dict", "load_darknet_weights"]
+__all__ = ["StateDict", "params_from_jax", "params_to_jax", "load_torch_state_dict",
+           "params_to_torch_state_dict", "save_darknet_weights", "load_darknet_weights",
+           "load_pretrained"]

@@ -1,15 +1,17 @@
-"""Darknet/YOLOv3 inference over a static :class:`GraphSpec`.
+"""Darknet/YOLOv3 over a static :class:`GraphSpec`: training and inference.
 
 Counterpart of the reference package's ``models/darknet.py``:
-:func:`init_params` (``:64-91``), the eval branch of :func:`apply`
-(``:155-320``), :func:`fold_batchnorm` (``:321-344``),
-:func:`fusible_residual_blocks` (``:347-375``), :func:`apply_folded`
+:func:`init_params` (``:64-91``), :func:`apply` in eval and train mode
+(``:155-320``, the train branch in its ``BN_FORM="reduce"`` form),
+:func:`fold_batchnorm` (``:321-344``), :func:`fusible_residual_blocks`
+(``:347-375``), :func:`apply_folded`
 (``:403-489``), the ``int8_early`` path (:func:`int8_region`,
 :func:`quantize_folded_int8`, :func:`calibrate_act_scales`,
 :func:`apply_folded_int8`, ``:767-971``) and the ``int8_full`` path
 (:func:`int8_full_conv_indices`, :func:`quantize_folded_int8_full`,
 :func:`calibrate_act_scales_full`, :func:`apply_folded_int8_full`,
-``:986-1230``).  The space-to-depth stems are not ported yet.
+``:986-1230``).  The space-to-depth stems (inference and training) and
+the planar training layout compute the same functions and are not ported.
 
 Layout: float activations are NCHW tensors in ``channels_last`` memory —
 physically NHWC, which is what the kernels K1 and K2 read and write, and
@@ -59,6 +61,7 @@ Folded = Dict[str, Dict[str, torch.Tensor]]
 Packs = Dict[int, Tuple[torch.Tensor, ...]]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # torch BatchNorm2d(momentum=0.9), reference models.py:43
 
 
 def init_params(generator: torch.Generator, spec: GraphSpec) -> StateDict:
@@ -178,30 +181,55 @@ def _release(saved: Dict, last_use: Mapping[int, int], i: int) -> None:
 
 
 def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, *,
-          compute_dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
-    """Eval-mode forward over *unfolded* parameters (a state dict in the
-    reference layout, BN running statistics included); returns the f32 NHWC
-    map at each yolo layer.
+          compute_dtype: torch.dtype = torch.float32, train: bool = False):
+    """Forward over *unfolded* parameters (a state dict in the reference
+    layout, BN running statistics included); returns the f32 NHWC map at
+    each yolo layer, and with ``train=True`` the pair ``(head_maps,
+    new_stats)``.
 
-    Each conv runs in ``compute_dtype``; BN normalises in f32 with
-    ``rsqrt(var + ε)`` and rounds back, as the reference's eval branch
-    (``darknet.py:246-294``); head convs add their bias in ``compute_dtype``.
+    Each conv runs in ``compute_dtype`` (cast explicitly, no autocast); BN
+    normalises in f32 and rounds back, and head convs add their bias in
+    ``compute_dtype``, as the reference (``darknet.py:155-318``).
+
+    Eval mode normalises with the running statistics and ``rsqrt(var + ε)``.
+    Train mode is the reference's ``BN_FORM="reduce"`` branch: one-pass f32
+    batch statistics ``mean`` and ``E[x²]``, ``var = max(E[x²] − mean², 0)``
+    (biased) to normalise, and the running statistics
+    ``(1 − m)·old + m·batch`` with ``m = BN_MOMENTUM`` and the unbiased
+    ``var·n/(n − 1)``.  ``new_stats`` maps each ``…running_mean`` and
+    ``…running_var`` key to its new (detached) value; gradients flow through
+    the batch statistics, as autodiff of the reference does.
     """
     f32 = torch.float32
     prev = _cl(_nchw(x.to(compute_dtype)))
     last_use = _last_use(spec)
     saved: Dict[int, torch.Tensor] = {}
     head_maps: List[torch.Tensor] = []
+    new_stats: StateDict = {}
     for i, layer in enumerate(spec.layers):
         if isinstance(layer, ConvSpec):
             w = params[f"{_conv_key(i)}.weight"].to(compute_dtype)
             out = F.conv2d(prev, w, stride=layer.stride, padding=layer.pad)
             if layer.batch_normalize:
                 p = _bn_key(i)
-                mean = params[f"{p}.running_mean"].to(f32)[None, :, None, None]
-                inv = torch.rsqrt(params[f"{p}.running_var"].to(f32) + BN_EPS)
+                out32 = out.to(f32)
+                if train:
+                    n = out.shape[0] * out.shape[2] * out.shape[3]
+                    mean = out32.mean(dim=(0, 2, 3))
+                    var = torch.clamp((out32 * out32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+                    with torch.no_grad():
+                        unbiased = var * (n / max(n - 1, 1))
+                        new_stats[f"{p}.running_mean"] = (
+                            (1 - BN_MOMENTUM) * params[f"{p}.running_mean"] + BN_MOMENTUM * mean)
+                        new_stats[f"{p}.running_var"] = (
+                            (1 - BN_MOMENTUM) * params[f"{p}.running_var"]
+                            + BN_MOMENTUM * unbiased)
+                else:
+                    mean = params[f"{p}.running_mean"].to(f32)
+                    var = params[f"{p}.running_var"].to(f32)
+                inv = torch.rsqrt(var + BN_EPS)
                 g = (params[f"{p}.weight"].to(f32) * inv)[None, :, None, None]
-                out = ((out.to(f32) - mean) * g
+                out = ((out32 - mean[None, :, None, None]) * g
                        + params[f"{p}.bias"].to(f32)[None, :, None, None]).to(compute_dtype)
             else:
                 out = out + params[f"{_conv_key(i)}.bias"].to(compute_dtype)[None, :, None, None]
@@ -213,7 +241,7 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
             saved[i] = out
         _release(saved, last_use, i)
         prev = out
-    return head_maps
+    return (head_maps, new_stats) if train else head_maps
 
 
 def _plain_layer(layer, prev: torch.Tensor, saved: Dict[int, torch.Tensor],
@@ -568,4 +596,4 @@ __all__ = ["init_params", "apply", "fold_batchnorm", "fusible_residual_blocks",
            "quantize_folded_int8", "calibrate_act_scales", "apply_folded_int8",
            "int8_full_conv_indices", "quantize_folded_int8_full",
            "calibrate_act_scales_full", "apply_folded_int8_full",
-           "BN_EPS", "LEAKY_SLOPE"]
+           "BN_EPS", "BN_MOMENTUM", "LEAKY_SLOPE"]

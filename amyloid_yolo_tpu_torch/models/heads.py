@@ -1,4 +1,4 @@
-"""YOLO head decoding (reference package ``models/heads.py:29-195``).
+"""YOLO head decoding (reference package ``models/heads.py:29-238``).
 
 Parity target: ``YOLOLayer.forward``'s inference path (the reference's
 ``models.py:127-169``): sigmoid on x, y, objectness and class logits; box
@@ -31,8 +31,11 @@ def _yolo_specs(spec: GraphSpec, n_maps: int) -> List[YoloSpec]:
 def _grid_anchors(anchors: Tuple[Tuple[float, float], ...], stride: float,
                   device: torch.device) -> torch.Tensor:
     """(A, 2) anchors in grid units on ``device``, made once: a host→device
-    copy per call would synchronise the stream mid-pipeline."""
-    return (torch.tensor(anchors, dtype=torch.float32) / stride).to(device)
+    copy per call would synchronise the stream mid-pipeline.  Made outside
+    inference mode even when the first caller runs in it (a ``Detector``),
+    since the training loss saves it for backward."""
+    with torch.inference_mode(False):
+        return (torch.tensor(anchors, dtype=torch.float32) / stride).to(device)
 
 
 def decode_head(raw: torch.Tensor, anchors: Sequence[Tuple[float, float]],
@@ -138,4 +141,35 @@ def decode_topk(head_maps: List[torch.Tensor], spec: GraphSpec, img_dim: int,
     return det, top_scores, n_candidates
 
 
-__all__ = ["decode_head", "decode_all", "decode_topk"]
+def head_grid_tensors(raw: torch.Tensor, anchors: Sequence[Tuple[float, float]],
+                      img_dim: int, num_classes: int) -> dict:
+    """Training-path decode (reference ``models/heads.py:198-238``): the
+    tensors the YOLO loss reads, each (B, A, g, g, ...) — sigmoid x/y,
+    raw w/h, sigmoid conf/cls, and pred boxes ``(cx, cy, w, h)`` in grid
+    units — plus the anchors in grid units, the stride and the grid size."""
+    b, g = raw.shape[0], raw.shape[1]
+    na = len(anchors)
+    stride = img_dim / g
+    pred = raw.reshape(b, g, g, na, 5 + num_classes).permute(0, 3, 1, 2, 4)
+
+    x = torch.sigmoid(pred[..., 0])
+    y = torch.sigmoid(pred[..., 1])
+    w = pred[..., 2]
+    h = pred[..., 3]
+    conf = torch.sigmoid(pred[..., 4])
+    cls = torch.sigmoid(pred[..., 5:])
+
+    gxs = torch.arange(g, dtype=torch.float32, device=raw.device)
+    anc = _grid_anchors(tuple(anchors), stride, raw.device)
+    pred_boxes = torch.stack([
+        x + gxs[None, None, None, :],
+        y + gxs[None, None, :, None],
+        torch.exp(w) * anc[:, 0][None, :, None, None],
+        torch.exp(h) * anc[:, 1][None, :, None, None],
+    ], dim=-1)
+    return {"x": x, "y": y, "w": w, "h": h, "conf": conf, "cls": cls,
+            "pred_boxes": pred_boxes, "scaled_anchors": anc, "stride": stride,
+            "grid_size": g}
+
+
+__all__ = ["decode_head", "decode_all", "decode_topk", "head_grid_tensors"]

@@ -2,7 +2,8 @@
 
 :func:`bbox_iou` keeps the detection-ops convention of the reference
 (``utils/utils.py:202-232``): **+1 pixel** on widths/heights and a 1e-16
-epsilon in the denominator.
+epsilon in the denominator.  The ``_np`` functions are the numpy mirrors
+the host-side evaluation statistics use.
 """
 
 from __future__ import annotations
@@ -17,6 +18,15 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
 
 
+def xywh2xyxy_np(x: np.ndarray) -> np.ndarray:
+    y = np.zeros_like(x)
+    y[..., 0] = x[..., 0] - x[..., 2] / 2
+    y[..., 1] = x[..., 1] - x[..., 3] / 2
+    y[..., 2] = x[..., 0] + x[..., 2] / 2
+    y[..., 3] = x[..., 1] + x[..., 3] / 2
+    return y
+
+
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
     """Elementwise xyxy IoU with the +1-pixel area convention; broadcasts
     over leading dims."""
@@ -28,6 +38,29 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
     a1 = (box1[..., 2] - box1[..., 0] + 1) * (box1[..., 3] - box1[..., 1] + 1)
     a2 = (box2[..., 2] - box2[..., 0] + 1) * (box2[..., 3] - box2[..., 1] + 1)
     return inter / (a1 + a2 - inter + 1e-16)
+
+
+def bbox_iou_np(box1: np.ndarray, box2: np.ndarray) -> np.ndarray:
+    """Numpy mirror of :func:`bbox_iou` (xyxy), broadcasting."""
+    ix1 = np.maximum(box1[..., 0], box2[..., 0])
+    iy1 = np.maximum(box1[..., 1], box2[..., 1])
+    ix2 = np.minimum(box1[..., 2], box2[..., 2])
+    iy2 = np.minimum(box1[..., 3], box2[..., 3])
+    inter = np.clip(ix2 - ix1 + 1, 0, None) * np.clip(iy2 - iy1 + 1, 0, None)
+    a1 = (box1[..., 2] - box1[..., 0] + 1) * (box1[..., 3] - box1[..., 1] + 1)
+    a2 = (box2[..., 2] - box2[..., 0] + 1) * (box2[..., 3] - box2[..., 1] + 1)
+    return inter / (a1 + a2 - inter + 1e-16)
+
+
+def bbox_wh_iou(wh1: torch.Tensor, wh2: torch.Tensor) -> torch.Tensor:
+    """IoU of (w, h) pairs sharing a centre (``utils/utils.py:193-199``):
+    ``wh1`` (A, 2) anchors, ``wh2`` (T, 2) targets → (A, T).  The epsilon
+    goes on the FIRST area only, as in the reference."""
+    w1, h1 = wh1[:, 0:1], wh1[:, 1:2]
+    w2, h2 = wh2[None, :, 0], wh2[None, :, 1]
+    inter = torch.minimum(w1, w2) * torch.minimum(h1, h2)
+    union = (w1 * h1 + 1e-16) + w2 * h2 - inter
+    return inter / union
 
 
 def rescale_boxes(boxes: torch.Tensor, current_dim: int, orig_h: int,
@@ -75,4 +108,5 @@ def rescale_from_tile_frame(dets: np.ndarray, tile_size: int,
     return out
 
 
-__all__ = ["xywh2xyxy", "bbox_iou", "rescale_boxes", "rescale_from_tile_frame"]
+__all__ = ["xywh2xyxy", "xywh2xyxy_np", "bbox_iou", "bbox_iou_np", "bbox_wh_iou",
+           "rescale_boxes", "rescale_from_tile_frame"]

@@ -1,0 +1,305 @@
+"""The training loop (reference package ``training.py:113-512``, after the
+reference's ``train.py`` loop).
+
+Behaviour kept (the reference's ``train.py:27-210``):
+
+* Adam at torch's defaults, gradient accumulation every N batches on
+  summed gradients, the multiscale size every 10 batches, evaluation each
+  epoch at iou/conf/nms 0.5, a checkpoint each epoch, and the best mAP
+  tracked overall and per class (Cored, CAA), ``train.py:187-197``;
+* ``seen``, the image count the darknet export records;
+* beyond the reference, as the reference package: an optional EMA scored
+  beside the raw weights each epoch (``validation/mAP_ema``), checkpoint
+  retention (``keep_checkpoints``) and checkpoints that carry the
+  optimizer state.
+
+A checkpoint is a torch file ``yolov3_ckpt_<epoch>.pt`` holding
+``params`` (the state dict in the reference ``.pth`` layout),
+``optimizer`` (Adam's ``state_dict``), ``step``, ``seen`` and, when EMA is
+on, ``ema``; :func:`~amyloid_yolo_tpu_torch.io.weights.load_pretrained`
+reads its weights.  The reference package's checkpoints are orbax
+directories, which the port does not read.
+
+One device: ``data_parallel``, ``spatial_shard`` and ``distributed`` are
+not ported (ROADMAP Queue 1 item 7) and raise.  ``s2d_stem`` and
+``image_layout`` select TPU layouts of the same function; the port runs
+its one plain path whatever they say.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+
+from .evaluate import evaluate
+from .graphspec import GraphSpec, yolov3_spec
+from .io import weights as weights_io
+from .io.datasets import ListDataset
+from .models import darknet
+from .parallel import steps as steps_mod
+from .parsecfg import load_classes, parse_data_config
+from .utils.device import DeviceLike, resolve_device
+from .utils.logging import MetricsLogger
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class TrainConfig:
+    """The reference package's ``TrainConfig``: same fields, same defaults."""
+    data_config: str = "config/custom.data"
+    epochs: int = 100
+    batch_size: int = 8
+    gradient_accumulations: int = 2
+    img_size: int = 416
+    multiscale: bool = True
+    augment: bool = True
+    pretrained_weights: Optional[str] = None
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_interval: int = 1
+    evaluation_interval: int = 1
+    learning_rate: float = 1e-3
+    grad_clip_norm: Optional[float] = None  # None = reference behaviour
+    burn_in: int = 0                        # darknet LR warm-up applies; 0 = reference
+    compute_dtype: str = "float32"          # "bfloat16": convs in bf16, the rest f32
+    num_classes: int = 2
+    logdir: str = "logs"
+    seed: int = 0
+    data_parallel: Optional[int] = None     # not ported (Queue 1 item 7)
+    spatial_shard: Optional[int] = None     # not ported (Queue 1 item 7)
+    distributed: bool = False               # not ported (Queue 1 item 7)
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    verbose: bool = False
+    max_batches_per_epoch: Optional[int] = None  # for smoke runs
+    eval_nms_capacity: int = 128            # NMS pool of the in-training eval
+    cache_images: bool = False              # keep decoded images in RAM across epochs
+    host_resize: bool = False               # nearest resize on the host, bit-identical
+    s2d_stem: Optional[bool] = None         # a TPU layout; the port's path is plain
+    keep_checkpoints: Optional[int] = None  # keep the last N epochs and every best
+    ema_decay: Optional[float] = None       # EMA of all parameters, on applies
+    image_layout: str = "planar"            # a TPU layout; the port's path is plain
+
+
+class Trainer:
+    """``Trainer(cfg, spec=None, device=None)``: ``spec`` defaults to
+    ``yolov3_spec(num_classes=cfg.num_classes)``, ``device`` to ``cuda``
+    (it raises without a card unless ``device="cpu"`` is passed).  Initial
+    weights come from :func:`~..models.darknet.init_params` with a
+    generator seeded by ``cfg.seed`` (then ``pretrained_weights``); the
+    augmentation draws from a generator on the device seeded by
+    ``cfg.seed + 1``."""
+
+    def __init__(self, cfg: TrainConfig, spec: Optional[GraphSpec] = None,
+                 device: DeviceLike = None):
+        if cfg.distributed or (cfg.data_parallel or 1) > 1 or (cfg.spatial_shard or 1) > 1:
+            raise NotImplementedError(
+                "data_parallel, spatial_shard and distributed training are not ported "
+                "to the PyTorch package yet (ROADMAP.md Queue 1 item 7)")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {list(COMPUTE_DTYPES)}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.spec = spec or yolov3_spec(num_classes=cfg.num_classes)
+        data = parse_data_config(cfg.data_config)
+        self.train_path = data["train"]
+        self.valid_path = data["valid"]
+        self.class_names = (load_classes(data["names"]) if os.path.exists(data["names"])
+                            else [f"class{i}" for i in range(cfg.num_classes)])
+
+        params = darknet.init_params(torch.Generator().manual_seed(cfg.seed), self.spec)
+        if cfg.pretrained_weights:
+            params = {**params, **weights_io.load_pretrained(self.spec, cfg.pretrained_weights,
+                                                             params)}
+        self.optimizer = steps_mod.make_optimizer(cfg.learning_rate, cfg.grad_clip_norm,
+                                                  burn_in=cfg.burn_in)
+        self.state = steps_mod.init_train_state(params, self.optimizer,
+                                                ema=cfg.ema_decay is not None,
+                                                device=self.device)
+        self.accum = max(1, int(cfg.gradient_accumulations or 1))
+        self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        kw = dict(augment=cfg.augment, compute_dtype=self.compute_dtype,
+                  ema_decay=cfg.ema_decay)
+        self.step_fn = (
+            steps_mod.make_accum_train_step(self.spec, self.optimizer, self.accum, **kw)
+            if self.accum > 1 else steps_mod.make_train_step(self.spec, self.optimizer, **kw))
+        self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self.logger = MetricsLogger(cfg.logdir)
+        self.best = {"map": (-1.0, -1), "Cored": (-1.0, -1), "CAA": (-1.0, -1)}
+        if cfg.ema_decay is not None:
+            self.best["map_ema"] = (-1.0, -1)
+        #: wall seconds of each epoch's train loop, evaluation and save
+        self.epoch_walls: list = []
+        self._saved_epochs: list = []
+        self._eval_dataset: Optional[ListDataset] = None
+
+    def train(self, callback: Optional[Callable[[int, int, Dict], None]] = None
+              ) -> steps_mod.TrainState:
+        """Run ``cfg.epochs`` epochs; ``callback(epoch, batch_index,
+        metrics)``, when given, runs after every micro-batch's step was
+        enqueued."""
+        cfg = self.cfg
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        dataset = ListDataset(self.train_path, img_size=cfg.img_size, multiscale=cfg.multiscale,
+                              augment=cfg.augment, seed=cfg.seed,
+                              cache_images=cfg.cache_images, host_resize=cfg.host_resize)
+        # the accumulation counter lives for this run, as the reference's
+        # batches_done (the reference never checkpoints .grad either)
+        run_state = (steps_mod.init_accum_state(self.state) if self.accum > 1
+                     else self.state)
+        for epoch in range(cfg.epochs):
+            t0 = time.time()
+            n_batches = 0
+            for bi, batch in enumerate(dataset.iter_epoch(cfg.batch_size)):
+                if cfg.max_batches_per_epoch and bi >= cfg.max_batches_per_epoch:
+                    break
+                run_state, metrics = self.step_fn(
+                    run_state, batch["images"], batch["targets"], batch["target_mask"],
+                    self.rng, int(batch["img_size"]))
+                self.state = run_state.inner if self.accum > 1 else run_state
+                n_batches += 1
+                if callback is not None:
+                    callback(epoch, bi, metrics)
+                if bi % 10 == 0:  # fetching the metrics waits for the step
+                    host = {k: float(v) for k, v in metrics.items()}
+                    host["epoch"] = epoch
+                    host["batch"] = bi
+                    self.logger.log(host, step=self.state.step)
+                    if cfg.verbose:
+                        print(f"[epoch {epoch} batch {bi}] loss={host['loss']:.4f}")
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            epoch_time = time.time() - t0
+            t_eval0 = time.time()
+            if cfg.evaluation_interval and epoch % cfg.evaluation_interval == 0:
+                self._evaluate_epoch(epoch, epoch_time)
+            t_save0 = time.time()
+            if epoch % cfg.checkpoint_interval == 0:
+                self.save_checkpoint(epoch)
+            self.epoch_walls.append({"epoch": epoch, "batches": n_batches,
+                                     "train_s": epoch_time, "eval_s": t_save0 - t_eval0,
+                                     "save_s": time.time() - t_save0})
+            if cfg.verbose:
+                print(f"[epoch {epoch} wall] train {epoch_time:.1f}s "
+                      f"eval {t_save0 - t_eval0:.1f}s save {time.time() - t_save0:.1f}s")
+        if cfg.epochs and (cfg.epochs - 1) % cfg.checkpoint_interval != 0:
+            # the reference's modulo rule (train.py:205) never saves the last
+            # epoch unless it lands on the interval; always keep it
+            self.save_checkpoint(cfg.epochs - 1)
+        print("Best mAP: {} @ epoch: {}".format(*self.best["map"]))
+        print("Best Cored mAP: {} @ epoch: {}".format(*self.best["Cored"]))
+        print("Best CAA mAP: {} @ epoch: {}".format(*self.best["CAA"]))
+        if "map_ema" in self.best:
+            print("Best EMA mAP: {} @ epoch: {}".format(*self.best["map_ema"]))
+        return self.state
+
+    def evaluate(self, params=None):
+        """The in-training evaluation (iou/conf/nms 0.5 at ``img_size``) of
+        ``params`` (default: the current parameters)."""
+        cfg = self.cfg
+        if self._eval_dataset is None:  # one dataset, one decode cache, every epoch
+            self._eval_dataset = ListDataset(
+                self.valid_path, img_size=cfg.img_size, multiscale=False, augment=False,
+                cache_images=cfg.cache_images, host_resize=cfg.host_resize)
+        return evaluate(self.spec, self.state.params if params is None else params,
+                        self.valid_path, iou_thres=0.5, conf_thres=0.5, nms_thres=0.5,
+                        img_size=cfg.img_size, batch_size=8,
+                        nms_capacity=cfg.eval_nms_capacity, dataset=self._eval_dataset,
+                        device=self.device)
+
+    def _evaluate_epoch(self, epoch: int, epoch_time: float) -> None:
+        out = self.evaluate()
+        if out is not None:
+            precision, recall, ap, f1, ap_class = out
+            self.logger.log({"validation/precision": float(precision.mean()),
+                             "validation/recall": float(recall.mean()),
+                             "validation/mAP": float(ap.mean()),
+                             "validation/f1": float(f1.mean())}, step=epoch)
+            for i, c in enumerate(ap_class):
+                name = self.class_names[int(c)] if int(c) < len(self.class_names) else str(c)
+                if name in self.best and ap[i] > self.best[name][0]:
+                    self.best[name] = (float(ap[i]), epoch)
+            if ap.mean() > self.best["map"][0]:
+                self.best["map"] = (float(ap.mean()), epoch)
+            print(f"---- epoch {epoch}: mAP {float(ap.mean()):.5f} ({epoch_time:.1f}s)")
+        else:
+            print("---- mAP not measured (no detections found by model)")
+        if self.cfg.ema_decay is not None and self.state.ema is not None:
+            out_ema = self.evaluate(self.state.ema)
+            if out_ema is not None:
+                m = float(out_ema[2].mean())
+                self.logger.log({"validation/mAP_ema": m}, step=epoch)
+                print(f"---- epoch {epoch}: mAP_ema {m:.5f}")
+                if m > self.best["map_ema"][0]:
+                    self.best["map_ema"] = (m, epoch)
+            else:
+                print("---- mAP_ema not measured (no detections)")
+
+    def checkpoint_path(self, epoch: int) -> str:
+        return os.path.join(self.cfg.checkpoint_dir, f"yolov3_ckpt_{epoch}.pt")
+
+    def save_checkpoint(self, epoch: int) -> str:
+        """Write the epoch's checkpoint (synchronously) and apply the
+        retention rule; returns its path."""
+        st = self.state
+        tree = {"params": weights_io.params_to_torch_state_dict(self.spec, st.params),
+                "optimizer": st.optimizer.state_dict(), "step": st.step, "seen": st.seen}
+        if st.ema is not None:
+            tree["ema"] = weights_io.params_to_torch_state_dict(self.spec, st.ema)
+        path = self.checkpoint_path(epoch)
+        tmp = path + ".tmp"
+        torch.save(tree, tmp)
+        os.replace(tmp, path)  # a reader never sees half a file
+        if epoch not in self._saved_epochs:
+            self._saved_epochs.append(epoch)
+        self._prune_checkpoints()
+        return path
+
+    def _prune_checkpoints(self) -> None:
+        """``keep_checkpoints``: drop saved epochs beyond the most recent N,
+        never a tracked best epoch."""
+        n = self.cfg.keep_checkpoints
+        if not n:
+            return
+        keep = set(self._saved_epochs[-n:]) | {ep for _, ep in self.best.values() if ep >= 0}
+        for ep in list(self._saved_epochs):
+            if ep not in keep:
+                path = self.checkpoint_path(ep)
+                if os.path.exists(path):
+                    os.remove(path)
+                self._saved_epochs.remove(ep)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from a checkpoint: parameters, Adam's state, ``step`` and
+        ``seen``; the EMA from the checkpoint when this run tracks one (a
+        copy of the parameters when the checkpoint has none)."""
+        tree = torch.load(path, map_location="cpu", weights_only=True)
+        st = self.state
+        with torch.no_grad():
+            for k, v in tree["params"].items():
+                if k in st.params:
+                    st.params[k].copy_(v)
+        try:
+            st.optimizer.load_state_dict(tree["optimizer"])
+        except ValueError as e:
+            # another optimizer layout wrote it: resume the parameters with a
+            # fresh optimizer, the reference's resume (it never saves one)
+            print(f"[resume] optimizer state mismatch ({e}): params restored, "
+                  f"optimizer state reset")
+            st.optimizer = self.optimizer.init(
+                [st.params[k] for k in steps_mod.trainable_keys(st.params)])
+        st.step, st.seen = int(tree["step"]), int(tree["seen"])
+        if self.cfg.ema_decay is not None:
+            src = tree.get("ema") or tree["params"]
+            st.ema = {k: src[k].to(self.device, torch.float32, copy=True)
+                      for k in st.ema}
+        else:
+            st.ema = None
+
+
+__all__ = ["Trainer", "TrainConfig"]

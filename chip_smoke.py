@@ -66,7 +66,27 @@ Phases (any failure exits non-zero; nothing is caught):
    boxes, beside the reader alone and ``Detector.__call__`` on the same
    tiles already on the card, and a ``torch.profiler`` trace of one B=8
    folder run for the device's busy time and idle share;
-11. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
+11. the training path, at the full width of ``yolov3_spec(num_classes=2)``
+   at 416 on 1536² tiles, with the weights of phase 6: (a) one float32
+   micro-step at B=2 (augment off) on the card and on the CPU — loss and new
+   BN running statistics within ``STEP_RTOL``; the gradients' relative
+   2-norm differences, median and worst over the tensors (the worst
+   printed), each within ``STEP_GRAD_NOISE_FACTOR`` times what swapping the
+   batch's two images does on the CPU (see ``STEP_GRAD_NOISE_FACTOR``);
+   (b) K1/K2/K3 launch 0/0/0 over the whole phase; (c) ``OVERFIT_APPLIES``
+   bf16 applies on one fixed augmented batch of 8: the loss falls below
+   half its first value, finite throughout; (d) the ``Trainer`` on a
+   temporary set that PIL writes (48 train and 16 valid stain tiles with
+   1-4 labels): 2 epochs of 6 micro-batches of 8 with accumulation 2,
+   multiscale and augmentation on — ``step`` 12, ``seen`` 96, every loss
+   finite, parameters moving exactly on the 6 applies, the multiscale size
+   changing at global batch 10, a finite validation mAP in [0, 1] logged
+   for both epochs, one checkpoint per epoch, and the last checkpoint
+   evaluating to the same AP in a fresh ``Trainer``; (e) the B=8 micro-step
+   in float32 (TF32 off) and bf16 (median, min, max of 10 after 3) with a
+   ``torch.profiler`` breakdown by part, and one traced ``Trainer`` epoch's
+   wall time, device busy time and idle share;
+12. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
@@ -77,6 +97,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -553,6 +574,420 @@ def folder_phase(det, spec, params, card: str) -> dict:
     return record
 
 
+# --------------------------------------------------------------------------
+# phase 11: the training path
+# --------------------------------------------------------------------------
+
+TRAIN_DATA = dict(n_train=48, n_valid=16, side=1536)
+TRAIN_SIZE = 416
+# (a) card vs CPU, one float32 micro-step (TF32 off on the card): loss and new
+# BN running statistics to a relative 1e-4.  Gradients: at this random init
+# the backward through 72 batch-normalised layers is ill-conditioned (each
+# layer subtracts its batch mean of the gradient, a cancellation), so the
+# relative error of a tensor's gradient grows from ~1e-6 at the heads to
+# percents at the stem, under ANY reordering of the same float32 sums: on
+# the CPU, swapping the batch's two images moved them by a median 1.9% and
+# at most 3.4% on this phase's inputs.  So the phase measures that
+# noise in the run (the CPU step again with the batch swapped) and bounds
+# the card: the median and the largest ||g_card - g_cpu|| / ||g_cpu|| over
+# the tensors each within STEP_GRAD_NOISE_FACTOR x the swap's median and
+# largest.  The parity tests hold the same gradients against JAX to 1e-4 on
+# the mini spec, where the chain is short.
+STEP_RTOL = 1e-4
+STEP_GRAD_NOISE_FACTOR = 2.0
+OVERFIT_APPLIES = 30
+# (d) trains at lr 1e-4.  The validation mAP is scored at conf 0.5; at the
+# default lr 1e-3 the no-object term (weight 100) drives every objectness of
+# the random-init model under 0.5 within 3-6 applies, and evaluate() then
+# finds no detection and returns None, as the reference package's does
+# ("mAP not measured"): a 224^2 run of this Trainer on the CPU measured
+# mAP after epoch 0 and none after epoch 1.  At 1e-4 both epochs are scored.
+TRAIN_LR = 1e-4
+STEP_ITERS, STEP_WARMUP = 10, 3
+
+
+def write_train_set(root: str, seed: int, n_train: int, n_valid: int, side: int) -> str:
+    """A YOLO training set that PIL writes under ``root``: synthetic stain
+    tiles with 1-4 labels each, ``train.txt``, ``valid.txt``,
+    ``classes.names`` and ``custom.data``; returns the ``.data`` path."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "labels"), exist_ok=True)
+    paths = []
+    for i in range(n_train + n_valid):
+        p = os.path.join(root, "images", f"tile{i:03d}.jpg")
+        Image.fromarray(stain_tile(rng, side, side)).save(p, quality=90)
+        rows = [f"{rng.randint(0, 2)} {rng.uniform(0.1, 0.9):.5f} {rng.uniform(0.1, 0.9):.5f} "
+                f"{rng.uniform(0.02, 0.1):.5f} {rng.uniform(0.02, 0.1):.5f}"
+                for _ in range(rng.randint(1, 5))]
+        with open(os.path.join(root, "labels", f"tile{i:03d}.txt"), "w") as fh:
+            fh.write("\n".join(rows) + "\n")
+        paths.append(p)
+    for name, part in (("train.txt", paths[:n_train]), ("valid.txt", paths[n_train:])):
+        with open(os.path.join(root, name), "w") as fh:
+            fh.write("\n".join(part) + "\n")
+    with open(os.path.join(root, "classes.names"), "w") as fh:
+        fh.write("CAA\nCored\n")
+    data = os.path.join(root, "custom.data")
+    with open(data, "w") as fh:
+        fh.write(f"classes=2\ntrain={root}/train.txt\nvalid={root}/valid.txt\n"
+                 f"names={root}/classes.names\n")
+    return data
+
+
+def train_batch(rng, b: int, side: int, per_image: int = 4):
+    """Fixed inputs of one micro-batch: b stain tiles (uint8 NHWC) and
+    ``per_image`` labels each, padded as ``ListDataset.collate`` pads them."""
+    import numpy as np
+    imgs = np.stack([stain_tile(rng, side, side) for _ in range(b)])
+    n = b * per_image
+    t = np.zeros((n, 6), np.float32)
+    t[:, 0] = np.repeat(np.arange(b), per_image)
+    t[:, 1] = rng.randint(0, 2, n)
+    t[:, 2:4] = rng.uniform(0.1, 0.9, (n, 2))
+    t[:, 4:6] = rng.uniform(0.02, 0.1, (n, 2))
+    return imgs, t, np.ones(n, bool)
+
+
+def step_vs_cpu(spec, params, dev, rng, size: int, side: int) -> dict:
+    """(a): one float32 micro-step at B=2 (augment off) on the card and on
+    the CPU from the same weights and inputs, and on the CPU once more with
+    the two images swapped (the same sums in another order)."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.parallel.steps import make_grad_step
+    grad_step = make_grad_step(spec)
+    imgs, t, m = train_batch(rng, 2, side)
+    card = grad_step({k: v.to(dev) for k, v in params.items()}, imgs, t, m, size)
+    host_params = {k: v.cpu() for k, v in params.items()}
+    host = grad_step(host_params, imgs, t, m, size)
+    t_swapped = t.copy()
+    t_swapped[:, 0] = 1 - t_swapped[:, 0]
+    swapped = grad_step(host_params, imgs[::-1].copy(), t_swapped, m, size)
+
+    def rel(grads):
+        return {k: float(torch.linalg.vector_norm(g.cpu() - host[1][k])
+                         / torch.linalg.vector_norm(host[1][k]).clamp(min=1e-30))
+                for k, g in grads.items()}
+
+    grad_rel, noise = rel(card[1]), rel(swapped[1])
+    loss_rel = abs(float(card[0]) - float(host[0])) / abs(float(host[0]))
+    stat_rel = {k: float((v.cpu() - host[2][k]).abs().max() / host[2][k].abs().max())
+                for k, v in card[2].items()}
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_s = max(stat_rel, key=stat_rel.get)
+    med, noise_med = float(np.median(list(grad_rel.values()))), float(np.median(list(noise.values())))
+    noise_max = max(noise.values())
+    rec = {"loss_card": float(card[0]), "loss_cpu": float(host[0]), "loss_rel": loss_rel,
+           "grad_rel_worst": [worst_g, grad_rel[worst_g]], "grad_rel_median": med,
+           "swap_noise_median": noise_med, "swap_noise_max": noise_max,
+           "grad_rel_heads": {k: v for k, v in grad_rel.items() if ".conv_" in k
+                              and k.endswith(".bias")},
+           "stat_rel_worst": [worst_s, stat_rel[worst_s]], "tensors": len(grad_rel)}
+    print(f"train step card vs CPU (f32, B=2, {size}, TF32 off on the card): loss "
+          f"{rec['loss_card']} vs {rec['loss_cpu']} (rel {loss_rel:.3g}, tolerance {STEP_RTOL}); "
+          f"gradients of {len(grad_rel)} tensors, ||card-cpu||/||cpu|| median {med:.3g}, worst "
+          f"{grad_rel[worst_g]:.3g} ({worst_g}); the CPU with the batch swapped: median "
+          f"{noise_med:.3g}, worst {noise_max:.3g} (tolerance {STEP_GRAD_NOISE_FACTOR}x each); "
+          f"head-conv biases {json.dumps({k: round(v, 9) for k, v in rec['grad_rel_heads'].items()})}; "
+          f"new BN stats worst rel {stat_rel[worst_s]:.3g} ({worst_s}, tolerance {STEP_RTOL})",
+          flush=True)
+    if (loss_rel > STEP_RTOL or stat_rel[worst_s] > STEP_RTOL
+            or med > STEP_GRAD_NOISE_FACTOR * noise_med
+            or grad_rel[worst_g] > STEP_GRAD_NOISE_FACTOR * noise_max):
+        raise AssertionError("the train step on the card disagrees with the CPU")
+    return rec
+
+
+def overfit(spec, params, dev, rng, size: int, side: int) -> dict:
+    """(c): OVERFIT_APPLIES bf16 applies on one fixed augmented batch of 8
+    (the augmentation generator re-seeded before each step, so every step
+    sees the same draws)."""
+    import torch
+    from amyloid_yolo_tpu_torch.parallel import steps
+    opt = steps.make_optimizer()
+    state = steps.init_train_state(params, opt, device=dev)
+    step = steps.make_train_step(spec, opt, augment=True, compute_dtype=torch.bfloat16)
+    imgs, t, m = (torch.as_tensor(a).to(dev) for a in train_batch(rng, 8, side))
+    gen = torch.Generator(device=dev)
+    losses = []
+    for _ in range(OVERFIT_APPLIES):
+        gen.manual_seed(SEED)
+        state, metrics = step(state, imgs, t, m, gen, size)
+        losses.append(metrics["loss"])
+    losses = torch.stack(losses).cpu().tolist()
+    print(f"overfit, {OVERFIT_APPLIES} bf16 applies on one augmented batch of 8 at {size}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; every loss {[round(l, 3) for l in losses]}",
+          flush=True)
+    if not all(math.isfinite(l) for l in losses) or not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError("the overfit loss did not fall below half its first value")
+    return {"first": losses[0], "last": losses[-1], "losses": losses}
+
+
+def trainer_run(spec, data: str, root: str, dev, size: int) -> dict:
+    """(d): the Trainer for two epochs of 6 micro-batches of 8 (3 applies
+    each), then its last checkpoint in a fresh Trainer."""
+    import torch
+    from amyloid_yolo_tpu_torch.training import TrainConfig, Trainer
+    cfg = TrainConfig(data_config=data, epochs=2, batch_size=8, gradient_accumulations=2,
+                      img_size=size, multiscale=True, augment=True, max_batches_per_epoch=6,
+                      learning_rate=TRAIN_LR, checkpoint_dir=os.path.join(root, "ckpts"),
+                      logdir=os.path.join(root, "logs"))
+    tr = Trainer(cfg, spec=spec, device=dev)
+    watch = [k for k in tr.state.params if k.endswith(".weight")][:1] + [
+        k for k in tr.state.params if k.endswith(".bias")][-1:]
+    prev = {k: tr.state.params[k].detach().clone() for k in watch}
+    rows = []
+
+    def on_step(epoch, bi, metrics):
+        moved = any(not torch.equal(tr.state.params[k], prev[k]) for k in watch)
+        rows.append({"epoch": epoch, "batch": bi, "loss": metrics["loss"],
+                     "applied": metrics["applied"], "moved": moved,
+                     "grid": int(metrics["head0/grid_size"])})
+        for k in watch:
+            prev[k].copy_(tr.state.params[k].detach())
+
+    t0 = time.perf_counter()
+    tr.train(callback=on_step)
+    wall = time.perf_counter() - t0
+    losses = torch.stack([r["loss"] for r in rows]).cpu().tolist()
+    with open(tr.logger.path) as fh:
+        events = [json.loads(line) for line in fh]
+    maps = {e["step"]: e["validation/mAP"] for e in events if "validation/mAP" in e}
+    ckpts = sorted(os.listdir(cfg.checkpoint_dir))
+    rec = {"wall_s": wall, "epoch_walls": tr.epoch_walls, "losses": losses,
+           "applied": [r["applied"] for r in rows], "head0_grids": [r["grid"] for r in rows],
+           "step": tr.state.step, "seen": tr.state.seen, "val_mAP": maps,
+           "checkpoints": ckpts, "best": tr.best}
+    print(f"Trainer, 2 epochs x 6 micro-batches of 8 (lr {TRAIN_LR}): wall {wall:.2f} s, "
+          f"epochs {json.dumps(tr.epoch_walls)}; step {tr.state.step} seen {tr.state.seen}; "
+          f"head-0 grids {rec['head0_grids']}; applied {rec['applied']}; losses "
+          f"{[round(l, 3) for l in losses]}; validation mAP {maps}; checkpoints {ckpts}",
+          flush=True)
+    if (tr.state.step, tr.state.seen) != (12, 96):
+        raise AssertionError(f"step {tr.state.step} seen {tr.state.seen}, want 12 and 96")
+    if len(losses) != 12 or not all(math.isfinite(l) for l in losses):
+        raise AssertionError("a Trainer loss is not finite")
+    if any(r["moved"] != bool(r["applied"]) for r in rows):
+        raise AssertionError("parameters moved on a micro-batch that did not apply, or not "
+                             "on one that did")
+    if rec["applied"] != [1.0, 0.0] * 6 or rec["head0_grids"][9] == rec["head0_grids"][8]:
+        raise AssertionError("the apply schedule or the multiscale change at batch 10 is off")
+    if sorted(maps) != [0, 1] or not all(0.0 <= v <= 1.0 for v in maps.values()):
+        raise AssertionError(f"validation mAP not logged finite in [0, 1] for both epochs: {maps}")
+    if ckpts != ["yolov3_ckpt_0.pt", "yolov3_ckpt_1.pt"]:
+        raise AssertionError(f"checkpoints {ckpts}, want one per epoch")
+    out = tr.evaluate()
+    tr2 = Trainer(cfg, spec=spec, device=dev)
+    tr2.load_checkpoint(tr.checkpoint_path(1))
+    out2 = tr2.evaluate()
+    if out is None or out2 is None or any(
+            not (a.shape == b.shape and (a == b).all()) for a, b in zip(out, out2)):
+        raise AssertionError("the reloaded checkpoint evaluates differently")
+    rec["reload_ap"] = out2[2].tolist()
+    print(f"reloaded checkpoint {tr.checkpoint_path(1)}: AP {out2[2].tolist()} = the live "
+          f"model's", flush=True)
+    return rec
+
+
+def step_times(spec, params, dev, rng, size: int, side: int, dtype) -> dict:
+    """(e): ms per B=8 micro-step (accumulation 2, augment on, inputs on the
+    card) between CUDA events, 3 warm-up steps then 10 timed one by one."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.parallel import steps
+    opt = steps.make_optimizer()
+    astate = steps.init_accum_state(steps.init_train_state(params, opt, device=dev))
+    step = steps.make_accum_train_step(spec, opt, 2, augment=True, compute_dtype=dtype)
+    batch = [torch.as_tensor(a).to(dev) for a in train_batch(rng, 8, side)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for _ in range(STEP_WARMUP):
+        step(astate, *batch, gen, size)
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(STEP_ITERS)]
+    host_ms = []
+    for a, b in marks:
+        t0 = time.perf_counter()
+        a.record()
+        step(astate, *batch, gen, size)
+        b.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in marks]
+    torch.cuda.reset_peak_memory_stats()
+    step(astate, *batch, gen, size)
+    torch.cuda.synchronize()
+    prof = profile_train_step(step, astate, batch, gen, size)
+    return {"ms": ms, "median_ms": float(np.median(ms)), "min_ms": min(ms), "max_ms": max(ms),
+            "host_enqueue_ms": host_ms, "host_enqueue_median_ms": float(np.median(host_ms)),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "profile": prof}
+
+
+CONV_MARKS = ("fprop", "dgrad", "wgrad", "implicit", "xmma", "cutlass", "gemm", "conv",
+              "cudnn", "winograd", "fft")
+
+
+def _train_group(scope: str, name: str) -> str:
+    conv = any(s in name.lower() for s in CONV_MARKS)
+    if scope == "train/forward":
+        return "conv forward" if conv else "BN and elementwise (forward)"
+    if scope == "train/loss":
+        return "targets and loss"
+    if scope == "train/augment":
+        return "augment (resize + policy)"
+    if scope == "train/optimizer":
+        return "optimizer (Adam, BN stats)"
+    # the backward runs on autograd's device thread, outside every range
+    if "dgrad" in name.lower():
+        return "conv backward (dgrad)"
+    if "wgrad" in name.lower():
+        return "conv backward (wgrad)"
+    return "conv backward (other)" if conv else "BN and elementwise (backward)"
+
+
+def profile_train_step(step, astate, batch, gen, size: int, calls: int = 2) -> dict:
+    """Device time by group over ``calls`` micro-steps (an apply and one
+    without), from a ``torch.profiler`` trace: kernels launched inside the
+    step's ``train/*`` ranges go to that part, the rest (the backward) by
+    kernel name."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step(astate, *batch, gen, size)
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the profiler also draws each record_function range on the device's
+    # timeline (its span, not a kernel): kept apart from the kernels
+    spans = collections.defaultdict(float)
+    for e in on_device:
+        if e.is_user_annotation:
+            spans[e.name] += e.time_range.elapsed_us() / calls / 1e3
+    device = [e for e in on_device if not e.is_user_annotation]
+    if not device:
+        return {"device_busy_ms": "not measured"}
+    left = collections.Counter()
+    for e in device:
+        left[e.name] += e.time_range.elapsed_us()
+    groups = collections.defaultdict(lambda: [0, 0.0])
+
+    def under(e):
+        yield from e.kernels
+        for c in e.cpu_children:
+            yield from under(c)
+
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("train/"):
+            for k in under(e):
+                g = groups[_train_group(e.name, k.name)]
+                g[0] += 1
+                g[1] += k.duration
+                left[k.name] -= k.duration
+    counts = collections.Counter(e.name for e in device)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("train/"):
+            for k in under(e):
+                counts[k.name] -= 1
+    for name, us in left.items():
+        if counts[name] > 0 or us > 1e-3:
+            g = groups[_train_group("", name)]
+            g[0] += max(counts[name], 0)
+            g[1] += max(us, 0.0)
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    span_us = max(e.time_range.end for e in device) - min(e.time_range.start for e in device)
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in device:
+        by_name[e.name[:90]][0] += 1
+        by_name[e.name[:90]][1] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"device_busy_ms": busy_us / calls / 1e3, "idle_share_traced": 1 - busy_us / span_us,
+            "launches_per_step": len(device) / calls,
+            "by_group": {k: {"launches": c / calls, "ms": us / calls / 1e3}
+                         for k, (c, us) in sorted(groups.items(), key=lambda kv: -kv[1][1])},
+            "top_kernels": {k: {"launches": c / calls, "ms": us / calls / 1e3}
+                            for k, (c, us) in top},
+            "range_spans_ms": dict(spans)}
+
+
+def traced_epoch(spec, data: str, root: str, dev, size: int) -> dict:
+    """(e): one Trainer epoch (6 micro-batches, evaluation, checkpoint)
+    under ``torch.profiler``: its wall time, the device's busy time and the
+    idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from amyloid_yolo_tpu_torch.training import TrainConfig, Trainer
+    cfg = TrainConfig(data_config=data, epochs=1, batch_size=8, gradient_accumulations=2,
+                      img_size=size, multiscale=True, augment=True, max_batches_per_epoch=6,
+                      learning_rate=TRAIN_LR, checkpoint_dir=os.path.join(root, "ckpts_traced"),
+                      logdir=os.path.join(root, "logs_traced"))
+    tr = Trainer(cfg, spec=spec, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "launches": len(device), "epoch_walls": tr.epoch_walls}
+
+
+def training_phase(spec, params, card: str, dev, size: int = TRAIN_SIZE,
+                   data_kw=None) -> dict:
+    """Phase 11 (see the module docstring); returns its JSON record."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.io import native
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    data_kw = dict(TRAIN_DATA, **(data_kw or {}))
+    side = data_kw["side"]
+    rng = np.random.RandomState(SEED)
+    record = {"decoder": "native" if native.available() else "pil"}
+    reset_launch_counts()
+    record["step_vs_cpu"] = step_vs_cpu(spec, params, dev, rng, size, side)
+    record["overfit"] = overfit(spec, params, dev, rng, size, side)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = write_train_set(root, SEED, **data_kw)
+        print(f"training set: {data_kw['n_train']} + {data_kw['n_valid']} stain tiles of "
+              f"{side}^2 written in {time.perf_counter() - t0:.2f} s; decoder: "
+              f"{record['decoder']}", flush=True)
+        record["trainer"] = trainer_run(spec, data, root, dev, size)
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            rec = step_times(spec, params, dev, rng, size, side, dtype)
+            record[f"step_{name}"] = rec
+            print(f"train micro-step B=8 {size} {name} (accumulation 2, augment on, inputs on "
+                  f"the card): median {rec['median_ms']:.3f} ms, min {rec['min_ms']:.3f}, max "
+                  f"{rec['max_ms']:.3f} over {STEP_ITERS}; the host's enqueue, median "
+                  f"{rec['host_enqueue_median_ms']:.3f} ms a step; peak memory "
+                  f"{rec['peak_mem_gb']:.2f} GB; profile {json.dumps(rec['profile'])} [{card}]",
+                  flush=True)
+        ep = traced_epoch(spec, data, root, dev, size)
+        record["traced_epoch"] = ep
+        steps_ms = 6 * record["step_f32"]["median_ms"]
+        train_s = sum(w["train_s"] for w in record["trainer"]["epoch_walls"]) / 2
+        print(f"Trainer epoch (f32, 6 micro-batches of 8, {record['decoder']} decoder): train "
+              f"loop {train_s:.3f} s per epoch against 6 x the f32 micro-step = "
+              f"{steps_ms / 1e3:.3f} s (host share {1 - steps_ms / 1e3 / train_s:.3f}); traced "
+              f"epoch (train + evaluation + checkpoint) wall {ep['wall_s']:.3f} s, device busy "
+              f"{ep['device_busy_s']:.3f} s in {ep['launches']} launches, idle share "
+              f"{ep['idle_share']:.4f} [{card}]", flush=True)
+        record["host_share_train_loop"] = 1 - steps_ms / 1e3 / train_s
+    counts = launch_counts()
+    print(f"training phase launches of K1/K2/K3: {counts}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"the training path launched an inference kernel: {counts}")
+    record["launches"] = counts
+    return record
+
+
 def drive(det, batches, want_counts: dict) -> None:
     """One Detector over the batches with the launch counters set to 0
     just before: the counts must be ``want_counts``, the outputs finite
@@ -886,6 +1321,10 @@ def main() -> int:
 
     # 10. the folder path
     folder = folder_phase(det, spec, params, card)
+    del det, full, int8_dets, units
+
+    # 11. the training path
+    training = training_phase(spec, params, card, dev)
 
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
@@ -926,6 +1365,7 @@ def main() -> int:
     ]
     print(json.dumps({"detector": detector, "card": card}))
     print(json.dumps({"folder": folder, "card": card}))
+    print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,11 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "amyloid_yolo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "amyloid_yolo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "amyloid_yolo_tpu")
+# the training path's modules, which the scans below must reach
+TRAINING_MODULES = ("ops.boxes", "models.heads", "ops.targets", "ops.loss", "models.darknet",
+                    "ops.augment", "parallel.steps", "io.datasets", "ops.metrics",
+                    "evaluate", "utils.logging", "io.weights", "training")
 SCRIPTS = ("chip_smoke", "bench_k2")  # the port's scripts at the repo root
 
 
@@ -63,6 +67,8 @@ def test_port_sources_name_no_jax_module():
             found += [(os.path.relpath(path, REPO), n) for n in names if _forbidden(n.strip())]
     assert not found, found
     assert len(_port_files()) > 15
+    mods = set(_port_modules())
+    assert {f"{PKG}.{m}" for m in TRAINING_MODULES} <= mods
 
 
 def test_port_builds_and_reads_nothing_in_the_jax_package():

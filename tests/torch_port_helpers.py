@@ -62,11 +62,14 @@ def port_mini_spec(num_classes: int = 2, img_size: int = 64):
     return _finish(b.net, b.layers, b.out_channels)
 
 
-def jax_params_np(spec, seed: int, bn_noise: bool = False):
+def jax_params_np(spec, seed: int, bn_noise: bool = False, jit: bool = False):
     """JAX ``init_params`` weights as numpy.  ``bn_noise`` randomises the BN
-    shift and running stats (numpy seed ``seed``) so folding is exercised."""
-    params = jax.tree.map(np.asarray,
-                          jax_darknet.init_params(jax.random.PRNGKey(seed), spec))
+    shift and running stats (numpy seed ``seed``) so folding is exercised.
+    ``jit`` runs ``init_params`` compiled: one program instead of one eager
+    compile per random draw (~15 s on a cold cache for the mini spec), with
+    draws that differ from the eager ones in the last bits."""
+    init = jax.jit(jax_darknet.init_params, static_argnums=1) if jit else jax_darknet.init_params
+    params = jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed), spec))
     if bn_noise:
         rng = np.random.RandomState(seed)
         for k, v in params.items():
