@@ -411,20 +411,11 @@ class Detector:
         the image's own pixels, or None}``.  Unreadable files are reported
         and left out.
 
-        ``batch_size``: an int or ``"auto"`` (:func:`resolve_batch_size`).
-        ``merge_boxes``: union-merge overlapping same-class boxes
-        (:func:`~.ops.merge.merge_detections`).  ``caa_filter``: a callable
-        ``(path, dets) -> dets``, e.g. :meth:`.domain.CAAFilter.filter_path`.
         ``fast_decode``: the native reader's DCT-scaled decode with
         ``host_resize`` (:class:`~.io.datasets.ImageFolder`).
         ``background_skip``: drop background tiles before decoding them
         (:func:`~.io.tissue.prefilter_tile_paths`); they come back as
-        ``None``.  The int8 precisions calibrate on the folder's first
-        tiles (:meth:`_calibrate_from_folder`) when they have no scales.
-
-        Up to ``pipeline_depth`` batches are on the device while the host
-        merges and filters earlier ones: launches are asynchronous, and the
-        only sync is :func:`~.ops.nms.dense_to_ragged` in the drain.
+        ``None``.  The other options are :meth:`detect_dataset`'s.
         """
         folder_ds = ImageFolder(folder, tile_size=self.tile_size,
                                 resize_to=self.model_size if self.host_resize else None,
@@ -439,6 +430,31 @@ class Detector:
                       f"{len(skipped) + len(folder_ds.files)} tiles", flush=True)
             if not folder_ds.files:
                 return results
+        results.update(self.detect_dataset(folder_ds, batch_size, merge_boxes=merge_boxes,
+                                           caa_filter=caa_filter,
+                                           pipeline_depth=pipeline_depth))
+        return results
+
+    def detect_dataset(self, folder_ds: ImageFolder, batch_size=16, merge_boxes: bool = False,
+                       caa_filter=None, pipeline_depth: int = 2
+                       ) -> Dict[str, Optional[np.ndarray]]:
+        """:meth:`detect_folder` over an :class:`~.io.datasets.ImageFolder`
+        whose file list the caller may have cut (the whole-slide sweep's
+        prefilter).
+
+        ``batch_size``: an int or ``"auto"`` (:func:`resolve_batch_size`).
+        ``merge_boxes``: union-merge overlapping same-class boxes
+        (:func:`~.ops.merge.merge_detections`).  ``caa_filter``: a callable
+        ``(path, dets) -> dets``, e.g. :meth:`.domain.CAAFilter.filter_path`;
+        a tile it empties comes back as ``None``.  The int8 precisions
+        calibrate on the folder's first tiles (:meth:`_calibrate_from_folder`)
+        when they have no scales.
+
+        Up to ``pipeline_depth`` batches are on the device while the host
+        merges and filters earlier ones: launches are asynchronous, and the
+        only sync is :func:`~.ops.nms.dense_to_ragged` in the drain.
+        """
+        results: Dict[str, Optional[np.ndarray]] = {}
         inflight: "collections.deque" = collections.deque()
 
         def drain_one():

@@ -1,17 +1,27 @@
-"""Domain layer: the consensus-model CAA filter of ``detect``.
+"""Domain layer: the consensus-model CAA filter and the helpers of the CLI.
 
-Counterpart of the reference package's ``domain.py:102-197``
-(:class:`CAAFilter`, :func:`_crop`), which reproduces the original
-``filterDetectionsByCAAModel`` (``core.py:425-452``) with one resident
-classifier and one batched call per tile.  The study metrics, the weak-label
-maps, ``write_caa_detections`` and the drawing helpers are not ported yet
-(ROADMAP.md).
+Counterpart of the reference package's ``domain.py``:
+
+* :class:`CAAFilter`, :func:`_crop` (its ``:102-197``), which reproduce the
+  original ``filterDetectionsByCAAModel`` (``core.py:425-452``) with one
+  resident classifier and one batched call per tile;
+* :func:`write_caa_detections` (its ``:200``), the original
+  ``writeCAADetectionsToPickle`` (``core.py:454-480``) with its centre
+  quirk: centres are (x2-x1)/2, relative to the box, not absolute;
+* :func:`draw_bboxes` and :func:`draw_detections` (its ``:297``, ``:330``),
+  PIL rendering pixel-equal to the reference package's;
+* :func:`wsis_with_most_caas` (its ``:396``) and :func:`clear_output_dir`
+  (its ``:429``, the original ``clear.py``).
+
+The study metrics and the weak-label maps are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Mapping, Optional, Sequence
+import pickle
+import shutil
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -111,4 +121,92 @@ def _crop(img: np.ndarray, row: np.ndarray) -> np.ndarray:
     return crop
 
 
-__all__ = ["CAAFilter"]
+def write_caa_detections(pickle_path: str, img_name: str, detections: np.ndarray,
+                         classes: Sequence[str] = ("CAA", "Cored")) -> None:
+    """Append an image's CAA detections to a pickle ``{image name: [(0,
+    x_centre, y_centre, width, height), ...]}``, with the original's quirks:
+    the centre is computed from the box size alone, (x2-x1)/2, and width
+    and height are in pixels of the int-truncated corners."""
+    store: Dict[str, list] = {}
+    if os.path.exists(pickle_path):
+        with open(pickle_path, "rb") as fh:
+            store = pickle.load(fh)
+    img_name = img_name[img_name.rfind("/") + 1:]
+    new_rows = []
+    for x1, y1, x2, y2, conf, cls_conf, cls_pred in np.asarray(detections):
+        if classes[int(cls_pred)] != "CAA":
+            continue
+        x_center = (int(x2) - int(x1)) / 2.0
+        y_center = (int(y2) - int(y1)) / 2.0
+        new_rows.append((0, x_center, y_center, int(x2) - int(x1), int(y2) - int(y1)))
+    store[img_name] = store.get(img_name, []) + new_rows
+    with open(pickle_path, "wb") as fh:
+        pickle.dump(store, fh)
+
+
+def draw_bboxes(img: np.ndarray, bbox_class_preds, color_by_class: bool = False) -> np.ndarray:
+    """Draw ``(bbox_xywh, (cored, diffuse, CAA))`` entries on an RGB array
+    (the original ``drawBBox``, ``core.py:602-633``, in PIL): entries with
+    neither cored nor CAA >= 0.5 are skipped; by class, CAA is blue and
+    Cored red."""
+    from PIL import Image, ImageDraw
+
+    im = Image.fromarray(np.ascontiguousarray(img))
+    d = ImageDraw.Draw(im)
+    for bbox, preds in bbox_class_preds:
+        if preds[2] < 0.5 and preds[0] < 0.5:
+            continue
+        color = (0, 0, 0)
+        if color_by_class:
+            if preds[2] >= 0.5:
+                color = (0, 0, 255)
+            if preds[0] >= 0.5:
+                color = (255, 0, 0)
+        x1, y1 = bbox[0], bbox[1]
+        x2, y2 = bbox[0] + bbox[2], bbox[1] + bbox[3]
+        d.rectangle([x1, y1, x2, y2], outline=color, width=2)
+        if preds[2] >= 0.5 and preds[0] >= 0.5:
+            text = "Cored and CAA"
+        elif preds[2] >= 0.5:
+            text = "CAA"
+        else:
+            text = "Cored"
+        d.text((x1, max(0, y1 - 12)), text, fill=(0, 0, 0))
+    return np.asarray(im)
+
+
+def draw_detections(img: np.ndarray, detections: np.ndarray,
+                    classes: Sequence[str] = ("CAA", "Cored")) -> np.ndarray:
+    """Render (N, 7) detection rows with class-coloured boxes and labels."""
+    from PIL import Image, ImageDraw
+
+    im = Image.fromarray(np.ascontiguousarray(img))
+    d = ImageDraw.Draw(im)
+    palette = {"CAA": (0, 0, 255), "Cored": (255, 0, 0)}
+    for x1, y1, x2, y2, conf, cls_conf, cls_pred in np.asarray(detections):
+        name = classes[int(cls_pred)]
+        d.rectangle([x1, y1, x2, y2], outline=palette.get(name, (0, 0, 0)), width=2)
+        d.text((x1, max(0, y1 - 12)), f"{name} {conf:.2f}", fill=palette.get(name))
+    return np.asarray(im)
+
+
+def wsis_with_most_caas(counts_pickle: str, n: int = 12) -> List[str]:
+    """The ``n`` WSIs with the most CAA of a plaque-counts pickle.  The
+    original calls ``getWSIsWithMostCAAs(n=12)`` (``validation.py:79``)
+    without defining it; this is its evident intent, as in the reference
+    package."""
+    with open(counts_pickle, "rb") as fh:
+        counts = pickle.load(fh)
+    ranked = sorted(counts.items(), key=lambda kv: kv[1].get("CAA", 0), reverse=True)
+    return [wsi for wsi, _ in ranked[:n]]
+
+
+def clear_output_dir(path: str = "output/") -> None:
+    """Reset an output directory (the original ``clear.py``)."""
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.makedirs(path, exist_ok=True)
+
+
+__all__ = ["CAAFilter", "write_caa_detections", "draw_bboxes", "draw_detections",
+           "wsis_with_most_caas", "clear_output_dir"]

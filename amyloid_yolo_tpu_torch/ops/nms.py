@@ -27,7 +27,10 @@ from .boxes import bbox_iou, xywh2xyxy
 
 def topk_stable(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top ``k`` along the last axis, descending, equal values in index
-    order (``lax.top_k``'s tie rule)."""
+    order (``lax.top_k``'s tie rule).  Every candidate pool of the port is
+    selected here, exactly: the reference's ``approx_topk`` (the TPU's
+    ``lax.approx_max_k``) has no counterpart on the GPU, so the port's
+    ``Detector`` has no such option."""
     vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 

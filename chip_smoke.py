@@ -86,7 +86,37 @@ Phases (any failure exits non-zero; nothing is caught):
    in float32 (TF32 off) and bf16 (median, min, max of 10 after 3) with a
    ``torch.profiler`` breakdown by part, and one traced ``Trainer`` epoch's
    wall time, device busy time and idle share;
-12. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
+12. the serving path and the CLI, at the same width with the weights of
+   phase 6: (a) ``cli export`` of the weights to a ``.pth`` that reads back
+   equal; (b) a ``DetectionServer`` at the serve CLI's defaults (batch 16,
+   ``max_wait_ms`` 5) around a bf16 ``Detector(conf_thres=0.3)`` with the
+   random CAA filter of phase 10, warmed up; (c) 24 requests from 8 client
+   threads (exact-tile JPEG stain tiles, raw RGB with ``X-Image-Shape``, a
+   1536×1000 border PNG, ``merge=0&caa_filter=0``): all 200, K1/K2/K3
+   launching 1/23/0 per dispatch, and each answer equal to its explicit
+   recomputation (``_to_tile_frame``, ``detect_batch_ragged`` at B=16, the
+   rescale, the merge, the CAA filter alone) within ``SERVE_TOL``, the
+   native decode asserted where libjpeg is present; (d) a closed loop of 16
+   clients in a process of their own, ~10 s of raw and ~5 s of JPEG bodies:
+   requests/s, p50/p99, dispatches and ``batched_ratio``, then ~5 s of raw
+   bodies again with 3 s of it traced by ``torch.profiler`` (the device's
+   busy share); beside them ``Detector.__call__`` at B=16 on the card, the
+   pageable upload's share of a dispatch (``np.stack`` and
+   ``detect_batch_ragged``), PIL's decode and the CAA filter, each alone;
+   (e) a burst of 48 at ``max_queue`` 16:
+   answers 200 or 503 with ``Retry-After``, ``/stats`` ``shed`` equal to the
+   503s, an oversize ``Content-Length`` answered 413; (f) ``cli detect``
+   over phase 10's folder at B=8 (its label rows equal ``detect_folder``'s,
+   one image a tile with boxes), ``cli serve`` in a subprocess (its
+   ``serving on`` line, one POST answered as this process's server answers,
+   ``/healthz`` naming the card, exit 0 within 30 s of SIGINT) and ``cli
+   sweep`` over two WSIs of phase 10's tiles in row directories with the
+   cross-tile merge (its pickles equal a recomputation from
+   ``detect_folder`` over each row), its set-up timed alone; (g)
+   ``calculate_plaque_counts_per_wsi`` alone, the Detector and filter
+   built, over 296 tiles (phase 10's 37 in 4 WSIs of 2 rows): tiles/s and
+   K1/K2/K3 launching 1/23/0 per batch;
+13. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
@@ -988,6 +1018,658 @@ def training_phase(spec, params, card: str, dev, size: int = TRAIN_SIZE,
     return record
 
 
+# --------------------------------------------------------------------------
+# phase 12: the serving path and the CLI
+# --------------------------------------------------------------------------
+
+SERVE = dict(batch=16, max_wait_ms=5.0, conf=0.3)  # the serve CLI's defaults, conf 0.3
+SERVE_TOL = dict(box=0.01, score=1e-4)            # served answer vs its recomputation
+SERVE_CLIENTS = 8                                 # (c) correctness
+LOAD_CLIENTS = 16                                 # (d) closed loop, in a process of its own
+LOAD_SECONDS = {"raw": 10.0, "jpeg": 5.0, "traced": 5.0}
+TRACE_WINDOW = (1.0, 3.0)  # (d) the trace: after 1 s of the traced load, for 3 s
+SWEEP_TREE = dict(wsis=4, rows=2)  # (g) phase 10's 37 tiles in rows of 37: 296 tiles
+# (e) overload: the clients send their bodies after HEADERS_WAIT_S, and the
+# device is held past that, so the queue fills while the first batch waits
+HEADERS_WAIT_S = 2.0
+BURST = dict(requests=48, max_queue=16, hold_s=HEADERS_WAIT_S + 1.0)
+HTTP_TIMEOUT = 120
+
+
+def _http(port, method, path, body=None, headers=None):
+    """(status, headers, JSON answer) of one request; HTTP errors are
+    answers too."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _post_headers_first(port, body: bytes, headers: dict):
+    """POST that sends its headers, waits up to ``HEADERS_WAIT_S`` for an
+    answer, and only then its body.  The server sheds a request on its
+    headers when the queue is already full (503, connection closed, body
+    unread); a client still sending the body then meets a reset instead of
+    the 503.  Returns (status, headers, JSON answer)."""
+    import http.client
+    import select
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
+    try:
+        conn.putrequest("POST", "/v1/detect")
+        if "Content-Length" not in headers:
+            conn.putheader("Content-Length", str(len(body)))
+        for k, v in headers.items():
+            conn.putheader(k, v)
+        conn.endheaders()
+        if not select.select([conn.sock], [], [], HEADERS_WAIT_S)[0]:
+            conn.send(body)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def hold_device(dev, seconds: float) -> None:
+    """Queue ``seconds`` of sleep on the card's stream: the next dispatch
+    waits behind it, as behind another tenant's work."""
+    import torch
+    torch.cuda._sleep(int(seconds * 1.98e9))  # cycles at the H100's boost clock
+
+
+def _encode(img, fmt: str) -> bytes:
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format=fmt, **({"quality": 90} if fmt == "JPEG" else {}))
+    return buf.getvalue()
+
+
+def _run_clients(n: int, fn, items):
+    """``fn(item)`` for every item over ``n`` threads; returns the results
+    in item order.  Any exception fails the phase."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(n) as pool:
+        return list(pool.map(fn, items))
+
+
+LOAD_CLIENT = ("import json, sys, chip_smoke; "
+               "print(json.dumps(chip_smoke.closed_loop(**json.loads(sys.argv[1]))))")
+
+
+def closed_loop(port: int, bodies, clients: int, seconds: float) -> dict:
+    """``clients`` threads that each POST a body, wait for its answer and
+    POST the next, for ``seconds``; ``bodies`` are (file, headers) pairs,
+    taken in turn.  Runs in a process of its own (:func:`run_load`), so the
+    clients share neither the server's interpreter nor its lock."""
+    payload = []
+    for path, hdr in bodies:
+        with open(path, "rb") as fh:
+            payload.append((fh.read(), hdr))
+    lat, errs = [], []
+    stop_at = time.perf_counter() + seconds
+
+    def client(i):
+        k = i
+        while time.perf_counter() < stop_at:
+            body, hdr = payload[k % len(payload)]
+            k += clients
+            t = time.perf_counter()
+            code, _, ans = _http(port, "POST", "/v1/detect", body, hdr)
+            lat.append((time.perf_counter() - t) * 1e3)
+            if code != 200:
+                errs.append([code, ans])
+
+    t0 = time.perf_counter()
+    _run_clients(clients, client, range(clients))
+    return {"latencies_ms": lat, "wall_s": time.perf_counter() - t0,
+            "errors": errs[:3], "n_errors": len(errs)}
+
+
+def run_load(port: int, bodies, seconds: float, root: str, during=None):
+    """:func:`closed_loop` of ``LOAD_CLIENTS`` in a child process; this
+    process calls ``during()`` meanwhile.  Returns (the loop's record,
+    ``during()``'s result).  A failed child or any error answer fails the
+    phase."""
+    args = json.dumps({"port": port, "bodies": bodies, "clients": LOAD_CLIENTS,
+                       "seconds": seconds})
+    proc = subprocess.Popen([sys.executable, "-c", LOAD_CLIENT, args], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        extra = during() if during is not None else None
+        out, err = proc.communicate(timeout=seconds + 120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    if proc.returncode != 0:
+        raise AssertionError(f"load client exited {proc.returncode}: {err[-2000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    if rec["n_errors"]:
+        raise AssertionError(f"load: {rec['n_errors']} errors, first {rec['errors'][0]}")
+    return rec, extra
+
+
+def trace_device(start_s: float, seconds: float) -> dict:
+    """After ``start_s``, a ``torch.profiler`` trace (device activity only)
+    of ``seconds`` of whatever runs on the card: the union of its kernels'
+    and copies' intervals over the window's wall time, and device ms and
+    launches by group (:func:`kernel_group`; host-to-device copies apart)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    time.sleep(start_s)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        time.sleep(seconds)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:  # the union: kernels on several streams may overlap
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    groups = {}
+    for e in events:
+        name = ("host-to-device copies" if "HtoD" in e.name else "other copies and fills"
+                if "Mem" in e.name[:6] else kernel_group(e.name))
+        g = groups.setdefault(name, [0, 0.0])
+        g[0] += 1
+        g[1] += e.time_range.elapsed_us() / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / wall_ms, "device_launches": len(events),
+            "by_group": {k: {"launches": c, "ms": ms} for k, (c, ms) in
+                         sorted(groups.items(), key=lambda kv: -kv[1][1])}}
+
+
+def _rows_of(answer):
+    import numpy as np
+    return np.array([[d["x1"], d["y1"], d["x2"], d["y2"], d["conf"], d["cls_conf"], d["cls"]]
+                     for d in answer["detections"]], np.float64).reshape(-1, 7)
+
+
+def recompute_served(server, requests):
+    """Each request's answer spelled out: the decoded image through
+    ``_to_tile_frame``, ``detect_batch_ragged`` at the server's batch (16
+    distinct tiles a call, padded by repeating the last as the executor
+    does), the rescale to the image's pixels, the merge and the CAA filter,
+    run alone in this thread."""
+    import numpy as np
+    from PIL import Image
+    from amyloid_yolo_tpu_torch.ops.boxes import rescale_from_tile_frame
+    from amyloid_yolo_tpu_torch.ops.merge import merge_detections
+    det, b = server.detector, server.executor.batch_size
+    imgs, frames = [], []
+    for _, query, body, headers in requests:
+        if "X-Image-Shape" in headers:
+            h, w = (int(v) for v in headers["X-Image-Shape"].split(","))
+            img = np.frombuffer(body, np.uint8).reshape(h, w, 3)
+        else:
+            img = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+        imgs.append(img)
+        frames.append(server._to_tile_frame(img))
+    dets = []
+    for i in range(0, len(frames), b):
+        chunk = frames[i:i + b]
+        dets += det.detect_batch_ragged(np.stack(chunk + [chunk[-1]] * (b - len(chunk))),
+                                        n_valid=len(chunk))[:len(chunk)]
+    out = []
+    for (_, query, _, _), img, d in zip(requests, imgs, dets):
+        merge, caa = "merge=0" not in query, "caa_filter=0" not in query
+        if d is not None and img.shape[:2] != (det.tile_size,) * 2:
+            d = rescale_from_tile_frame(d, det.tile_size, img.shape[:2])
+        if d is not None and merge:
+            d = merge_detections(d)
+        if d is not None and len(d) and caa:
+            d = server.caa_filter(img, d)
+        out.append((list(img.shape[:2]), np.zeros((0, 7)) if d is None else d))
+    return out
+
+
+def serve_subprocess(args, backend: str, card_name: str, body: bytes, root: str) -> dict:
+    """``python -m amyloid_yolo_tpu_torch.cli serve --port 0 ...`` in its own
+    process: its ``serving on`` line, one POST, ``/healthz`` on the card,
+    then SIGINT and an exit with code 0 within 30 s."""
+    import queue
+    import signal
+    import threading
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "amyloid_yolo_tpu_torch.cli", "serve",
+                             "--port", "0", *args], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(l) for l in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        port, ready, log = None, False, []
+        deadline = time.time() + 300
+        while not ready:
+            try:
+                line = lines.get(timeout=5)
+            except queue.Empty:
+                if proc.poll() is not None or time.time() > deadline:
+                    raise AssertionError(f"serve subprocess not ready: {log}") from None
+                continue
+            log.append(line.rstrip())
+            if line.startswith("serving on http://"):
+                port = int(line.split()[2].rsplit(":", 1)[1])
+            ready = "ready" in line
+        start_s = time.perf_counter() - t0
+        code, _, answer = _http(port, "POST", "/v1/detect", body)
+        hcode, _, health = _http(port, "GET", "/healthz")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=30)
+    print(f"serve subprocess: {log[:2]}; ready after {start_s:.2f} s; POST {code}, "
+          f"/healthz {hcode} {health}; exit code {rc} after SIGINT", flush=True)
+    if code != 200 or hcode != 200 or rc != 0:
+        raise AssertionError(f"serve subprocess: POST {code}, /healthz {hcode}, exit {rc}")
+    if health["backend"] != backend or health["device_name"] != card_name:
+        raise AssertionError(f"serve subprocess /healthz does not show the card: {health}")
+    return {"answer": answer, "health": health, "ready_s": start_s}
+
+
+def write_wsi_tree(root: str, layout) -> list:
+    """WSIs in the google layout (``<WSI>/0/<row>/<col>.jpg``), hard links
+    to existing tiles: ``layout`` holds (WSI name, tiles, tiles a row).
+    Returns the tree's tile paths."""
+    paths = []
+    for wsi, part, cols in layout:
+        for i, src in enumerate(part):
+            d = os.path.join(root, wsi, "0", str(i // cols))
+            os.makedirs(d, exist_ok=True)
+            paths.append(os.path.join(d, f"{i % cols}.jpg"))
+            os.link(src, paths[-1])
+    return paths
+
+
+def recompute_sweep(det, caa, root: str, batch_size: int):
+    """The sweep with the cross-tile merge, spelled out: ``detect_folder``
+    (the per-tile rescale, merge and CAA filter) over each row directory,
+    then ``merge_wsi_detections`` per WSI and the counts; returns (per-WSI
+    counts, per-tile counts) in the sweep's pickles' shapes."""
+    from amyloid_yolo_tpu_torch.io.tiles import iter_wsi_tile_dirs, tile_origin
+    from amyloid_yolo_tpu_torch.ops.merge import merge_wsi_detections
+    classes = ("CAA", "Cored")
+    wsis = sorted(os.listdir(root))
+    wsi_counts = {w: {"Cored": 0, "CAA": 0} for w in wsis}
+    tile_counts = {w: {} for w in wsis}
+    by_wsi = {}
+    for wsi, tile_dir in iter_wsi_tile_dirs(root):
+        found = det.detect_folder(tile_dir, batch_size=batch_size, merge_boxes=True,
+                                  caa_filter=caa.filter_path)
+        for p, d in found.items():
+            tile_counts[wsi][p] = {"Cored": 0, "CAA": 0}
+            if d is not None:
+                by_wsi.setdefault(wsi, {})[p] = d
+    for wsi, dets in by_wsi.items():
+        rows, owners = merge_wsi_detections(
+            dets, {p: tile_origin(p, det.tile_size) for p in dets}, tile_size=det.tile_size)
+        for row, owner in zip(rows, owners):
+            wsi_counts[wsi][classes[int(row[6])]] += 1
+            tile_counts[wsi][owner][classes[int(row[6])]] += 1
+    return wsi_counts, tile_counts
+
+
+def serving_phase(spec, params, card: str, dev, size: int = 416,
+                  load_seconds=None, folder_kw=None, sweep_tree=None) -> dict:
+    """Phase 12 (see the module docstring); returns its JSON record.
+    ``size``, ``load_seconds``, ``folder_kw`` and ``sweep_tree`` cut it down
+    for a rehearsal
+    on the CPU with a mini spec (``torch.cuda.synchronize``, ``cuda_ms`` and
+    ``hold_device`` then need host stand-ins)."""
+    import pickle
+    import threading
+    import warnings
+    import numpy as np
+    import torch
+    from PIL import Image
+    from amyloid_yolo_tpu_torch.analysis.validation import calculate_plaque_counts_per_wsi
+    from amyloid_yolo_tpu_torch.cli.main import main as cli_main
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    from amyloid_yolo_tpu_torch.domain import CAAFilter
+    from amyloid_yolo_tpu_torch.graphspec import emit_cfg
+    from amyloid_yolo_tpu_torch.io import native
+    from amyloid_yolo_tpu_torch.io.weights import load_pretrained, params_to_torch_state_dict
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from amyloid_yolo_tpu_torch.models import classifier
+    from amyloid_yolo_tpu_torch.serving import DetectionServer
+
+    load_seconds = dict(LOAD_SECONDS, **(load_seconds or {}))
+    folder_kw = dict(FOLDER, **(folder_kw or {}))
+    cuda = dev.type == "cuda"
+    card_name = torch.cuda.get_device_name(dev) if cuda else "cpu"
+    root = os.path.dirname(os.path.abspath(__file__))
+    dev_args = ["--device", dev.type]
+    record = {}
+    tmp = tempfile.mkdtemp(prefix="phase12_")
+    server = burst_server = None
+    try:
+        # (a) export the weights through the CLI and read them back
+        cfg = os.path.join(tmp, "model.cfg")
+        with open(cfg, "w") as fh:
+            fh.write(emit_cfg(spec))
+        src, pth = os.path.join(tmp, "src.pth"), os.path.join(tmp, "weights.pth")
+        torch.save(params_to_torch_state_dict(spec, params), src)
+        with contextlib.redirect_stdout(io.StringIO()):
+            if cli_main(["export", "--model_def", cfg, "--src", src, "--dst", pth, *dev_args]):
+                raise AssertionError("export returned non-zero")
+        loaded = load_pretrained(spec, pth)
+        if sorted(loaded) != sorted(k for k in params if not k.endswith("num_batches_tracked")) \
+                or any(not torch.equal(loaded[k], params[k].float()) for k in loaded):
+            raise AssertionError("the exported .pth does not read back equal")
+        print(f"(a) export: {len(loaded)} tensors through `cli export` to .pth, read back "
+              f"equal", flush=True)
+
+        # (b) the server: the serve CLI's defaults around a bf16 Detector
+        det = Detector(spec, loaded, conf_thres=SERVE["conf"], model_size=size, device=dev)
+        # on the card one K1 and one K2 a residual unit (23 in YOLOv3) per
+        # dispatch; CPU tensors take the plain versions, which count nothing
+        per_dispatch = {"resize_normalize": int(cuda),
+                        "fused_residual_block": len(det.packs) if cuda else 0,
+                        "fused_residual_block_int8": 0}
+        record["per_dispatch"] = per_dispatch
+        caa = CAAFilter(classifier.from_jax_params(random_classifier_params(SEED)), device=dev)
+        server = DetectionServer(det, ["CAA", "Cored"], batch_size=SERVE["batch"],
+                                 max_wait_ms=SERVE["max_wait_ms"], caa_filter=caa).start()
+        t0 = time.perf_counter()
+        if not server.warmup():
+            raise AssertionError("warmup refused on a bf16 Detector")
+        record["warmup_s"] = time.perf_counter() - t0
+        print(f"(b) server on port {server.port}, batch {SERVE['batch']}, max_wait "
+              f"{SERVE['max_wait_ms']} ms, conf {SERVE['conf']}, CAA filter on; warmup "
+              f"{record['warmup_s']:.2f} s", flush=True)
+
+        # (c) correctness under 8 client threads
+        rng = np.random.RandomState(SEED + 12)
+        side = det.tile_size
+        jpeg = [_encode(stain_tile(rng, side, side), "JPEG") for _ in range(12)]
+        raw = [stain_tile(rng, side, side) for _ in range(10)]
+        border = stain_tile(rng, *folder_kw["border"])
+        shape = {"X-Image-Shape": f"{side},{side}"}
+        requests = ([("jpeg", "", b, {}) for b in jpeg[:8]]
+                    + [("jpeg, caa_filter=0", "?caa_filter=0", b, {}) for b in jpeg[8:]]
+                    + [("raw", "", r.tobytes(), shape) for r in raw[:8]]
+                    + [("png border", "", _encode(border, "PNG"), {})] * 2
+                    + [("raw, merge=0 caa_filter=0", "?merge=0&caa_filter=0", r.tobytes(), shape)
+                       for r in raw[8:]])
+        d0 = server.executor.n_dispatches
+        reset_launch_counts()
+        answers = _run_clients(SERVE_CLIENTS, lambda r: _http(
+            server.port, "POST", "/v1/detect" + r[1], r[2], r[3]), requests)
+        torch.cuda.synchronize()
+        counts, dispatches = launch_counts(), server.executor.n_dispatches - d0
+        want_counts = {k: v * dispatches for k, v in per_dispatch.items()}
+        print(f"(c) {len(requests)} requests from {SERVE_CLIENTS} threads: {dispatches} "
+              f"dispatches, launches {counts} (want {want_counts}); native decodes "
+              f"{server._n_native}, raw {server._n_raw}", flush=True)
+        if any(code != 200 for code, _, _ in answers):
+            raise AssertionError(f"served errors: {[(c, a) for c, _, a in answers if c != 200]}")
+        if counts != want_counts:
+            raise AssertionError(f"serving launches {counts} over {dispatches} dispatches")
+        if libjpeg_present() and not (native.available() and server._n_native == 4):
+            raise AssertionError("libjpeg is present but exact-tile JPEGs did not decode natively")
+        want = recompute_served(server, requests)
+        box_err = score_err = 0.0
+        n_rows = 0
+        for (name, *_), (_, _, got), (hw, rows) in zip(requests, answers, want):
+            g = _rows_of(got)
+            if got["image_hw"] != hw or g.shape != rows.shape or (g[:, 6] != rows[:, 6]).any():
+                raise AssertionError(f"{name}: served {got['image_hw']} {g.shape}, recomputed "
+                                     f"{hw} {rows.shape}")
+            if len(g):
+                box_err = max(box_err, float(np.abs(g[:, :4] - rows[:, :4]).max()))
+                score_err = max(score_err, float(np.abs(g[:, 4:6] - rows[:, 4:6]).max()))
+            n_rows += len(g)
+        print(f"(c) served = recomputation (_to_tile_frame, detect_batch_ragged at B="
+              f"{SERVE['batch']}, rescale, merge, CAA filter alone): {n_rows} boxes, max|box "
+              f"diff| {box_err} px (tolerance {SERVE_TOL['box']}), max|score diff| {score_err} "
+              f"(tolerance {SERVE_TOL['score']})", flush=True)
+        if box_err > SERVE_TOL["box"] or score_err > SERVE_TOL["score"] or n_rows == 0:
+            raise AssertionError("served answers disagree with their recomputation")
+        record.update({"correctness": {"requests": len(requests), "dispatches": dispatches,
+                                       "launches": counts, "boxes": n_rows,
+                                       "max_box_diff": box_err, "max_score_diff": score_err}})
+
+        # (d) load: a closed loop of 16 clients in a process of their own, raw
+        # then JPEG bodies, then raw bodies again with a slice traced
+        body_dir = os.path.join(tmp, "bodies")
+        os.makedirs(body_dir)
+        bodies = {"raw": [], "jpeg": []}
+        for kind, items, hdr in (("raw", [r.tobytes() for r in raw], shape),
+                                 ("jpeg", jpeg, {})):
+            for i, body in enumerate(items):
+                path = os.path.join(body_dir, f"{kind}{i}")
+                with open(path, "wb") as fh:
+                    fh.write(body)
+                bodies[kind].append((path, hdr))
+        for kind in ("raw", "jpeg", "traced"):
+            s0 = server._stats()
+            during = (lambda: trace_device(*TRACE_WINDOW)) if kind == "traced" and cuda else None
+            loop, trace = run_load(server.port, bodies["jpeg" if kind == "jpeg" else "raw"],
+                                   load_seconds[kind], root, during)
+            s1 = server._stats()
+            lat, wall = loop["latencies_ms"], loop["wall_s"]
+            n_req, n_disp = s1["requests"] - s0["requests"], s1["dispatches"] - s0["dispatches"]
+            rec = {"requests": len(lat), "wall_s": wall, "requests_per_s": len(lat) / wall,
+                   "p50_ms": float(np.percentile(lat, 50)),
+                   "p99_ms": float(np.percentile(lat, 99)), "dispatches": n_disp,
+                   "batched_ratio": n_req / max(n_disp, 1),
+                   "ms_per_dispatch": wall * 1e3 / max(n_disp, 1)}
+            if trace is not None:
+                rec["trace"] = trace
+            record[f"load_{kind}"] = rec
+            print(f"(d) load {kind}, {LOAD_CLIENTS} closed-loop clients in their own process, "
+                  f"{wall:.2f} s: {rec['requests']} requests = {rec['requests_per_s']:.2f} req/s, "
+                  f"p50 {rec['p50_ms']:.1f} ms, p99 {rec['p99_ms']:.1f} ms, {n_disp} dispatches "
+                  f"(one every {rec['ms_per_dispatch']:.1f} ms), batched_ratio "
+                  f"{rec['batched_ratio']:.2f} [{card}]", flush=True)
+            if trace is not None:
+                print(f"(d) trace of {trace['wall_ms']:.0f} ms of the raw load: device busy "
+                      f"{trace['device_busy_ms']} ms, share {trace.get('busy_share')}; by group "
+                      f"{json.dumps(trace.get('by_group'))} [{card}]", flush=True)
+
+        # where a request's time goes, each part alone
+        b = SERVE["batch"]
+        batch = np.stack([raw[i % len(raw)] for i in range(b)])
+        on_card = torch.from_numpy(batch).to(dev)
+        with torch.inference_mode():
+            call_ms = cuda_ms(lambda: det(on_card), iters=5, warmup=2, hold=False)
+            upload_ms = cuda_ms(lambda: torch.from_numpy(batch).to(dev), iters=5, warmup=2,
+                                hold=False)
+            dispatch_ms = cuda_ms(lambda: det.detect_batch_ragged(batch, b), iters=5, warmup=2,
+                                  hold=False)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            np.stack([raw[i % len(raw)] for i in range(b)])
+        stack_ms = (time.perf_counter() - t0) * 1e3 / 5
+        t0 = time.perf_counter()
+        for body in jpeg:
+            np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(jpeg)
+        some = [(raw[i], d) for i, d in enumerate(det.detect_batch_ragged(batch[:b], b)[:8])
+                if d is not None]
+        t0 = time.perf_counter()
+        for img, d in some:
+            caa(img, d)
+        caa_ms = (time.perf_counter() - t0) * 1e3 / max(len(some), 1)
+        parts = {"call_b16_on_card_ms": call_ms, "call_tiles_per_s": b / call_ms * 1e3,
+                 "upload_b16_ms": upload_ms, "detect_batch_ragged_b16_ms": dispatch_ms,
+                 "upload_share_of_detect_batch_ragged": upload_ms / dispatch_ms,
+                 "upload_share_of_dispatch": upload_ms / (stack_ms + dispatch_ms),
+                 "stack_b16_ms": stack_ms, "pil_decode_ms_per_tile": decode_ms,
+                 "caa_filter_ms_per_request": caa_ms}
+        record["parts"] = parts
+        print(f"(d) parts: Detector.__call__ B={b} on the card {call_ms:.3f} ms = "
+              f"{parts['call_tiles_per_s']:.1f} tiles/s; pageable upload of the B={b} batch "
+              f"({batch.nbytes / 1e6:.1f} MB) {upload_ms:.3f} ms; detect_batch_ragged from "
+              f"host numpy (upload, call, copy back) {dispatch_ms:.3f} ms; np.stack of the "
+              f"batch {stack_ms:.3f} ms; the upload {parts['upload_share_of_dispatch']:.3f} of "
+              f"a dispatch (stack + detect_batch_ragged), "
+              f"{parts['upload_share_of_detect_batch_ragged']:.3f} of detect_batch_ragged; PIL "
+              f"decode {decode_ms:.2f} ms a tile; CAA filter {caa_ms:.2f} ms a request "
+              f"[{card}]", flush=True)
+        del on_card
+
+        # (e) overload: a burst of 48 against max_queue 16; an oversize body
+        burst_server = DetectionServer(det, ["CAA", "Cored"], batch_size=SERVE["batch"],
+                                       max_wait_ms=SERVE["max_wait_ms"], caa_filter=caa,
+                                       max_queue=BURST["max_queue"]).start()
+        gate = threading.Barrier(BURST["requests"])
+
+        def burst(i):
+            gate.wait(timeout=HTTP_TIMEOUT)
+            return _post_headers_first(burst_server.port, raw[i % len(raw)].tobytes(), shape)
+
+        hold_device(dev, BURST["hold_s"])
+        got = _run_clients(BURST["requests"], burst, range(BURST["requests"]))
+        codes = [c for c, _, _ in got]
+        shed = [h for c, h, _ in got if c == 503]
+        stats = burst_server._stats()
+        big = _post_headers_first(burst_server.port, b"x" * 10,
+                                  {"Content-Length": str(burst_server.max_body_bytes + 1)})[0]
+        record["burst"] = {"ok": codes.count(200), "shed": len(shed), "stats_shed": stats["shed"],
+                           "oversize": big}
+        print(f"(e) burst of {BURST['requests']} at max_queue {BURST['max_queue']}, the device "
+              f"held {BURST['hold_s']} s: {codes.count(200)} answered 200, {len(shed)} answered "
+              f"503 (Retry-After {sorted({h.get('Retry-After') for h in shed})}), /stats shed "
+              f"{stats['shed']}; oversize Content-Length -> {big}", flush=True)
+        if (set(codes) != {200, 503} or stats["shed"] != len(shed)
+                or any(h.get("Retry-After") != "1" for h in shed) or big != 413):
+            raise AssertionError(f"overload: codes {sorted(set(codes))}, shed {len(shed)}, "
+                                 f"/stats shed {stats['shed']}, oversize {big}")
+        burst_server.stop()
+        burst_server = None
+
+        # (f) the CLI on the card: detect, serve in a subprocess, sweep
+        folder = os.path.join(tmp, "folder")
+        os.makedirs(folder)
+        readable, *_ = write_folder(folder, SEED, **folder_kw)
+        out_dir = os.path.join(tmp, "detect_out")
+        log = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli_main(["detect", "--model_def", cfg, "--weights_path", pth,
+                           "--image_folder", folder, "--output_dir", out_dir, "--batch_size",
+                           "8", "--conf_thres", str(SERVE["conf"]), "--img_size", str(size),
+                           *dev_args])
+        torch.cuda.synchronize()
+        detect_s, detect_counts = time.perf_counter() - t0, launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = det.detect_folder(folder, batch_size=8)
+        want_lines = ["\t+ Label: %s, Conf: %.5f" % (("CAA", "Cored")[int(r[6])], r[5])
+                      for d in res.values() if d is not None for r in d]
+        got_lines = [l for l in log.getvalue().splitlines() if "+ Label:" in l]
+        n_batches = -(-len(readable) // 8)
+        with_boxes = sum(d is not None for d in res.values())
+        print(f"(f) cli detect over {len(readable)} readable tiles at B=8: rc {rc}, "
+              f"{len(got_lines)} label rows (detect_folder: {len(want_lines)}), "
+              f"{len(os.listdir(out_dir))} images for {with_boxes} tiles with boxes, launches "
+              f"{detect_counts} over {n_batches} batches, {detect_s:.2f} s", flush=True)
+        if rc != 0 or got_lines != want_lines or not want_lines \
+                or len(os.listdir(out_dir)) != with_boxes:
+            raise AssertionError("cli detect differs from detect_folder")
+        if detect_counts != {k: v * n_batches for k, v in per_dispatch.items()}:
+            raise AssertionError(f"cli detect launches {detect_counts}")
+
+        sub = serve_subprocess(["--model_def", cfg, "--weights_path", pth, "--conf_thres",
+                                str(SERVE["conf"]), "--img_size", str(size), *dev_args],
+                               dev.type, card_name, jpeg[0], root)
+        _, _, here = _http(server.port, "POST", "/v1/detect?caa_filter=0", jpeg[0])
+        g, w = _rows_of(sub["answer"]), _rows_of(here)
+        if g.shape != w.shape or (len(g) and (np.abs(g[:, :4] - w[:, :4]).max() > SERVE_TOL["box"]
+                                              or np.abs(g[:, 4:6] - w[:, 4:6]).max()
+                                              > SERVE_TOL["score"])):
+            raise AssertionError("the serve subprocess answers otherwise than this server")
+        record["serve_subprocess"] = {"ready_s": sub["ready_s"], "boxes": len(g),
+                                      "health": sub["health"]}
+
+        t0s = [p for p in readable if os.path.basename(p).startswith("t0")]
+        tree = os.path.join(tmp, "wsis")
+        half = len(t0s) // 2
+        swept = write_wsi_tree(tree, [("CERAD_4G8_A", t0s[:half], 6),
+                                      ("CERAD_4G8_B", t0s[half:], 5)])
+        pk = os.path.join(tmp, "pickles")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as sweep_log:
+            rc = cli_main(["sweep", "--model_def", cfg, "--weights_path", pth, "--directory",
+                           tree, "--conf_thres", str(SERVE["conf"]), "--cross_tile_merge",
+                           "True", "--pickles_dir", pk, "--prefix", "P_", *dev_args])
+        torch.cuda.synchronize()
+        sweep_s, sweep_counts = time.perf_counter() - t0, launch_counts()
+        with open(os.path.join(pk, "P_WSI_plaque_counts_dictionary.pkl"), "rb") as fh:
+            wsi_counts = pickle.load(fh)
+        with open(os.path.join(pk, "P_1536_plaque_counts_dictionary.pkl"), "rb") as fh:
+            tile_counts = pickle.load(fh)
+        t0 = time.perf_counter()  # the sweep command's set-up, alone
+        sweep_det = Detector(spec, load_pretrained(spec, pth), conf_thres=SERVE["conf"],
+                             device=dev)
+        sweep_caa = CAAFilter(device=dev)
+        setup_s = time.perf_counter() - t0
+        with contextlib.redirect_stdout(io.StringIO()):
+            want_wsi, want_tiles = recompute_sweep(sweep_det, sweep_caa, tree, 8)
+        print(f"(f) cli sweep, cross_tile_merge on, {len(swept)} tiles in 2 WSIs: rc {rc}, "
+              f"{wsi_counts} (recomputation from detect_folder {want_wsi}); the command "
+              f"{sweep_s:.2f} s with its set-up (Detector from the .pth and CAA filter "
+              f"{setup_s:.2f} s alone); launches {sweep_counts}; "
+              f"{sweep_log.getvalue().strip()!r} [{card}]", flush=True)
+        if rc != 0 or wsi_counts != want_wsi or tile_counts != want_tiles:
+            raise AssertionError("cli sweep counts differ from their recomputation")
+        if sum(c["Cored"] + c["CAA"] for c in wsi_counts.values()) == 0:
+            raise AssertionError("the sweep counted nothing")
+
+        # (g) the sweep's rate: calculate_plaque_counts_per_wsi alone, on a
+        # slide tree of several hundred tiles, the Detector and filter built
+        big = os.path.join(tmp, "wsis_big")
+        tree_kw = dict(SWEEP_TREE, **(sweep_tree or {}))
+        n_big = len(write_wsi_tree(big, [(f"CERAD_4G8_{w}", t0s * tree_kw["rows"], len(t0s))
+                                         for w in range(tree_kw["wsis"])]))
+        big_batches = tree_kw["wsis"] * tree_kw["rows"] * -(-len(t0s) // 8)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the overflow warning: random weights
+            big_counts = calculate_plaque_counts_per_wsi(
+                big, sweep_det, sweep_caa, prefix="G_", pickles_dir=pk, batch_size=8,
+                cross_tile_merge=True)
+        torch.cuda.synchronize()
+        big_s, big_launches = time.perf_counter() - t0, launch_counts()
+        print(f"(g) calculate_plaque_counts_per_wsi alone, B=8, CAA filter and cross-tile "
+              f"merge on: {n_big} tiles in {tree_kw['wsis']} WSIs of {tree_kw['rows']} rows of "
+              f"{len(t0s)} in {big_s:.2f} s = {n_big / big_s:.2f} tiles/s; launches "
+              f"{big_launches} over {big_batches} batches; counts {big_counts} [{card}]",
+              flush=True)
+        if big_launches != {k: v * big_batches for k, v in per_dispatch.items()}:
+            raise AssertionError(f"sweep launches {big_launches} over {big_batches} batches")
+        if any(c["Cored"] + c["CAA"] == 0 for c in big_counts.values()):
+            raise AssertionError("the sweep counted nothing on a slide")
+        record.update({"cli_detect": {"tiles": len(readable), "seconds": detect_s,
+                                      "label_rows": len(got_lines), "launches": detect_counts},
+                       "cli_sweep": {"tiles": len(swept), "command_s": sweep_s,
+                                     "setup_s": setup_s, "counts": wsi_counts,
+                                     "launches": sweep_counts},
+                       "sweep": {"tiles": n_big, "batches": big_batches, "seconds": big_s,
+                                 "tiles_per_s": n_big / big_s, "launches": big_launches}})
+    finally:
+        for s in (burst_server, server):
+            if s is not None:
+                s.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return record
+
+
 def drive(det, batches, want_counts: dict) -> None:
     """One Detector over the batches with the launch counters set to 0
     just before: the counts must be ``want_counts``, the outputs finite
@@ -1326,6 +2008,10 @@ def main() -> int:
     # 11. the training path
     training = training_phase(spec, params, card, dev)
 
+    # 12. the serving path and the CLI
+    serving = serving_phase(spec, params, card, dev)
+    served = serving["correctness"]
+
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
 
@@ -1341,7 +2027,9 @@ def main() -> int:
          "max_abs_diff": k1_err, "tol": "bit-exact",
          "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None,
-         "shape": "8x1536x1536x3 u8 -> 8x416x416x3 bf16"},
+         "shape": "8x1536x1536x3 u8 -> 8x416x416x3 bf16",
+         "serving_launches": served["launches"]["resize_normalize"],
+         "serving_dispatches": served["dispatches"]},
         {"name": "fused_residual_block", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/conv_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/conv_block.py:107",
@@ -1351,7 +2039,9 @@ def main() -> int:
          "plain_ms": total(stages, "plain_ms"), "bound_ms": total(stages, "bound_ms"),
          "bound_by": bound_by(stages), "library_ms": total(stages, "library_ms"),
          "shape": "the 23 units of one B=8 batch", "stages": stages,
-         "stages_b32": k2_rows[32]},
+         "stages_b32": k2_rows[32],
+         "serving_launches": served["launches"]["fused_residual_block"],
+         "serving_dispatches": served["dispatches"]},
         {"name": "fused_residual_block_int8", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/int8_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/int8_block.py:150",
@@ -1361,11 +2051,14 @@ def main() -> int:
          "plain_ms": total(stages3, "plain_ms"), "bound_ms": total(stages3, "bound_ms"),
          "bound_by": bound_by(stages3), "library_ms": total(stages3, "library_ms"),
          "shape": "the 23 units of one B=8 batch", "stages": stages3,
-         "stages_b32": k3_rows[32]},
+         "stages_b32": k3_rows[32],
+         "serving_launches": served["launches"]["fused_residual_block_int8"],
+         "serving_dispatches": served["dispatches"]},
     ]
     print(json.dumps({"detector": detector, "card": card}))
     print(json.dumps({"folder": folder, "card": card}))
     print(json.dumps({"training": training, "card": card}))
+    print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

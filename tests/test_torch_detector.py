@@ -152,3 +152,26 @@ def test_host_resize_checks_tile_size():
     det = Detector(port_mini_spec(), device="cpu", model_size=64, host_resize=True)
     with pytest.raises(ValueError, match="host_resize"):
         det(np.zeros((1, 256, 256, 3), np.uint8))
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+def test_approx_topk_matches_jax_detector(golden_params, lazy):
+    """The reference's ``approx_topk=True`` (its CLI's ``--fast_path``)
+    against the port, which always selects the pool exactly and has no such
+    option: XLA on the CPU lowers ``approx_max_k`` to an exact top-k, so both
+    agree at the bound of ``test_torch_calibration.py``'s
+    ``test_detections_match_jax_detector`` (0.1 px, 1e-3 in score)."""
+    ref = JaxDetector(mini_spec(), golden_params, compute_dtype=jnp.float32,
+                      lazy_decode=lazy, approx_topk=True, **CFG)
+    want_d, want_v = (np.asarray(a) for a in ref(_tiles()))
+    det = Detector(port_mini_spec(), params_from_jax(golden_params, port_mini_spec()),
+                   compute_dtype=torch.float32, device="cpu", lazy_decode=lazy, **CFG)
+    dets, valid = det(_tiles())
+    v = valid.numpy()
+    np.testing.assert_array_equal(v, want_v)
+    assert v.sum() > 0
+    np.testing.assert_allclose(dets.numpy()[v][:, :4], want_d[v][:, :4], atol=0.1)
+    np.testing.assert_allclose(dets.numpy()[v][:, 4:6], want_d[v][:, 4:6], atol=1e-3)
+    np.testing.assert_array_equal(dets.numpy()[v][:, 6], want_d[v][:, 6])
+    with pytest.raises(TypeError, match="approx_topk"):
+        Detector(port_mini_spec(), device="cpu", approx_topk=True)

@@ -13,6 +13,9 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "amyloid_yolo_tpu")
 TRAINING_MODULES = ("ops.boxes", "models.heads", "ops.targets", "ops.loss", "models.darknet",
                     "ops.augment", "parallel.steps", "io.datasets", "ops.metrics",
                     "evaluate", "utils.logging", "io.weights", "training")
+# the serving path and the CLI's modules
+SERVING_MODULES = ("serving", "cli", "cli.main", "io.tiles", "analysis", "analysis.validation",
+                   "domain")
 SCRIPTS = ("chip_smoke", "bench_k2")  # the port's scripts at the repo root
 
 
@@ -26,6 +29,8 @@ def _port_files():
 def _port_modules():
     mods = []
     for path in _port_files()[len(SCRIPTS):]:
+        if path.endswith("__main__.py"):  # runs the CLI when imported
+            continue
         mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
         mods.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
     return mods
@@ -68,7 +73,8 @@ def test_port_sources_name_no_jax_module():
     assert not found, found
     assert len(_port_files()) > 15
     mods = set(_port_modules())
-    assert {f"{PKG}.{m}" for m in TRAINING_MODULES} <= mods
+    assert {f"{PKG}.{m}" for m in TRAINING_MODULES + SERVING_MODULES} <= mods
+    assert os.path.join(REPO, PKG, "cli", "__main__.py") in _port_files()
 
 
 def test_port_builds_and_reads_nothing_in_the_jax_package():
