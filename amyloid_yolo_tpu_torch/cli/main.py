@@ -29,8 +29,14 @@ Where the port differs:
 * ``export`` reads and writes ``.pth`` and darknet ``.weights`` and reads the
   port's ``Trainer`` checkpoints (``path#ema`` for the EMA); orbax
   directories are not ported and raise;
-* ``sweep --data_parallel N`` with N > 1 raises (multi-GPU, ROADMAP.md
-  Queue 1 item 7).
+* ``sweep --data_parallel N`` splits each batch over a mesh of N devices
+  (:mod:`..parallel.mesh`): ``cuda:0 .. N-1`` by default, N CPU entries
+  with ``--device cpu``, or the N devices that ``--device`` lists,
+  comma-separated (``cuda:0,cuda:0`` runs two shards on one card);
+* ``train --distributed True`` runs one process a device: under
+  ``torchrun`` without ``--coordinator_address`` (``env://``), or with
+  ``--coordinator_address host:port --num_processes N --process_id i`` in
+  each process.
 """
 
 from __future__ import annotations
@@ -318,6 +324,27 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _sweep_mesh(n, device: str):
+    """The mesh of ``sweep --data_parallel n`` (``None`` for one device):
+    ``--device`` names one device type (``cuda``: cards 0 .. n-1; ``cpu``:
+    n CPU entries) or lists the n devices, comma-separated."""
+    from ..parallel.mesh import make_mesh
+
+    if not n or n <= 1:
+        if "," in device:
+            raise ValueError(f"--device {device} lists several devices: pass "
+                             "--data_parallel with their count")
+        return None
+    if "," in device:
+        return make_mesh(n, devices=[d.strip() for d in device.split(",")])
+    if device == "cpu":
+        return make_mesh(devices=["cpu"] * n)
+    if device != "cuda":
+        raise ValueError(f"--data_parallel {n} takes --device cuda, cpu or a list of "
+                         f"{n} devices, not {device!r}")
+    return make_mesh(n)
+
+
 def cmd_sweep(args) -> int:
     """Whole-slide sweep: per-WSI and per-tile plaque counts (the original
     ``validation.py`` ``calculatePlaqueCountsPerWSI``)."""
@@ -326,19 +353,17 @@ def cmd_sweep(args) -> int:
     from ..domain import CAAFilter, wsis_with_most_caas
     from ..io import weights as W
 
-    if args.data_parallel and args.data_parallel > 1:
-        raise NotImplementedError(
-            "sweep --data_parallel > 1 (multi-GPU inference) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
     spec = _spec_from_args(args)
     params = W.load_pretrained(spec, args.weights_path) if args.weights_path else None
+    mesh = _sweep_mesh(args.data_parallel, args.device)
+    device = mesh.devices[0] if mesh is not None else args.device
     det = Detector(spec, params, conf_thres=args.conf_thres,
-                   nms_thres=args.nms_thres, device=args.device,
+                   nms_thres=args.nms_thres, device=device, mesh=mesh,
                    **_fast_path_kwargs(args), **_capacity_kwargs(args))
     caa_filter = None
     if _truthy(args.filter_CAA_detections_by_model):
         caa_filter = CAAFilter(model_pickle=args.caa_model_pickle,
-                               normalization=args.caa_normalization, device=args.device)
+                               normalization=args.caa_normalization, device=device)
     whitelist = None
     if args.top_caa_wsis and args.top_caa_counts_pickle:
         whitelist = wsis_with_most_caas(args.top_caa_counts_pickle, args.top_caa_wsis)
@@ -447,11 +472,13 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--verbose", "-v", default=False, action="store_true")
     t.add_argument("--logdir", type=str, default="logs")
     t.add_argument("--data_parallel", type=int, default=None,
-                   help="not ported (multi-GPU): N > 1 raises")
+                   help="N shards in one process, one device each (--device cpu: "
+                        "N CPU entries)")
     t.add_argument("--spatial_shard", type=int, default=None,
                    help="not ported (multi-GPU): N > 1 raises")
     t.add_argument("--distributed", type=str, default="False",
-                   help="not ported (multi-host): True raises")
+                   help="one process a device (NCCL); under torchrun, or with "
+                        "--coordinator_address, --num_processes and --process_id")
     t.add_argument("--coordinator_address", type=str, default=None)
     t.add_argument("--num_processes", type=int, default=None)
     t.add_argument("--process_id", type=int, default=None)
@@ -628,7 +655,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the original double-counts boundary-straddling "
                         "plaques)")
     s.add_argument("--data_parallel", type=int, default=None,
-                   help="not ported (multi-GPU): N > 1 raises")
+                   help="split each batch over N devices (see --device)")
     s.add_argument("--precision", type=str, default=None,
                    choices=["int8_early", "int8_full"],
                    help="int8 flavor for --fast_path (default int8_early)")

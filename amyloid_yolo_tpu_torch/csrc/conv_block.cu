@@ -397,8 +397,8 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_residual_block_kernel(co
 }
 
 template <int BN, int KS2, int MINB, int S1, int NT>
-cudaError_t prepare() {  // raise the shared-memory limit, once per process
-  static const cudaError_t err = [] {
+cudaError_t prepare() {  // raise the shared-memory limit, once per device
+  return once_per_device([] {
     auto* kernel = fused_residual_block_kernel<BN, KS2, MINB, S1, NT>;
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
@@ -406,8 +406,7 @@ cudaError_t prepare() {  // raise the shared-memory limit, once per process
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     return e;
-  }();
-  return err;
+  });
 }
 
 // Launch (blocks > 0) or report the resident blocks per SM (blocks == 0,

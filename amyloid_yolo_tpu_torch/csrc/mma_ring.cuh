@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace mma_ring {
 
 constexpr int kThreads = 256;
@@ -89,6 +91,25 @@ __device__ __forceinline__ void pipeline(int steps, Load&& load, Compute&& compu
 // m16 tiles of a warp whose first pixel is `base`, of `m` pixels in all
 __device__ __forceinline__ int m16_tiles(int m, int base) {
   return max(0, min(kMT, (m - base + 15) / 16));
+}
+
+// `set()` once per CUDA device, on the device current at the call; returns
+// that device's result.  A kernel attribute such as the dynamic shared-memory
+// limit belongs to the context of the device that was current when it was
+// set, so a second card needs its own call.  Each caller's lambda has its
+// own type, so each gets its own flags.
+constexpr int kMaxDevices = 64;
+
+template <class F>
+cudaError_t once_per_device(F set) {
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t result[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [&] { result[dev] = set(); });
+  return result[dev];
 }
 
 }  // namespace mma_ring

@@ -14,18 +14,20 @@ executors in ``models.darknet``, no K2), calibration and its sidecars, and
 :meth:`Detector.detect_folder`, the path of ``detect``: a folder of tiles
 through the reader (:mod:`.io.datasets`, :mod:`.io.native`), the call
 above, the border rescale, the union merge (:mod:`.ops.merge`) and the CAA
-filter (:mod:`.domain`).  Meshes and the TPU-only options are not ported
-yet (see ROADMAP.md).
+filter (:mod:`.domain`).  With ``mesh=`` (:mod:`.parallel.mesh`) a call
+splits its batch over several devices.  The TPU-only options are not
+ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import json
 import os
 import warnings
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +41,8 @@ from .ops import nms as nms_ops
 from .ops.boxes import rescale_boxes, rescale_from_tile_frame
 from .ops.merge import merge_detections
 from .ops.preprocess import f32_from_bf16_input, preprocess_tiles
-from .utils.device import DeviceLike, resolve_device
+from .parallel.mesh import Mesh, normalize_device, replicate, split_batch, to_device
+from .utils.device import DeviceLike, no_tf32, resolve_device
 
 
 def resolve_batch_size(batch_size, n_images: int) -> int:
@@ -49,6 +52,34 @@ def resolve_batch_size(batch_size, n_images: int) -> int:
     if isinstance(batch_size, str) and batch_size.strip().lower() == "auto":
         return 32 if n_images >= 64 else 16
     return int(batch_size)
+
+
+class Route(NamedTuple):
+    """What a call runs: K1 for the preprocess (else the plain
+    ``preprocess_tiles``), K2 for the residual units (else each unit's two
+    convolutions), and TF32 off around the call."""
+    k1: bool
+    k2: bool
+    tf32_off: bool
+
+
+def route(device_type: str, compute_dtype: torch.dtype, precision: str = "bf16",
+          fold_bn: bool = True) -> Route:
+    """The :class:`Route` of a ``Detector``.  bfloat16 runs K1 and, for the
+    folded bf16 precision, K2 on every residual unit.  float32 runs neither
+    (K1 writes bf16 and K2 takes bf16), as the reference ``Detector``'s
+    default path runs its units through XLA and never its preprocess
+    kernel; on the card its convolutions run in full float32, TF32 off."""
+    bf16 = compute_dtype == torch.bfloat16
+    return Route(k1=bf16, k2=bf16 and precision == "bf16" and fold_bn,
+                 tf32_off=device_type == "cuda" and not bf16)
+
+
+class _Replica(NamedTuple):
+    """The weights one device runs with."""
+    params: Dict
+    packs: Optional[darknet.Packs]
+    qparams: Optional[darknet.QParams]
 
 
 class Detector:
@@ -64,7 +95,9 @@ class Detector:
         ``capacity``) conf-passing candidates take part in suppression and
         merging.  :meth:`account_overflow` counts images that had more.
       compute_dtype: ``torch.bfloat16`` (the main path, kernels K1 and K2)
-        or ``torch.float32`` (CPU only: K2 takes bf16 on the card).
+        or ``torch.float32`` (the plain preprocess and every convolution
+        unfused, in full float32: TF32 is off for the duration of a call on
+        the card; see :func:`route`).
       fold_bn: fold BN into the convs (default); ``False`` runs the
         unfolded executor :func:`~.models.darknet.apply` (bf16 precision
         only, no K2).
@@ -83,6 +116,13 @@ class Detector:
         dense decode of every anchor row; same outputs.
       device: ``"cuda"`` when ``None``; raises when CUDA is absent unless
         ``device="cpu"`` is passed.
+      mesh: a :class:`~.parallel.mesh.Mesh`: the weights are copied onto
+        each of its devices, and a call splits its batch evenly over them
+        (one shard a device, all issued from the calling thread without a
+        sync between them) and gathers the outputs on the mesh's first
+        device, which is the Detector's ``device``.  The int8 precisions
+        calibrate once, on the first device, and every shard uses those
+        scales.
 
     ``pallas_blocks``, ``s2d_stem`` and ``s2d_downsample`` are the
     reference's TPU options; they raise here (ROADMAP.md).  The bf16 path
@@ -119,6 +159,7 @@ class Detector:
         int32_accum_max_hw: int = 0,
         calib_percentile: float = 100.0,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
         seed: int = 0,
     ):
         if precision not in ("bf16", "int8_early", "int8_full"):
@@ -131,10 +172,15 @@ class Detector:
                 raise ValueError(f"{name} is not ported yet (ROADMAP.md Queue 1)")
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+        if mesh is not None:
+            if device is not None and normalize_device(resolve_device(device)) \
+                    != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and compute_dtype != torch.bfloat16:
-            raise ValueError("on CUDA the Detector computes in bf16 (K2 takes bf16 "
-                             "only); float32 runs on the CPU (ROADMAP.md Queue 2, K2)")
+        self.mesh = mesh
+        self.route = route(self.device.type, compute_dtype, precision, fold_bn)
         self.spec = spec or yolov3_spec(num_classes=2)
         if params is None:
             params = darknet.init_params(torch.Generator().manual_seed(seed), self.spec)
@@ -157,7 +203,7 @@ class Detector:
                 k: {"w": v["w"].to(dev, cd).contiguous(memory_format=torch.channels_last),
                     "b": v["b"].to(dev, bias_dtype)}
                 for k, v in folded.items()}
-            if precision == "bf16":
+            if self.route.k2:
                 self.packs = {i: tuple(t.to(dev) for t in p) for i, p in
                               darknet.pack_residual_blocks(folded, self.spec, cd).items()}
             else:
@@ -167,6 +213,8 @@ class Detector:
                       else darknet.quantize_folded_int8_full(folded, self.spec))
                 self._qparams = {k: {n: t.to(dev) for n, t in v.items()}
                                  for k, v in qp.items()}
+        replica = _Replica(self.params, self.packs, self._qparams)
+        self._replicas = replicate(replica, mesh) if mesh is not None else [replica]
         self._act_scales: Optional[Dict[str, float]] = None
         self._calib_meta: Dict = {}
         self.conf_thres = conf_thres
@@ -193,7 +241,7 @@ class Detector:
         if self.host_resize and tuple(tiles_u8.shape[1:3]) != (self.model_size,) * 2:
             raise ValueError(f"host_resize=True expects {self.model_size}² tiles, "
                              f"got {tuple(tiles_u8.shape[1:3])}")
-        if self.compute_dtype == torch.bfloat16:
+        if self.route.k1:
             return resize_normalize(tiles_u8, self.model_size)  # K1
         return preprocess_tiles(tiles_u8, self.model_size)
 
@@ -206,8 +254,15 @@ class Detector:
             x = f32_from_bf16_input(x)
         return x
 
+    def _tf32_scope(self):
+        return no_tf32() if self.route.tf32_off else contextlib.nullcontext()
+
     def head_maps(self, tiles_u8: torch.Tensor) -> List[torch.Tensor]:
         """The f32 NHWC head maps for a batch of uint8 tiles on the device."""
+        with self._tf32_scope():
+            return self._head_maps(tiles_u8, self._replicas[0])
+
+    def _head_maps(self, tiles_u8: torch.Tensor, rep: _Replica) -> List[torch.Tensor]:
         if self.precision != "bf16" and self._act_scales is None:
             raise ValueError(f"{self.precision} needs activation scales: "
                              "calibrate() or load_calibration() first")
@@ -215,16 +270,16 @@ class Detector:
         cd = self.compute_dtype
         if self.precision == "int8_full":
             return darknet.apply_folded_int8_full(
-                self.params, self._qparams, self._act_scales, self.spec, x,
+                rep.params, rep.qparams, self._act_scales, self.spec, x,
                 compute_dtype=cd, int32_accum_max_hw=self.int32_accum_max_hw)
         if self.precision == "int8_early":
             return darknet.apply_folded_int8(
-                self.params, self._qparams, self._act_scales, self.spec, x,
+                rep.params, rep.qparams, self._act_scales, self.spec, x,
                 upto=self._int8_upto, compute_dtype=cd, int8_compute=self.int8_compute)
         if not self.fold_bn:
-            return darknet.apply(self.params, self.spec, x, compute_dtype=cd)
-        return darknet.apply_folded(self.params, self.spec, x, compute_dtype=cd,
-                                    packs=self.packs)
+            return darknet.apply(rep.params, self.spec, x, compute_dtype=cd)
+        return darknet.apply_folded(rep.params, self.spec, x, compute_dtype=cd,
+                                    packs=rep.packs)
 
     @torch.inference_mode()
     def calibrate(self, tiles_u8, *, accumulate: bool = False,
@@ -360,10 +415,23 @@ class Detector:
         The per-image conf-passing candidate count stays on the device as
         ``self._last_ncand`` until :meth:`account_overflow` reads it.
         """
-        tiles = torch.as_tensor(tiles_u8).to(self.device)
+        tiles = torch.as_tensor(tiles_u8)
         if self.precision != "bf16" and self._act_scales is None:
-            self.calibrate(tiles)  # lazily, on the first batch
-        maps = self.head_maps(tiles)
+            self.calibrate(tiles.to(self.device))  # lazily, on the whole first batch
+        with self._tf32_scope():
+            if self.mesh is None:
+                dets, valid, n_cand = self._detect(tiles.to(self.device), self._replicas[0])
+            else:
+                outs = [self._detect(part, rep) for part, rep in
+                        zip(split_batch(tiles, self.mesh), self._replicas)]
+                dets, valid, n_cand = (torch.cat([to_device(o[i], self.device) for o in outs])
+                                       for i in range(3))
+        self._last_ncand = n_cand
+        return dets, valid
+
+    def _detect(self, tiles: torch.Tensor, rep: _Replica):
+        """One device's share of a call: ``(dets, valid, n_cand)`` there."""
+        maps = self._head_maps(tiles, rep)
         pool = self.nms_pool
         if self.lazy_decode:
             det, scores, n_cand = heads.decode_topk(
@@ -376,8 +444,7 @@ class Detector:
                 pred, self.conf_thres, self.nms_thres, self.capacity, pool=pool,
                 return_count=True)
         dets = rescale_boxes(dets, self.model_size, self.tile_size, self.tile_size)
-        self._last_ncand = n_cand
-        return dets, valid
+        return dets, valid, n_cand
 
     def account_overflow(self, n_valid: Optional[int] = None, n_cand=None) -> int:
         """Fold the latest batch's candidate counts into the counters; return
@@ -486,4 +553,4 @@ class Detector:
         return results
 
 
-__all__ = ["Detector", "resolve_batch_size"]
+__all__ = ["Detector", "Route", "route", "resolve_batch_size"]

@@ -181,7 +181,8 @@ def _release(saved: Dict, last_use: Mapping[int, int], i: int) -> None:
 
 
 def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, *,
-          compute_dtype: torch.dtype = torch.float32, train: bool = False):
+          compute_dtype: torch.dtype = torch.float32, train: bool = False,
+          reducer: Optional[Callable] = None):
     """Forward over *unfolded* parameters (a state dict in the reference
     layout, BN running statistics included); returns the f32 NHWC map at
     each yolo layer, and with ``train=True`` the pair ``(head_maps,
@@ -199,6 +200,13 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
     ``var·n/(n − 1)``.  ``new_stats`` maps each ``…running_mean`` and
     ``…running_var`` key to its new (detached) value; gradients flow through
     the batch statistics, as autodiff of the reference does.
+
+    ``reducer`` (train mode) makes the batch statistics those of a global
+    batch split into shards (sync-BN, as the reference's data-parallel
+    step computes them): each BN hands it its shard's per-channel ``Σx``
+    and ``Σx²`` and takes back their sums over the shards; the count is the
+    shard's times ``reducer.world`` (the shards are equal).  Without it the
+    statistics are this batch's, computed exactly as before.
     """
     f32 = torch.float32
     prev = _cl(_nchw(x.to(compute_dtype)))
@@ -215,8 +223,15 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
                 out32 = out.to(f32)
                 if train:
                     n = out.shape[0] * out.shape[2] * out.shape[3]
-                    mean = out32.mean(dim=(0, 2, 3))
-                    var = torch.clamp((out32 * out32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+                    if reducer is None:
+                        mean = out32.mean(dim=(0, 2, 3))
+                        ex2 = (out32 * out32).mean(dim=(0, 2, 3))
+                    else:
+                        s1, s2 = reducer(out32.sum(dim=(0, 2, 3)),
+                                         (out32 * out32).sum(dim=(0, 2, 3)))
+                        n = n * reducer.world
+                        mean, ex2 = s1 / n, s2 / n
+                    var = torch.clamp(ex2 - mean * mean, min=0.0)
                     with torch.no_grad():
                         unbiased = var * (n / max(n - 1, 1))
                         new_stats[f"{p}.running_mean"] = (

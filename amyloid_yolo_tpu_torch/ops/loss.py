@@ -19,13 +19,18 @@ Two rules of the reference package are kept exactly:
   gradient at a tie is halved as ``jnp.clip``'s is.
 * :func:`_masked_mean` returns 0, not NaN, when its mask is empty.
 
+A data-parallel step passes a ``reducer`` (``parallel.steps``): every
+masked mean and ratio then hands it its shard's sum and count and divides
+their sums over the shards, the global batch's mean, as the reference's
+data-parallel step computes it.  Without one the arithmetic is unchanged.
+
 The per-head metrics (cls_acc, recall50/75, precision, conf_obj/noobj)
 stay tensors on the device; callers fetch them only when they log.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,9 +41,21 @@ from .targets import build_targets
 Metrics = Dict[str, torch.Tensor]
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+Reducer = Optional[Callable[..., Tuple[torch.Tensor, ...]]]
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, reducer: Reducer = None) -> torch.Tensor:
     cnt = mask.sum()
-    return torch.where(cnt > 0, (x * mask).sum() / cnt.clamp(min=1), 0.0)
+    total = (x * mask).sum()
+    if reducer is not None:
+        total, cnt = reducer(total, cnt)
+    return torch.where(cnt > 0, total / cnt.clamp(min=1), 0.0)
+
+
+def _ratio(num: torch.Tensor, den: torch.Tensor, reducer: Reducer = None) -> torch.Tensor:
+    if reducer is not None:
+        num, den = reducer(num, den)
+    return num / (den + 1e-16)
 
 
 def _bce(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -48,7 +65,7 @@ def _bce(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 def yolo_head_loss(raw: torch.Tensor, yolo: YoloSpec, img_dim: int,
-                   target: torch.Tensor, target_mask: torch.Tensor
+                   target: torch.Tensor, target_mask: torch.Tensor, reducer: Reducer = None
                    ) -> Tuple[torch.Tensor, Metrics]:
     """Loss and metrics of one head's raw NHWC map (f32)."""
     t = head_grid_tensors(raw, yolo.anchors, img_dim, yolo.num_classes)
@@ -57,28 +74,29 @@ def yolo_head_loss(raw: torch.Tensor, yolo: YoloSpec, img_dim: int,
     obj = bt["obj_mask"].to(torch.float32)
     noobj = bt["noobj_mask"].to(torch.float32)
 
-    loss_x = _masked_mean((t["x"] - bt["tx"]) ** 2, obj)
-    loss_y = _masked_mean((t["y"] - bt["ty"]) ** 2, obj)
-    loss_w = _masked_mean((t["w"] - bt["tw"]) ** 2, obj)
-    loss_h = _masked_mean((t["h"] - bt["th"]) ** 2, obj)
+    loss_x = _masked_mean((t["x"] - bt["tx"]) ** 2, obj, reducer)
+    loss_y = _masked_mean((t["y"] - bt["ty"]) ** 2, obj, reducer)
+    loss_w = _masked_mean((t["w"] - bt["tw"]) ** 2, obj, reducer)
+    loss_h = _masked_mean((t["h"] - bt["th"]) ** 2, obj, reducer)
     bce_conf = _bce(t["conf"], bt["tconf"])
-    loss_conf = (yolo.obj_scale * _masked_mean(bce_conf, obj)
-                 + yolo.noobj_scale * _masked_mean(bce_conf, noobj))
-    loss_cls = _masked_mean(_bce(t["cls"], bt["tcls"]).sum(dim=-1) / t["cls"].shape[-1], obj)
+    loss_conf = (yolo.obj_scale * _masked_mean(bce_conf, obj, reducer)
+                 + yolo.noobj_scale * _masked_mean(bce_conf, noobj, reducer))
+    loss_cls = _masked_mean(_bce(t["cls"], bt["tcls"]).sum(dim=-1) / t["cls"].shape[-1], obj,
+                            reducer)
     total = loss_x + loss_y + loss_w + loss_h + loss_conf + loss_cls
 
     with torch.no_grad():  # diagnostics (models.py:193-220)
         conf = t["conf"]
-        cls_acc = 100.0 * _masked_mean(bt["class_mask"], obj)
-        conf_obj = _masked_mean(conf, obj)
-        conf_noobj = _masked_mean(conf, noobj)
+        cls_acc = 100.0 * _masked_mean(bt["class_mask"], obj, reducer)
+        conf_obj = _masked_mean(conf, obj, reducer)
+        conf_noobj = _masked_mean(conf, noobj, reducer)
         conf50 = (conf > 0.5).to(torch.float32)
         iou50 = (bt["iou_scores"] > 0.5).to(torch.float32)
         iou75 = (bt["iou_scores"] > 0.75).to(torch.float32)
         detected = conf50 * bt["class_mask"] * obj
-        precision = (iou50 * detected).sum() / (conf50.sum() + 1e-16)
-        recall50 = (iou50 * detected).sum() / (obj.sum() + 1e-16)
-        recall75 = (iou75 * detected).sum() / (obj.sum() + 1e-16)
+        precision = _ratio((iou50 * detected).sum(), conf50.sum(), reducer)
+        recall50 = _ratio((iou50 * detected).sum(), obj.sum(), reducer)
+        recall75 = _ratio((iou75 * detected).sum(), obj.sum(), reducer)
     metrics = {
         "loss": total.detach(), "x": loss_x.detach(), "y": loss_y.detach(),
         "w": loss_w.detach(), "h": loss_h.detach(), "conf": loss_conf.detach(),
@@ -91,7 +109,7 @@ def yolo_head_loss(raw: torch.Tensor, yolo: YoloSpec, img_dim: int,
 
 
 def yolo_loss(head_maps: Sequence[torch.Tensor], spec: GraphSpec, img_dim: int,
-              target: torch.Tensor, target_mask: torch.Tensor
+              target: torch.Tensor, target_mask: torch.Tensor, reducer: Reducer = None
               ) -> Tuple[torch.Tensor, List[Metrics]]:
     """Total loss over all heads (their sum, ``models.py:249-251``) and each
     head's metrics."""
@@ -99,7 +117,7 @@ def yolo_loss(head_maps: Sequence[torch.Tensor], spec: GraphSpec, img_dim: int,
     total = torch.zeros((), dtype=torch.float32, device=head_maps[0].device)
     per_head = []
     for raw, ys in zip(head_maps, yolo_specs):
-        loss, m = yolo_head_loss(raw, ys, img_dim, target, target_mask)
+        loss, m = yolo_head_loss(raw, ys, img_dim, target, target_mask, reducer)
         total = total + loss
         per_head.append(m)
     return total, per_head

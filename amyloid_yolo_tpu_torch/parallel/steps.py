@@ -29,16 +29,38 @@ tensors of a state dict in the reference layout, the trainable ones with
 float32 (TF32 off); bfloat16 runs the convolutions in bfloat16 and keeps
 BN statistics, the loss and Adam in float32.
 
-Data parallelism, spatial sharding and multi-host training (the reference's
-``shard_train_step``, ``parallel/spatial.py``, ``parallel/distributed.py``)
-are not ported (ROADMAP Queue 1 item 7).
+Data parallelism (the reference's ``shard_train_step``,
+``parallel/steps.py:380-395``): the reference's data-parallel step is one
+global program, so its BN statistics are the global batch's (sync-BN) and
+its loss's masked means divide by global counts.  Averaging per-device
+losses with per-device BN would compute another function, so every step
+here takes ``shards``, which splits the global batch and sums each partial
+statistic over the shards at the point where it is needed (the
+``reducer`` of ``darknet.apply`` and ``ops.loss``):
+
+* :class:`MeshShards` (:func:`shard_train_step`): the shards of one
+  process on the devices of a :class:`~.mesh.Mesh`, one thread each; the
+  sums go to the first device with ``.to()``, which is differentiable, and
+  back, so one ``backward()`` of the global loss fills the master
+  parameters' gradients;
+* ``distributed.ProcessShards``: one shard a process, the sums through
+  an autograd-aware all-reduce.
+
+Either way the augmentation draws for the global batch from the one
+generator and each shard takes its rows, and a shard's target rows carry
+shard-local batch indices.  In one process the host issues every device's
+launches, so :class:`MeshShards` is the semantic counterpart of the
+reference's ``data_parallel``; the multi-process form is the one that
+scales.  Spatial sharding (``parallel/spatial.py``) is not ported
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+import threading
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +72,7 @@ from ..ops.augment import augment_batch, draw_augment_params
 from ..ops.loss import yolo_loss
 from ..ops.preprocess import preprocess_tiles
 from ..utils.device import DeviceLike, no_tf32, resolve_device
+from .mesh import Mesh, shard_size, to_device
 
 record_function = torch.profiler.record_function
 
@@ -203,31 +226,174 @@ def prepare_batch(images_u8, targets, target_mask, img_size: int, device: torch.
 
 
 def _loss(params: StateDict, spec: GraphSpec, images, targets, target_mask, img_size: int,
-          compute_dtype: torch.dtype):
+          compute_dtype: torch.dtype, reducer=None):
     with record_function("train/forward"):
         maps, new_stats = darknet.apply(params, spec, images, compute_dtype=compute_dtype,
-                                        train=True)
+                                        train=True, reducer=reducer)
     with record_function("train/loss"):
-        total, per_head = yolo_loss(maps, spec, img_size, targets, target_mask)
+        total, per_head = yolo_loss(maps, spec, img_size, targets, target_mask, reducer)
     return total, new_stats, per_head
+
+
+def shard_batch(images_u8, targets, target_mask, row0: int, img_size: int,
+                device: torch.device, draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shard's model input: its uint8 images (the global batch's rows
+    ``row0 ..``) resized and scaled on ``device``, augmented with its rows
+    of the global ``draws``, and the target rows with shard-local batch
+    indices (``batch_idx − row0``); rows of other shards leave the mask."""
+    images_u8 = torch.as_tensor(images_u8).to(device)
+    targets = torch.as_tensor(targets).to(device, torch.float32)
+    target_mask = torch.as_tensor(target_mask).to(device, torch.bool)
+    local = targets[:, :1] - row0
+    target_mask = target_mask & (local[:, 0] >= 0) & (local[:, 0] < images_u8.shape[0])
+    targets = torch.cat([local, targets[:, 1:]], dim=1)
+    images = preprocess_tiles(images_u8, img_size)
+    if draws is not None:
+        images, targets, target_mask = augment_batch(images, targets, target_mask, draws)
+    return images, targets, target_mask
+
+
+def flat_cat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def flat_split(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    out, i = [], 0
+    for t in like:
+        out.append(flat[i:i + t.numel()].reshape(t.shape))
+        i += t.numel()
+    return tuple(out)
+
+
+class _ShardReducer:
+    """Sums partial statistics over the shards of one in-process step, each
+    shard in a thread of its own.  At a reduction every shard hands in its
+    tensors (flattened into one) and waits at a barrier; the last to arrive
+    adds them on the first device in shard order, and each shard takes the
+    sums back onto its own device.  Every copy is a differentiable
+    :func:`~.mesh.to_device`."""
+
+    def __init__(self, devices: Sequence[torch.device], timeout: float):
+        self.devices = tuple(devices)
+        self.world = len(self.devices)
+        self._parts: List[Optional[torch.Tensor]] = [None] * self.world
+        self._sum: Optional[torch.Tensor] = None
+        self.barrier = threading.Barrier(self.world, action=self._combine, timeout=timeout)
+
+    def _combine(self) -> None:
+        first = self.devices[0]
+        total = to_device(self._parts[0], first)
+        for part in self._parts[1:]:
+            total = total + to_device(part, first)
+        self._sum = total
+
+    def view(self, k: int) -> Callable[..., Tuple[torch.Tensor, ...]]:
+        def reduce(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+            self._parts[k] = flat_cat(tensors)
+            self.barrier.wait()
+            return flat_split(to_device(self._sum, self.devices[k]), tensors)
+
+        reduce.world = self.world
+        return reduce
+
+
+#: seconds a shard waits at a reduction for the others before the step fails
+SHARD_WAIT_S = 300.0
+
+
+class MeshShards:
+    """Data parallelism in one process over a :class:`~.mesh.Mesh` whose
+    first device holds the parameters (see the module docstring)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def run(self, params: StateDict, spec: GraphSpec, batch, rng, img_size: int,
+            augment: bool, compute_dtype: torch.dtype):
+        """The global batch's loss, its gradient added into ``params``'
+        ``.grad``: ``(loss, new_stats, per_head, images)``."""
+        devices = self.mesh.devices
+        if _device(params) != devices[0]:
+            raise ValueError(f"the parameters are on {_device(params)}, not on the mesh's "
+                             f"first device {devices[0]}")
+        images_u8, targets, target_mask = (torch.as_tensor(a) for a in batch)
+        n = images_u8.shape[0]
+        b = shard_size(n, self.mesh)
+        with record_function("train/augment"):
+            draws = (draw_augment_params(rng, n, img_size, devices[0]) if augment else None)
+        reducer = _ShardReducer(devices, SHARD_WAIT_S)
+
+        def shard(k: int):
+            dev = devices[k]
+            rows = slice(k * b, (k + 1) * b)
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                p = {key: to_device(v, dev) for key, v in params.items()}
+                with record_function("train/augment"):
+                    d = ({key: to_device(v[rows], dev) for key, v in draws.items()}
+                         if augment else None)
+                    shard_in = shard_batch(images_u8[rows], targets, target_mask, k * b,
+                                           img_size, dev, d)
+                return _loss(p, spec, *shard_in, img_size, compute_dtype, reducer.view(k))
+
+        total, new_stats, per_head = _run_threads(shard, len(devices), reducer.barrier)[0]
+        with record_function("train/backward"):
+            total.backward()
+        return total, new_stats, per_head, n
+
+
+def _run_threads(fn: Callable[[int], object], n: int, barrier: threading.Barrier) -> list:
+    """``[fn(0), …, fn(n − 1)]``, each in a thread of its own; a failing
+    shard breaks the barrier, so the others stop waiting, and its error is
+    raised here."""
+    results: list = [None] * n
+    errors: list = []
+
+    def target(k: int) -> None:
+        try:
+            results[k] = fn(k)
+        except BaseException as e:  # raised below, in the caller's thread
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=target, args=(k,), name=f"dp-shard-{k}")
+               for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        # a shard's own error, not the broken barrier it left the others
+        raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
+    return results
 
 
 def _micro_step(state: TrainState, spec: GraphSpec, optimizer: Optimizer, batch, rng,
                 img_size: int, augment: bool, compute_dtype: torch.dtype,
-                ema_decay: Optional[float], do_apply: bool) -> Dict[str, torch.Tensor]:
+                ema_decay: Optional[float], do_apply: bool, shards=None
+                ) -> Dict[str, torch.Tensor]:
     """One micro-batch: forward and backward (gradients add into ``.grad``),
     the apply when ``do_apply``, the BN running statistics, the EMA on an
-    apply, the counters.  The ``train/*`` ranges name its parts in a
+    apply, the counters.  ``shards`` (:class:`MeshShards`,
+    ``distributed.ProcessShards``) runs the forward and backward data
+    parallel.  The ``train/*`` ranges name its parts in a
     ``torch.profiler`` trace (the backward's kernels run on autograd's
     device thread, outside them)."""
     dev = _device(state.params)
-    with record_function("train/augment"):
-        images, targets, target_mask = prepare_batch(*batch, img_size, dev, augment, rng)
-    with _precision(compute_dtype, dev):
-        total, new_stats, per_head = _loss(state.params, spec, images, targets, target_mask,
-                                           img_size, compute_dtype)
-        with record_function("train/backward"):
-            total.backward()
+    if shards is None:
+        with record_function("train/augment"):
+            images, targets, target_mask = prepare_batch(*batch, img_size, dev, augment, rng)
+        with _precision(compute_dtype, dev):
+            total, new_stats, per_head = _loss(state.params, spec, images, targets,
+                                               target_mask, img_size, compute_dtype)
+            with record_function("train/backward"):
+                total.backward()
+        n_images = images.shape[0]
+    else:
+        with _precision(compute_dtype, dev):
+            total, new_stats, per_head, n_images = shards.run(
+                state.params, spec, batch, rng, img_size, augment, compute_dtype)
     with record_function("train/optimizer"):
         if do_apply:
             optimizer.apply(state.optimizer)
@@ -235,7 +401,7 @@ def _micro_step(state: TrainState, spec: GraphSpec, optimizer: Optimizer, batch,
         if ema_decay is not None and do_apply:
             _ema_update(state.ema, state.params, ema_decay, state.step)
     state.step += 1
-    state.seen += images.shape[0]
+    state.seen += n_images
     return _metrics(total, per_head)
 
 
@@ -263,11 +429,13 @@ def make_train_step(spec: GraphSpec, optimizer: Optimizer, *, augment: bool = Tr
     (T,), rng, img_size) -> (state, metrics)``: one micro-batch and one
     Adam apply (reference ``make_train_step``, ``parallel/steps.py:146-214``).
     ``rng`` is a ``torch.Generator`` on the device (read only when
-    ``augment``)."""
+    ``augment``); ``shards`` runs it data parallel (:func:`shard_train_step`)."""
 
-    def step(state: TrainState, images_u8, targets, target_mask, rng, img_size: int):
+    def step(state: TrainState, images_u8, targets, target_mask, rng, img_size: int,
+             shards=None):
         metrics = _micro_step(state, spec, optimizer, (images_u8, targets, target_mask), rng,
-                              img_size, augment, compute_dtype, ema_decay, do_apply=True)
+                              img_size, augment, compute_dtype, ema_decay, do_apply=True,
+                              shards=shards)
         return state, metrics
 
     return step
@@ -284,10 +452,12 @@ def make_accum_train_step(spec: GraphSpec, optimizer: Optimizer, accum_steps: in
     metrics)``, the arguments as :func:`make_train_step`'s; ``metrics
     ["applied"]`` is 1.0 on an apply."""
 
-    def step(astate: AccumState, images_u8, targets, target_mask, rng, img_size: int):
+    def step(astate: AccumState, images_u8, targets, target_mask, rng, img_size: int,
+             shards=None):
         do_apply = astate.micro % accum_steps == 0
         metrics = _micro_step(astate.inner, spec, optimizer, (images_u8, targets, target_mask),
-                              rng, img_size, augment, compute_dtype, ema_decay, do_apply)
+                              rng, img_size, augment, compute_dtype, ema_decay, do_apply,
+                              shards=shards)
         astate.micro += 1
         metrics["applied"] = float(do_apply)
         return astate, metrics
@@ -297,19 +467,25 @@ def make_accum_train_step(spec: GraphSpec, optimizer: Optimizer, accum_steps: in
 
 def make_grad_step(spec: GraphSpec, *, augment: bool = False,
                    compute_dtype: torch.dtype = torch.float32) -> Callable:
-    """``grad_step(params, images_u8, targets, target_mask, img_size, rng=None)
-    -> (loss, grads, new_stats)``: the gradient of the loss with respect to
-    every trainable parameter, no optimizer (reference ``make_grad_step``)."""
+    """``grad_step(params, images_u8, targets, target_mask, img_size, rng=None,
+    shards=None) -> (loss, grads, new_stats)``: the gradient of the loss with
+    respect to every trainable parameter, no optimizer (reference
+    ``make_grad_step``); ``shards`` as the train steps take it."""
 
     def grad_step(params: StateDict, images_u8, targets, target_mask, img_size: int,
-                  rng: Optional[torch.Generator] = None):
+                  rng: Optional[torch.Generator] = None, shards=None):
         dev = _device(params)
-        images, targets, target_mask = prepare_batch(images_u8, targets, target_mask,
-                                                     img_size, dev, augment, rng)
         p = {k: v.detach() for k, v in params.items()}
         keys = trainable_keys(p)
         for k in keys:
             p[k].requires_grad_(True)
+        if shards is not None:
+            with _precision(compute_dtype, dev):
+                total, new_stats, _, _ = shards.run(p, spec, (images_u8, targets, target_mask),
+                                                    rng, img_size, augment, compute_dtype)
+            return total.detach(), {k: p[k].grad for k in keys}, new_stats
+        images, targets, target_mask = prepare_batch(images_u8, targets, target_mask,
+                                                     img_size, dev, augment, rng)
         with _precision(compute_dtype, dev):
             total, new_stats, _ = _loss(p, spec, images, targets, target_mask, img_size,
                                         compute_dtype)
@@ -335,7 +511,21 @@ def make_eval_forward(spec: GraphSpec, *, compute_dtype: torch.dtype = torch.flo
     return fwd
 
 
+def shard_train_step(step_fn: StepFn, mesh: Mesh) -> StepFn:
+    """A step of :func:`make_train_step` or :func:`make_accum_train_step`
+    run data parallel over ``mesh`` (reference ``shard_train_step``): the
+    same arguments, with the global batch; the state stays on the mesh's
+    first device, and every shard takes copies of its parameters."""
+    shards = MeshShards(mesh)
+
+    def sharded(state, images_u8, targets, target_mask, rng, img_size: int):
+        return step_fn(state, images_u8, targets, target_mask, rng, img_size, shards=shards)
+
+    return sharded
+
+
 __all__ = ["TrainState", "AccumState", "Optimizer", "make_optimizer", "applies_done",
            "init_train_state", "init_accum_state", "make_train_step",
            "make_accum_train_step", "make_grad_step", "make_eval_forward",
-           "prepare_batch", "trainable_keys"]
+           "prepare_batch", "shard_batch", "trainable_keys", "MeshShards", "SHARD_WAIT_S",
+           "shard_train_step"]

@@ -20,10 +20,22 @@ on, ``ema``; :func:`~amyloid_yolo_tpu_torch.io.weights.load_pretrained`
 reads its weights.  The reference package's checkpoints are orbax
 directories, which the port does not read.
 
-One device: ``data_parallel``, ``spatial_shard`` and ``distributed`` are
-not ported (ROADMAP Queue 1 item 7) and raise.  ``s2d_stem`` and
-``image_layout`` select TPU layouts of the same function; the port runs
-its one plain path whatever they say.
+Several devices (the reference's ``training.py:113-205``):
+
+* ``data_parallel=N``: one process over a mesh of N devices
+  (``parallel.steps.shard_train_step``), numerically the one-device step
+  on the global batch; with ``device="cpu"`` the mesh is N CPU entries;
+* ``distributed=True``: one process a device (``parallel.distributed``).
+  ``batch_size`` is the global batch; every rank derives the same shuffle
+  and collates its own rows of each batch (``ListDataset.iter_epoch
+  (shard=...)``).  Only rank 0 prints, logs, evaluates and saves; the
+  other ranks wait for it at a barrier after each epoch's evaluation and
+  save, so their next collective does not time out meanwhile.
+
+``spatial_shard > 1`` is not ported (ROADMAP Queue 1 item 7,
+``parallel/spatial.py``) and raises.  ``s2d_stem`` and ``image_layout``
+select TPU layouts of the same function; the port runs its one plain path
+whatever they say.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from .io import weights as weights_io
 from .io.datasets import ListDataset
 from .models import darknet
 from .parallel import steps as steps_mod
+from .parallel.mesh import make_mesh
 from .parsecfg import load_classes, parse_data_config
 from .utils.device import DeviceLike, resolve_device
 from .utils.logging import MetricsLogger
@@ -69,9 +82,9 @@ class TrainConfig:
     num_classes: int = 2
     logdir: str = "logs"
     seed: int = 0
-    data_parallel: Optional[int] = None     # not ported (Queue 1 item 7)
+    data_parallel: Optional[int] = None     # devices of the in-process mesh (None = 1)
     spatial_shard: Optional[int] = None     # not ported (Queue 1 item 7)
-    distributed: bool = False               # not ported (Queue 1 item 7)
+    distributed: bool = False               # one process a device; batch_size is global
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
@@ -89,21 +102,53 @@ class TrainConfig:
 class Trainer:
     """``Trainer(cfg, spec=None, device=None)``: ``spec`` defaults to
     ``yolov3_spec(num_classes=cfg.num_classes)``, ``device`` to ``cuda``
-    (it raises without a card unless ``device="cpu"`` is passed).  Initial
-    weights come from :func:`~..models.darknet.init_params` with a
-    generator seeded by ``cfg.seed`` (then ``pretrained_weights``); the
-    augmentation draws from a generator on the device seeded by
-    ``cfg.seed + 1``."""
+    (it raises without a card unless ``device="cpu"`` is passed; under
+    ``distributed`` a bare ``cuda`` is the rank's card).  Initial weights
+    come from :func:`~..models.darknet.init_params` with a generator
+    seeded by ``cfg.seed`` (then ``pretrained_weights``); the augmentation
+    draws from a generator on the device seeded by ``cfg.seed + 1``."""
 
     def __init__(self, cfg: TrainConfig, spec: Optional[GraphSpec] = None,
                  device: DeviceLike = None):
-        if cfg.distributed or (cfg.data_parallel or 1) > 1 or (cfg.spatial_shard or 1) > 1:
+        if (cfg.spatial_shard or 1) > 1:
             raise NotImplementedError(
-                "data_parallel, spatial_shard and distributed training are not ported "
-                "to the PyTorch package yet (ROADMAP.md Queue 1 item 7)")
+                "spatial_shard is not ported to the PyTorch package yet "
+                "(ROADMAP.md Queue 1 item 7: parallel/spatial.py)")
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {list(COMPUTE_DTYPES)}")
         self.cfg = cfg
+        self._dist = None
+        self.pid, self.nproc = 0, 1
+        if cfg.distributed:
+            from .parallel import distributed as dist_mod
+            # a bare cuda is the rank's card; without a card only "cpu" (gloo) runs
+            dev = None if device is None or str(device) == "cuda" else device
+            dist_mod.initialize(cfg.coordinator_address, cfg.num_processes, cfg.process_id,
+                                device=dev)  # returns when a launcher initialized it
+            self._dist = dist_mod
+            self.pid = dist_mod.dist.get_rank()
+            self.nproc = dist_mod.dist.get_world_size()
+            if cfg.num_processes is not None and self.nproc != cfg.num_processes:
+                raise RuntimeError(
+                    f"the process group has {self.nproc} processes but num_processes="
+                    f"{cfg.num_processes} was requested: refusing to train on a partial world")
+            device = dev if dev is not None else dist_mod.local_device()
+        self.is_main = self.pid == 0
+        mesh = None
+        if self.nproc > 1:
+            if (cfg.data_parallel or 1) > 1:
+                raise ValueError("distributed training drives one device a process; "
+                                 "data_parallel > 1 does not compose with it")
+        elif (cfg.data_parallel or 1) > 1:
+            dev = resolve_device(device)
+            if dev.type == "cpu":  # N CPU entries stand for N devices
+                mesh = make_mesh(devices=[dev] * cfg.data_parallel)
+            else:
+                mesh = make_mesh(cfg.data_parallel)
+                if dev.index is not None and dev != mesh.devices[0]:
+                    raise ValueError(f"device {dev} is not the mesh's first device "
+                                     f"{mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.spec = spec or yolov3_spec(num_classes=cfg.num_classes)
         data = parse_data_config(cfg.data_config)
@@ -128,8 +173,13 @@ class Trainer:
         self.step_fn = (
             steps_mod.make_accum_train_step(self.spec, self.optimizer, self.accum, **kw)
             if self.accum > 1 else steps_mod.make_train_step(self.spec, self.optimizer, **kw))
+        if self.nproc > 1:
+            self.step_fn = self._dist.shard_train_step_multiprocess(
+                self.step_fn, self._dist.global_mesh())
+        elif mesh is not None:
+            self.step_fn = steps_mod.shard_train_step(self.step_fn, mesh)
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
-        self.logger = MetricsLogger(cfg.logdir)
+        self.logger = MetricsLogger(cfg.logdir) if self.is_main else None
         self.best = {"map": (-1.0, -1), "Cored": (-1.0, -1), "CAA": (-1.0, -1)}
         if cfg.ema_decay is not None:
             self.best["map_ema"] = (-1.0, -1)
@@ -144,10 +194,16 @@ class Trainer:
         metrics)``, when given, runs after every micro-batch's step was
         enqueued."""
         cfg = self.cfg
-        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         dataset = ListDataset(self.train_path, img_size=cfg.img_size, multiscale=cfg.multiscale,
                               augment=cfg.augment, seed=cfg.seed,
                               cache_images=cfg.cache_images, host_resize=cfg.host_resize)
+        shard = (self.pid, self.nproc) if self.nproc > 1 else None
+        if shard is not None and not cfg.host_resize:
+            # every rank's fallback side for a batch it could not read at
+            # all, so all ranks collate one shape
+            dataset.probe_native_side()
         # the accumulation counter lives for this run, as the reference's
         # batches_done (the reference never checkpoints .grad either)
         run_state = (steps_mod.init_accum_state(self.state) if self.accum > 1
@@ -155,7 +211,7 @@ class Trainer:
         for epoch in range(cfg.epochs):
             t0 = time.time()
             n_batches = 0
-            for bi, batch in enumerate(dataset.iter_epoch(cfg.batch_size)):
+            for bi, batch in enumerate(dataset.iter_epoch(cfg.batch_size, shard=shard)):
                 if cfg.max_batches_per_epoch and bi >= cfg.max_batches_per_epoch:
                     break
                 run_state, metrics = self.step_fn(
@@ -165,8 +221,8 @@ class Trainer:
                 n_batches += 1
                 if callback is not None:
                     callback(epoch, bi, metrics)
-                if bi % 10 == 0:  # fetching the metrics waits for the step
-                    host = {k: float(v) for k, v in metrics.items()}
+                if bi % 10 == 0 and self.is_main:  # fetching the metrics waits for the step
+                    host = {k: float(self._fetch(v)) for k, v in metrics.items()}
                     host["epoch"] = epoch
                     host["batch"] = bi
                     self.logger.log(host, step=self.state.step)
@@ -176,27 +232,37 @@ class Trainer:
                 torch.cuda.synchronize(self.device)
             epoch_time = time.time() - t0
             t_eval0 = time.time()
-            if cfg.evaluation_interval and epoch % cfg.evaluation_interval == 0:
+            if cfg.evaluation_interval and epoch % cfg.evaluation_interval == 0 \
+                    and self.is_main:
                 self._evaluate_epoch(epoch, epoch_time)
             t_save0 = time.time()
-            if epoch % cfg.checkpoint_interval == 0:
+            if epoch % cfg.checkpoint_interval == 0 and self.is_main:
                 self.save_checkpoint(epoch)
+            if self._dist is not None:
+                self._dist.barrier()  # the other ranks wait out rank 0's eval and save
             self.epoch_walls.append({"epoch": epoch, "batches": n_batches,
                                      "train_s": epoch_time, "eval_s": t_save0 - t_eval0,
                                      "save_s": time.time() - t_save0})
-            if cfg.verbose:
+            if cfg.verbose and self.is_main:
                 print(f"[epoch {epoch} wall] train {epoch_time:.1f}s "
                       f"eval {t_save0 - t_eval0:.1f}s save {time.time() - t_save0:.1f}s")
-        if cfg.epochs and (cfg.epochs - 1) % cfg.checkpoint_interval != 0:
+        if cfg.epochs and (cfg.epochs - 1) % cfg.checkpoint_interval != 0 and self.is_main:
             # the reference's modulo rule (train.py:205) never saves the last
             # epoch unless it lands on the interval; always keep it
             self.save_checkpoint(cfg.epochs - 1)
-        print("Best mAP: {} @ epoch: {}".format(*self.best["map"]))
-        print("Best Cored mAP: {} @ epoch: {}".format(*self.best["Cored"]))
-        print("Best CAA mAP: {} @ epoch: {}".format(*self.best["CAA"]))
-        if "map_ema" in self.best:
-            print("Best EMA mAP: {} @ epoch: {}".format(*self.best["map_ema"]))
+        if self._dist is not None:
+            self._dist.barrier()
+        if self.is_main:
+            print("Best mAP: {} @ epoch: {}".format(*self.best["map"]))
+            print("Best Cored mAP: {} @ epoch: {}".format(*self.best["Cored"]))
+            print("Best CAA mAP: {} @ epoch: {}".format(*self.best["CAA"]))
+            if "map_ema" in self.best:
+                print("Best EMA mAP: {} @ epoch: {}".format(*self.best["map_ema"]))
         return self.state
+
+    def _fetch(self, x):
+        """Host value of a replicated value (every rank holds the same)."""
+        return self._dist.fetch_replicated(x) if self._dist is not None else x
 
     def evaluate(self, params=None):
         """The in-training evaluation (iou/conf/nms 0.5 at ``img_size``) of

@@ -8,6 +8,7 @@ CPU run.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Union
 
 import torch
@@ -25,15 +26,36 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+_tf32_lock = threading.Lock()
+_tf32_depth = 0
+_tf32_saved = (True, True)
+
+
 @contextlib.contextmanager
 def no_tf32():
-    """float32 convolutions and matmuls in full float32 on the card."""
-    cudnn, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    """float32 convolutions and matmuls in full float32 on the card.
+
+    The two TF32 flags are process-wide, so sections that overlap (in one
+    thread or several: a float32 ``Detector`` call beside the CAA filter
+    of a request thread) share one save and restore: the first section to
+    enter saves the flags and turns TF32 off, the last to leave restores
+    them.  A float32 convolution that another thread runs meanwhile, outside
+    any section, runs in full float32 too."""
+    global _tf32_depth, _tf32_saved
+    with _tf32_lock:
+        if _tf32_depth == 0:
+            _tf32_saved = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, mm
+        with _tf32_lock:
+            _tf32_depth -= 1
+            if _tf32_depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _tf32_saved
 
 
 __all__ = ["resolve_device", "DeviceLike", "no_tf32"]

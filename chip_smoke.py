@@ -116,10 +116,33 @@ Phases (any failure exits non-zero; nothing is caught):
    ``calculate_plaque_counts_per_wsi`` alone, the Detector and filter
    built, over 296 tiles (phase 10's 37 in 4 WSIs of 2 rows): tiles/s and
    K1/K2/K3 launching 1/23/0 per batch;
-13. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
+13. data parallelism, at the same width with the weights of phase 6, on a
+   mesh over every card (two entries on one card where there is one):
+   (a) the float32 ``Detector`` on the card (the plain preprocess and
+   cuDNN's units, TF32 off for the call) against the CPU on 8 tiles: K1/K2
+   launch 0/0, the TF32 flags off inside the call and as they were after
+   it, head maps within ``F32_HEAD_TOL``; (b) ``Detector(mesh=...)`` at
+   B=32: K1 = shards and K2 = 23 x shards launches, outputs equal to the
+   one-device ``Detector`` on the same shards within ``SERVE_TOL``, tiles/s
+   of both; (c) the in-process data-parallel train step
+   (``shard_train_step``, 2 shards) at B=8, float32, one apply, against
+   the one-device step: loss within ``DP_LOSS_RTOL``, parameters within
+   rtol 1e-4 / atol 2.05 lr, BN running statistics within ``STEP_RTOL``;
+   one bf16 step finite; (d) the multi-process step
+   (``shard_train_step_multiprocess``) in child processes, each with a
+   timeout, against (c)'s one-device step with the same bounds: two gloo
+   ranks with CUDA tensors on one card, NCCL at world size 1, and NCCL
+   over two cards where there are two, one group after another; the step
+   times of (c) and (d) are means over ``DP_TIMED_STEPS`` steps after the
+   checked one, on the host clock; (e) ``cli sweep --data_parallel 2``
+   over two WSIs of phase 10's tiles: the one-device sweep's counts at the
+   same batch a device;
+14. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
+``python3 chip_smoke.py --dp-child ...`` is phase 13 (d)'s child process
+(:func:`dp_child`), which the phase starts itself.
 """
 
 from __future__ import annotations
@@ -1670,6 +1693,425 @@ def serving_phase(spec, params, card: str, dev, size: int = 416,
     return record
 
 
+# --------------------------------------------------------------------------
+# phase 13: data parallelism
+# --------------------------------------------------------------------------
+
+F32_HEAD_TOL = 1e-4  # (a) max |card - cpu| / max |cpu| per head, float32 both, TF32 off
+DP_TILES = 32        # (b) the mesh call's batch
+DP_TRAIN_B = 8       # (c), (d) the global batch of the train step
+DP_LR = 1e-3         # (c), (d) parameters after one apply: rtol 1e-4, atol 2.05 x lr
+DP_LOSS_RTOL = 1e-5
+DP_TIMED_STEPS = 3   # (c), (d) steps timed after the checked one
+CHILD_TIMEOUT_S = 300
+
+
+def host_ms(fn, iters: int, devices, warmup: int = 0) -> float:
+    """Mean ms per call of ``fn`` on the host clock, after ``warmup`` calls,
+    with ``devices`` synchronized before and after (a step that spans cards,
+    threads or processes has no one stream to put events on)."""
+    import torch
+
+    def sync():
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _params_close(got, want, lr: float = DP_LR) -> dict:
+    """The JAX suite's bound on parameters after one Adam apply (rtol 1e-4,
+    atol 2.05 x lr) and STEP_RTOL on the BN running statistics; returns the
+    worst of each, raising when a bound is broken."""
+    import torch
+    worst_p, worst_s = ("", 0.0), ("", 0.0)
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        g, w = got[k].detach().float().cpu(), w.detach().float().cpu()
+        if k.endswith(("running_mean", "running_var")):
+            rel = float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+            worst_s = max(worst_s, (k, rel), key=lambda kv: kv[1])
+            if rel > STEP_RTOL:
+                raise AssertionError(f"{k}: BN running statistics differ by {rel} (rel)")
+        else:
+            excess = float(((g - w).abs() - (1e-4 * w.abs() + 2.05 * lr)).max())
+            worst_p = max(worst_p, (k, excess), key=lambda kv: kv[1])
+            if excess > 0:
+                raise AssertionError(f"{k}: parameters differ past rtol 1e-4 / atol 2.05 lr")
+    return {"param_worst_excess": list(worst_p), "stat_worst_rel": list(worst_s)}
+
+
+def dp_child(argv) -> int:
+    """(d)'s child: ``python3 chip_smoke.py --dp-child <backend> <rank> <world>
+    <port> <work dir> <device>``.  Joins the process group, checks one
+    all-reduce, runs one float32 train step on its rows of the parent's batch
+    (``shard_train_step_multiprocess``), then ``DP_TIMED_STEPS`` more,
+    timed; prints a JSON line, and rank 0 saves the parameters after the
+    first step."""
+    import torch
+    import torch.distributed as dist
+    from amyloid_yolo_tpu_torch.graphspec import from_cfg
+    from amyloid_yolo_tpu_torch.parallel import distributed as D
+    from amyloid_yolo_tpu_torch.parallel import steps
+    backend, rank, world, port, work, device = argv[0], int(argv[1]), int(argv[2]), \
+        argv[3], argv[4], argv[5]
+    D.initialize(f"127.0.0.1:{port}", world, rank, backend=backend, device=device,
+                 timeout=CHILD_TIMEOUT_S)
+    dev = D.local_device()
+    probe = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(probe)
+    if probe.cpu().tolist() != [world * (world + 1) / 2] * 4:
+        raise AssertionError(f"all-reduce gave {probe.tolist()}")
+    setup = torch.load(os.path.join(work, "setup.pt"), weights_only=False)
+    spec = from_cfg(os.path.join(work, "model.cfg"))
+    mesh = D.global_mesh()
+    imgs, t, m, per = setup["imgs"], setup["targets"], setup["mask"], setup["per_image"]
+    b = D.local_batch_size(len(imgs), mesh)
+    lo, hi = rank * b, (rank + 1) * b
+    mine = (imgs[lo:hi], t[lo * per:hi * per], m[lo * per:hi * per])
+    opt = steps.make_optimizer(DP_LR)
+    state = steps.init_train_state(setup["params"], opt, device=dev)
+    step = D.shard_train_step_multiprocess(steps.make_train_step(spec, opt, augment=False),
+                                           mesh)
+    state, metrics = step(state, *mine, None, setup["size"])
+    loss = float(metrics["loss"])
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in state.params.items()},
+                   os.path.join(work, f"params_{backend}{world}.pt"))
+
+    def again():
+        nonlocal state
+        state, metrics = step(state, *mine, None, setup["size"])
+        float(metrics["loss"])
+
+    D.barrier()  # every rank starts its clock after rank 0's save
+    step_ms = host_ms(again, DP_TIMED_STEPS, [dev])
+    print(json.dumps({"dp_child": True, "backend": backend, "rank": rank, "world": world,
+                      "device": str(dev), "loss": loss, "step_ms": step_ms}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_dp_children(tag: str, backend: str, devices, work: str, root: str) -> list:
+    """Run one group of (d)'s children, one a rank, each with its timeout;
+    returns their JSON records in rank order."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-child", backend, str(rank),
+         str(len(devices)), str(port), work, device],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank, device in enumerate(devices)]
+    out, failures = [], []
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                log = p.communicate(timeout=CHILD_TIMEOUT_S)[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                log = p.communicate()[0]
+                failures.append(f"{tag} rank {rank} timed out after {CHILD_TIMEOUT_S} s")
+            recs = [json.loads(l) for l in log.splitlines() if l.startswith('{"dp_child"')]
+            if p.returncode != 0 or len(recs) != 1:
+                failures.append(f"{tag} rank {rank} rc {p.returncode}:\n{log[-3000:]}")
+            else:
+                out.append(recs[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failures:
+        raise AssertionError("data-parallel children failed: " + "\n".join(failures))
+    return out
+
+
+def parallel_phase(spec, params, card: str, dev, size: int = 416, side: int = 1536,
+                   folder_kw=None) -> dict:
+    """Phase 13 (see the module docstring); returns its JSON record.  On the
+    CPU (a rehearsal with a mini spec: ``size``, ``side`` and ``folder_kw``
+    cut it down) the meshes are CPU entries, the children run gloo on the
+    CPU and the NCCL runs are left out; ``torch.cuda.synchronize`` and
+    ``cuda_ms`` then need host stand-ins."""
+    import pickle
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.cli.main import main as cli_main
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    from amyloid_yolo_tpu_torch.graphspec import emit_cfg
+    from amyloid_yolo_tpu_torch.io.weights import params_to_torch_state_dict
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from amyloid_yolo_tpu_torch.models import darknet
+    from amyloid_yolo_tpu_torch.parallel import steps
+    from amyloid_yolo_tpu_torch.parallel.mesh import make_mesh
+
+    cuda = dev.type == "cuda"
+    n_cards = torch.cuda.device_count() if cuda else 0
+    if n_cards >= 2:
+        mesh = make_mesh(2)
+        mesh32 = make_mesh()
+    else:  # one card (or the CPU): two shards on one device
+        mesh = mesh32 = make_mesh(devices=[dev, dev])
+    root = os.path.dirname(os.path.abspath(__file__))
+    record = {"cards": n_cards, "mesh_devices": [str(d) for d in mesh32.devices],
+              "train_mesh_devices": [str(d) for d in mesh.devices]}
+    print(f"phase 13 on {n_cards} card(s): the Detector's mesh {record['mesh_devices']}, the "
+          f"train step's {record['train_mesh_devices']}; the per-device shared-memory limit "
+          f"of K2/K3 {'runs on a second card here' if n_cards >= 2 else 'is not exercised (one card)'}",
+          flush=True)
+    rng = np.random.RandomState(SEED + 13)
+
+    # (a) the float32 Detector on the card against the CPU
+    tiles8 = rng.randint(0, 256, (8, side, side, 3)).astype(np.uint8)
+    det32 = Detector(spec, params, conf_thres=0.3, compute_dtype=torch.float32,
+                     model_size=size, device=dev)
+    cpu32 = Detector(spec, params, conf_thres=0.3, compute_dtype=torch.float32,
+                     model_size=size, device="cpu")
+    seen = []
+    apply_folded = darknet.apply_folded
+
+    def spy(*a, **k):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                     k.get("packs") is None))
+        return apply_folded(*a, **k)
+
+    flags0 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    darknet.apply_folded = spy
+    try:
+        reset_launch_counts()
+        dets, valid = det32(tiles8)
+        torch.cuda.synchronize()
+        f32_counts = launch_counts()
+        flags_after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        darknet.apply_folded = apply_folded
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags0
+    with torch.inference_mode():
+        card_maps = det32.head_maps(torch.from_numpy(tiles8).to(dev))
+        cpu_maps = cpu32.head_maps(torch.from_numpy(tiles8))
+    head_rel = [((m.cpu() - p).abs().max() / p.abs().max()).item()
+                for m, p in zip(card_maps, cpu_maps)]
+    cd, cv = cpu32(tiles8)
+    same = [i for i in range(8) if torch.equal(valid[i].cpu(), cv[i])]
+    box = max([float((dets[i].cpu() - cd[i])[cv[i]][:, :4].abs().max()) for i in same
+               if cv[i].any()] or [0.0])
+    print(f"(a) float32 Detector, 8 tiles: launches {f32_counts} (want K1 0, K2 0); TF32 flags "
+          f"inside the call (cuDNN, matmul, no K2 packs) {seen}, after it {flags_after} (set "
+          f"True before); head maps max|card-cpu|/max|cpu| {[f'{r:.3g}' for r in head_rel]} "
+          f"(tolerance {F32_HEAD_TOL}); detections: {len(same)} of 8 tiles with the CPU's valid "
+          f"mask, max |box diff| {box:.4g} px on them (not a check: the pool of 64 is picked "
+          f"among {int(det32._last_ncand.min())}+ candidates a tile)", flush=True)
+    if any(f32_counts.values()):
+        raise AssertionError(f"the float32 Detector launched kernels: {f32_counts}")
+    if seen != [(not cuda, not cuda, True)] or flags_after != (True, True):
+        raise AssertionError("TF32 was not off inside the float32 call, or not restored")
+    if max(head_rel) > F32_HEAD_TOL or not torch.isfinite(dets).all():
+        raise AssertionError("float32 head maps on the card disagree with the CPU")
+    record["f32"] = {"launches": f32_counts, "head_rel": head_rel, "tiles_same_valid": len(same),
+                     "max_box_diff_px": box, "flags_inside": seen, "flags_after": flags_after}
+    del det32, cpu32, card_maps, cpu_maps
+
+    # (b) Detector(mesh=) at B=32 against the one-device Detector
+    tiles32 = torch.randint(0, 256, (DP_TILES, side, side, 3), dtype=torch.uint8,
+                            generator=torch.Generator().manual_seed(SEED)).to(dev)
+    one = Detector(spec, params, conf_thres=0.3, model_size=size, device=dev)
+    dpd = Detector(spec, params, conf_thres=0.3, model_size=size, mesh=mesh32)
+    shards = mesh32.size
+    with torch.inference_mode():
+        reset_launch_counts()
+        md, mv = dpd(tiles32)
+        torch.cuda.synchronize()
+        mesh_counts = launch_counts()
+        parts = [one(p) for p in tiles32.chunk(shards)]
+        rd, rv = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+        bd, bv = one(tiles32)
+    # one K1 and one K2 a residual unit (23 in YOLOv3) on each shard; CPU
+    # tensors take the plain versions, which count nothing
+    want_counts = {"resize_normalize": shards * cuda,
+                   "fused_residual_block": len(dpd.packs) * shards * cuda,
+                   "fused_residual_block_int8": 0}
+    v = rv.cpu()
+    box_err = float((md.cpu() - rd.cpu())[v][:, :4].abs().max()) if v.any() else 0.0
+    score_err = float((md.cpu() - rd.cpu())[v][:, 4:6].abs().max()) if v.any() else 0.0
+    b32_same = int(sum(torch.equal(bv[i].cpu(), mv[i].cpu()) for i in range(DP_TILES)))
+    print(f"(b) Detector(mesh over {mesh32.devices}) B={DP_TILES}: launches {mesh_counts} (want "
+          f"{want_counts}); against the one-device Detector on the same {shards} shards: valid "
+          f"equal {torch.equal(mv.cpu(), rv.cpu())}, max|box diff| {box_err} px (tolerance "
+          f"{SERVE_TOL['box']}), max|score diff| {score_err} (tolerance {SERVE_TOL['score']}); "
+          f"against one B={DP_TILES} call: {b32_same} of {DP_TILES} tiles with the same valid "
+          f"mask (not a check: other batch shapes round bf16 otherwise)", flush=True)
+    if mesh_counts != want_counts:
+        raise AssertionError(f"mesh launches {mesh_counts}, want {want_counts}")
+    if not torch.equal(mv.cpu(), rv.cpu()) or box_err > SERVE_TOL["box"] \
+            or score_err > SERVE_TOL["score"] or not torch.isfinite(md).all():
+        raise AssertionError("the mesh Detector disagrees with the one-device Detector")
+    with torch.inference_mode():
+        mesh_ms = cuda_ms(lambda: dpd(tiles32), iters=5, warmup=1, hold=False)
+        one_ms = cuda_ms(lambda: one(tiles32), iters=5, warmup=1, hold=False)
+    print(f"(b) B={DP_TILES}, tiles on the card: mesh of {shards} {mesh_ms:.3f} ms = "
+          f"{DP_TILES / mesh_ms * 1e3:.1f} tiles/s; one device {one_ms:.3f} ms = "
+          f"{DP_TILES / one_ms * 1e3:.1f} tiles/s [{card}]", flush=True)
+    record["mesh_detector"] = {
+        "shards": shards, "launches": mesh_counts, "box_err": box_err, "score_err": score_err,
+        "b32_same_valid": b32_same, "mesh_ms": mesh_ms, "one_ms": one_ms,
+        "mesh_tiles_per_s": DP_TILES / mesh_ms * 1e3, "one_tiles_per_s": DP_TILES / one_ms * 1e3}
+    del one, dpd, tiles32, md, rd, bd, parts
+
+    # (c) the in-process data-parallel train step against the one-device step
+    imgs, t, m = train_batch(rng, DP_TRAIN_B, side)
+    runs = {}
+    for name, shard_mesh in (("one", None), ("dp", mesh)):
+        opt = steps.make_optimizer(DP_LR)
+        state = steps.init_train_state(params, opt, device=dev)
+        step = steps.make_train_step(spec, opt, augment=False)
+        if shard_mesh is not None:
+            step = steps.shard_train_step(step, shard_mesh)
+        state, metrics = step(state, imgs, t, m, None, size)
+        loss = float(metrics["loss"])
+        after = {k: v.detach().clone() for k, v in state.params.items()}
+
+        def again():
+            nonlocal state
+            state, metrics = step(state, imgs, t, m, None, size)
+            float(metrics["loss"])
+
+        runs[name] = (loss, after,
+                      host_ms(again, DP_TIMED_STEPS, shard_mesh.devices if shard_mesh else [dev]))
+        del state, opt
+    ref_loss, ref_params, one_ms = runs["one"]
+    loss_rel = abs(runs["dp"][0] - ref_loss) / abs(ref_loss)
+    close = _params_close(runs["dp"][1], ref_params)
+    opt = steps.make_optimizer(DP_LR)
+    state = steps.init_train_state(params, opt, device=dev)
+    bf16_step = steps.shard_train_step(
+        steps.make_train_step(spec, opt, augment=False, compute_dtype=torch.bfloat16), mesh)
+    state, metrics = bf16_step(state, imgs, t, m, None, size)
+    bf16_loss = float(metrics["loss"])
+    bf16_finite = all(bool(torch.isfinite(v).all()) for v in state.params.values()
+                      if v.is_floating_point())
+    del state, opt
+    print(f"(c) in-process data-parallel step over {mesh.devices}, B={DP_TRAIN_B} at {size}, "
+          f"float32 with TF32 off, one apply: loss {runs['dp'][0]} vs the one-device step "
+          f"{ref_loss} (rel {loss_rel:.3g}, tolerance {DP_LOSS_RTOL}); parameters within rtol "
+          f"1e-4 / atol 2.05 lr (worst excess {close['param_worst_excess']}); BN running stats "
+          f"worst rel {close['stat_worst_rel']} (tolerance {STEP_RTOL}); the next "
+          f"{DP_TIMED_STEPS} steps {runs['dp'][2]:.1f} ms each against {one_ms:.1f} ms on one "
+          f"device (host clock, mean); bf16 step loss {bf16_loss}, parameters finite {bf16_finite} [{card}]",
+          flush=True)
+    if loss_rel > DP_LOSS_RTOL or not (math.isfinite(bf16_loss) and bf16_finite):
+        raise AssertionError("the data-parallel train step disagrees with the one-device step")
+    record["dp_step"] = {"loss": runs["dp"][0], "loss_one": ref_loss, "loss_rel": loss_rel,
+                         **close, "step_ms": runs["dp"][2], "one_step_ms": one_ms,
+                         "bf16_loss": bf16_loss}
+
+    # (d) two processes against the one-process step at the global batch
+    groups = [("gloo2", "gloo", [str(dev)] * 2)]
+    if cuda:
+        groups.append(("nccl1", "nccl", ["cuda:0"]))
+        if n_cards >= 2:
+            groups.append(("nccl2", "nccl", ["cuda:0", "cuda:1"]))
+    work = tempfile.mkdtemp(prefix="phase13_")
+    try:
+        with open(os.path.join(work, "model.cfg"), "w") as fh:
+            fh.write(emit_cfg(spec))
+        torch.save({"params": params, "imgs": imgs, "targets": t, "mask": m,
+                    "per_image": len(t) // DP_TRAIN_B, "size": size},
+                   os.path.join(work, "setup.pt"))
+        if cuda:
+            torch.cuda.empty_cache()
+        record["processes"] = {}
+        for tag, backend, devices in groups:  # one group at a time: the card is theirs
+            t0 = time.perf_counter()
+            recs = _run_dp_children(tag, backend, devices, work, root)
+            wall = time.perf_counter() - t0
+            losses = [r["loss"] for r in recs]
+            got = torch.load(os.path.join(work, f"params_{tag}.pt"))
+            rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+            if len(set(losses)) != 1 or rel > DP_LOSS_RTOL:
+                raise AssertionError(f"{tag}: losses {losses} against {ref_loss}")
+            close = _params_close(got, ref_params)
+            record["processes"][tag] = {"losses": losses, "loss_rel": rel, **close,
+                                        "step_ms": [r["step_ms"] for r in recs],
+                                        "devices": [r["device"] for r in recs],
+                                        "wall_s": wall}
+            print(f"(d) {tag} on {[r['device'] for r in recs]}: loss {losses[0]} on every rank "
+                  f"(rel {rel:.3g} to the one-process step, tolerance {DP_LOSS_RTOL}); "
+                  f"parameters within rtol 1e-4 / atol 2.05 lr (worst excess "
+                  f"{close['param_worst_excess']}), BN stats worst rel "
+                  f"{close['stat_worst_rel']}; the next {DP_TIMED_STEPS} steps "
+                  f"{[round(r['step_ms'], 1) for r in recs]} ms each by rank (host clock, mean; "
+                  f"the group ran alone, {wall:.1f} s with start-up) [{card}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (e) cli sweep --data_parallel 2 against the one-device sweep
+    tmp = tempfile.mkdtemp(prefix="phase13_sweep_")
+    try:
+        cfg = os.path.join(tmp, "model.cfg")
+        with open(cfg, "w") as fh:
+            fh.write(emit_cfg(spec))
+        pth = os.path.join(tmp, "weights.pth")
+        torch.save(params_to_torch_state_dict(spec, params), pth)
+        folder = os.path.join(tmp, "folder")
+        os.makedirs(folder)
+        readable, *_ = write_folder(folder, SEED, **dict(FOLDER, **(folder_kw or {})))
+        t0s = [p for p in readable if os.path.basename(p).startswith("t0")]
+        half = len(t0s) // 2
+        tree = os.path.join(tmp, "wsis")
+        write_wsi_tree(tree, [("CERAD_4G8_A", t0s[:half], 6), ("CERAD_4G8_B", t0s[half:], 5)])
+        dp_device = ",".join(str(d) for d in mesh.devices) if n_cards < 2 else dev.type
+        common = ["sweep", "--model_def", cfg, "--weights_path", pth, "--directory", tree,
+                  "--conf_thres", "0.3", "--cross_tile_merge", "True", "--prefix", "P_"]
+        sweeps = {}
+        for name, extra in (("one", ["--batch_size", "4", "--device", dev.type]),
+                            ("dp", ["--batch_size", "8", "--data_parallel", "2",
+                                    "--device", dp_device])):
+            pk = os.path.join(tmp, f"pickles_{name}")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli_main(common + ["--pickles_dir", pk] + extra)
+            torch.cuda.synchronize()
+            counts = {"launches": launch_counts(), "seconds": time.perf_counter() - t0}
+            for kind in ("WSI", "1536"):
+                with open(os.path.join(pk, f"P_{kind}_plaque_counts_dictionary.pkl"), "rb") as fh:
+                    counts[kind] = pickle.load(fh)
+            if rc != 0:
+                raise AssertionError(f"cli sweep ({name}) returned {rc}")
+            sweeps[name] = counts
+        print(f"(e) cli sweep --data_parallel 2 --device {dp_device} at --batch_size 8 over "
+              f"{len(t0s)} tiles in 2 WSIs: {sweeps['dp']['WSI']} in "
+              f"{sweeps['dp']['seconds']:.2f} s, launches {sweeps['dp']['launches']}; the "
+              f"one-device sweep at --batch_size 4 (the same batch a device): "
+              f"{sweeps['one']['WSI']} in {sweeps['one']['seconds']:.2f} s, launches "
+              f"{sweeps['one']['launches']} [{card}]", flush=True)
+        if sweeps["dp"]["WSI"] != sweeps["one"]["WSI"] \
+                or sweeps["dp"]["1536"] != sweeps["one"]["1536"]:
+            raise AssertionError("the data-parallel sweep counts otherwise than one device")
+        if sum(c["Cored"] + c["CAA"] for c in sweeps["one"]["WSI"].values()) == 0:
+            raise AssertionError("the sweep counted nothing")
+        if cuda and sweeps["dp"]["launches"]["fused_residual_block"] != \
+                23 * sweeps["dp"]["launches"]["resize_normalize"]:
+            raise AssertionError(f"sweep launches {sweeps['dp']['launches']}")
+        record["sweep"] = {k: {"wsi": v["WSI"], "launches": v["launches"], "seconds": v["seconds"]}
+                           for k, v in sweeps.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return record
+
+
 def drive(det, batches, want_counts: dict) -> None:
     """One Detector over the batches with the launch counters set to 0
     just before: the counts must be ``want_counts``, the outputs finite
@@ -2012,6 +2454,10 @@ def main() -> int:
     serving = serving_phase(spec, params, card, dev)
     served = serving["correctness"]
 
+    # 13. data parallelism
+    parallel = parallel_phase(spec, params, card, dev)
+    mesh_rec = parallel["mesh_detector"]
+
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
 
@@ -2029,7 +2475,9 @@ def main() -> int:
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None,
          "shape": "8x1536x1536x3 u8 -> 8x416x416x3 bf16",
          "serving_launches": served["launches"]["resize_normalize"],
-         "serving_dispatches": served["dispatches"]},
+         "serving_dispatches": served["dispatches"],
+         "mesh_launches": mesh_rec["launches"]["resize_normalize"],
+         "mesh_shards": mesh_rec["shards"]},
         {"name": "fused_residual_block", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/conv_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/conv_block.py:107",
@@ -2041,7 +2489,9 @@ def main() -> int:
          "shape": "the 23 units of one B=8 batch", "stages": stages,
          "stages_b32": k2_rows[32],
          "serving_launches": served["launches"]["fused_residual_block"],
-         "serving_dispatches": served["dispatches"]},
+         "serving_dispatches": served["dispatches"],
+         "mesh_launches": mesh_rec["launches"]["fused_residual_block"],
+         "mesh_shards": mesh_rec["shards"]},
         {"name": "fused_residual_block_int8", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/int8_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/int8_block.py:150",
@@ -2059,6 +2509,7 @@ def main() -> int:
     print(json.dumps({"folder": folder, "card": card}))
     print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"serving": serving, "card": card}))
+    print(json.dumps({"parallel": parallel, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2068,4 +2519,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-child"]:
+        sys.exit(dp_child(sys.argv[2:]))
     sys.exit(main())

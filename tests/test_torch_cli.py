@@ -328,8 +328,8 @@ def test_unported_commands_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         cli.main(["bench"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cli.main(["sweep", "--directory", str(tmp_path), "--data_parallel", "2",
-                  "--device", "cpu"])
+        cli.main(["train", "--data_config", str(tmp_path / "none.data"), "--spatial_shard",
+                  "2", "--device", "cpu"])
 
 
 def test_clear(tmp_path):

@@ -15,6 +15,7 @@
 
 import json
 import os
+import socket
 import sys
 import warnings
 
@@ -232,7 +233,21 @@ def test_entry_points_default_to_cuda(tiny_dataset, tmp_path):
             evaluate(port_mini_spec(), {}, str(tiny_dataset / "valid.txt"))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             steps.init_train_state({}, steps.make_optimizer())
-    for kw in ({"data_parallel": 2}, {"spatial_shard": 2}, {"distributed": True}):
-        bad = TrainConfig(data_config=str(tiny_dataset / "custom.data"), **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            Trainer(bad, spec=port_mini_spec(), device="cpu")
+        # distributed: no quiet gloo run on the CPU; no group is joined
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        ddp = TrainConfig(data_config=str(tiny_dataset / "custom.data"), distributed=True,
+                          coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                          process_id=0, logdir=str(tmp_path / "logs"))
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                Trainer(ddp, spec=port_mini_spec(), device=device)
+        assert not torch.distributed.is_initialized()
+    bad = TrainConfig(data_config=str(tiny_dataset / "custom.data"), spatial_shard=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        Trainer(bad, spec=port_mini_spec(), device="cpu")
+    # data_parallel is ported: with device="cpu" its mesh is CPU entries
+    dp = TrainConfig(data_config=str(tiny_dataset / "custom.data"), data_parallel=2,
+                     logdir=str(tmp_path / "logs"))
+    assert Trainer(dp, spec=port_mini_spec(), device="cpu").device.type == "cpu"

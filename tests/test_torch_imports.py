@@ -16,6 +16,8 @@ TRAINING_MODULES = ("ops.boxes", "models.heads", "ops.targets", "ops.loss", "mod
 # the serving path and the CLI's modules
 SERVING_MODULES = ("serving", "cli", "cli.main", "io.tiles", "analysis", "analysis.validation",
                    "domain")
+# data parallelism: the mesh and the multi-process step
+PARALLEL_MODULES = ("parallel.mesh", "parallel.distributed")
 SCRIPTS = ("chip_smoke", "bench_k2")  # the port's scripts at the repo root
 
 
@@ -73,7 +75,7 @@ def test_port_sources_name_no_jax_module():
     assert not found, found
     assert len(_port_files()) > 15
     mods = set(_port_modules())
-    assert {f"{PKG}.{m}" for m in TRAINING_MODULES + SERVING_MODULES} <= mods
+    assert {f"{PKG}.{m}" for m in TRAINING_MODULES + SERVING_MODULES + PARALLEL_MODULES} <= mods
     assert os.path.join(REPO, PKG, "cli", "__main__.py") in _port_files()
 
 

@@ -148,3 +148,17 @@ def jax_classifier_params(seed: int, fc_scale: float = 1.0):
     logits = np.asarray(jax_classifier.apply(p, probe))
     p["fc"]["b"] = (-np.median(logits, axis=0)).astype(np.float32)
     return p
+
+
+def copy_always(monkeypatch, *modules):
+    """Make every move between the devices of a mesh a real copy, as it is
+    across cards; returns the list the copies are counted into."""
+    moved = []
+
+    def copy(t, device):
+        moved.append(t.numel())
+        return t.to(device, copy=True)
+
+    for mod in modules:
+        monkeypatch.setattr(mod, "to_device", copy)
+    return moved
