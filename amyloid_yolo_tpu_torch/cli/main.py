@@ -36,7 +36,11 @@ Where the port differs:
 * ``train --distributed True`` runs one process a device: under
   ``torchrun`` without ``--coordinator_address`` (``env://``), or with
   ``--coordinator_address host:port --num_processes N --process_id i`` in
-  each process.
+  each process;
+* ``train --spatial_shard N`` splits the image height over N devices
+  (:mod:`..parallel.spatial`), with ``--data_parallel M`` over M rows of N;
+  ``--device`` names them as for the sweep (``cpu``: CPU entries;
+  ``cuda:0,cuda:0``: two shards on one card).  It refuses ``--distributed``.
 """
 
 from __future__ import annotations
@@ -475,7 +479,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="N shards in one process, one device each (--device cpu: "
                         "N CPU entries)")
     t.add_argument("--spatial_shard", type=int, default=None,
-                   help="not ported (multi-GPU): N > 1 raises")
+                   help="N devices the image height splits over (with --data_parallel M: "
+                        "M rows of N; --device cpu: CPU entries)")
     t.add_argument("--distributed", type=str, default="False",
                    help="one process a device (NCCL); under torchrun, or with "
                         "--coordinator_address, --num_processes and --process_id")

@@ -12,6 +12,9 @@ Counterpart of the reference package's ``models/darknet.py``:
 :func:`calibrate_act_scales_full`, :func:`apply_folded_int8_full`,
 ``:986-1230``).  The space-to-depth stems (inference and training) and
 the planar training layout compute the same functions and are not ported.
+The float layer loops call per-layer functions (:func:`conv`, the BN
+steps, :func:`folded_conv`), which the height-sharded runner of
+``parallel/spatial.py`` calls on each shard.
 
 Layout: float activations are NCHW tensors in ``channels_last`` memory —
 physically NHWC, which is what the kernels K1 and K2 read and write, and
@@ -180,6 +183,108 @@ def _release(saved: Dict, last_use: Mapping[int, int], i: int) -> None:
             del saved[k]
 
 
+def conv(w: torch.Tensor, layer: ConvSpec, x: torch.Tensor, compute_dtype: torch.dtype,
+         padding=None) -> torch.Tensor:
+    """A conv's raw output: NCHW ``x`` through the OIHW weight ``w``, both in
+    ``compute_dtype``, at the layer's stride and its padding (``padding``
+    overrides it: a height shard brings its own rows of padding)."""
+    return F.conv2d(x, w.to(compute_dtype), stride=layer.stride,
+                    padding=layer.pad if padding is None else padding)
+
+
+def bn_moments_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch ``mean`` and biased ``var = max(E[x²] − mean², 0)`` from the
+    per-channel ``Σx`` and ``Σx²`` over ``n`` elements."""
+    mean, ex2 = s1 / n, s2 / n
+    return mean, torch.clamp(ex2 - mean * mean, min=0.0)
+
+
+def bn_batch_moments(out32: torch.Tensor, reducer: Optional[Callable] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Train-mode BN statistics ``(mean, var, n)`` of an NCHW f32 conv
+    output: this batch's (one pass, ``.mean``), or with ``reducer`` those
+    of the global batch its equal shards make up (see :func:`apply`)."""
+    n = out32.shape[0] * out32.shape[2] * out32.shape[3]
+    if reducer is None:
+        mean = out32.mean(dim=(0, 2, 3))
+        ex2 = (out32 * out32).mean(dim=(0, 2, 3))
+        return mean, torch.clamp(ex2 - mean * mean, min=0.0), n
+    s1, s2 = reducer(out32.sum(dim=(0, 2, 3)), (out32 * out32).sum(dim=(0, 2, 3)))
+    n = n * reducer.world
+    return (*bn_moments_from_sums(s1, s2, n), n)
+
+
+@torch.no_grad()
+def bn_running_stats(params: Mapping[str, torch.Tensor], i: int, mean: torch.Tensor,
+                     var: torch.Tensor, n: int) -> StateDict:
+    """Conv ``i``'s new running statistics ``(1 − m)·old + m·batch``, the
+    variance unbiased (``var·n/(n − 1)``), detached."""
+    p = _bn_key(i)
+    unbiased = var * (n / max(n - 1, 1))
+    return {f"{p}.running_mean": (1 - BN_MOMENTUM) * params[f"{p}.running_mean"]
+            + BN_MOMENTUM * mean,
+            f"{p}.running_var": (1 - BN_MOMENTUM) * params[f"{p}.running_var"]
+            + BN_MOMENTUM * unbiased}
+
+
+def bn_running_moments(params: Mapping[str, torch.Tensor], i: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conv ``i``'s running ``(mean, var)`` in f32: eval-mode BN."""
+    p = _bn_key(i)
+    return (params[f"{p}.running_mean"].to(torch.float32),
+            params[f"{p}.running_var"].to(torch.float32))
+
+
+def bn_normalize(params: Mapping[str, torch.Tensor], i: int, out32: torch.Tensor,
+                 mean: torch.Tensor, var: torch.Tensor, compute_dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """``(x − mean)·γ·rsqrt(var + ε) + β`` in f32, rounded to ``compute_dtype``."""
+    f32 = torch.float32
+    p = _bn_key(i)
+    inv = torch.rsqrt(var + BN_EPS)
+    g = (params[f"{p}.weight"].to(f32) * inv)[None, :, None, None]
+    return ((out32 - mean[None, :, None, None]) * g
+            + params[f"{p}.bias"].to(f32)[None, :, None, None]).to(compute_dtype)
+
+
+def conv_bias(params: Mapping[str, torch.Tensor], i: int, out: torch.Tensor,
+              compute_dtype: torch.dtype) -> torch.Tensor:
+    """A conv without BN (a head conv) adds its bias in ``compute_dtype``."""
+    return out + params[f"{_conv_key(i)}.bias"].to(compute_dtype)[None, :, None, None]
+
+
+def activate(layer: ConvSpec, out: torch.Tensor) -> torch.Tensor:
+    return _leaky(out) if layer.activation == "leaky" else out
+
+
+def conv_layer(params: Mapping[str, torch.Tensor], i: int, layer: ConvSpec, x: torch.Tensor,
+               compute_dtype: torch.dtype, *, train: bool = False,
+               reducer: Optional[Callable] = None, new_stats: Optional[StateDict] = None,
+               ) -> torch.Tensor:
+    """Conv ``i`` with its BN (eval: running statistics; train: batch
+    statistics, its new running statistics written into ``new_stats``) or
+    its bias, and its activation, on the NCHW map ``x``."""
+    out = conv(params[f"{_conv_key(i)}.weight"], layer, x, compute_dtype)
+    if not layer.batch_normalize:
+        return activate(layer, conv_bias(params, i, out, compute_dtype))
+    out32 = out.to(torch.float32)
+    if train:
+        mean, var, n = bn_batch_moments(out32, reducer)
+        new_stats.update(bn_running_stats(params, i, mean, var, n))
+    else:
+        mean, var = bn_running_moments(params, i)
+    return activate(layer, bn_normalize(params, i, out32, mean, var, compute_dtype))
+
+
+def folded_conv(folded: Folded, i: int, layer: ConvSpec, x: torch.Tensor,
+                compute_dtype: torch.dtype, padding=None) -> torch.Tensor:
+    """Conv ``i`` over BN-folded params: conv, bias in ``compute_dtype``,
+    activation (``padding`` as :func:`conv` takes it)."""
+    out = conv(folded[f"conv_{i}"]["w"], layer, x, compute_dtype, padding)
+    return activate(layer, out + folded[f"conv_{i}"]["b"].to(compute_dtype)[None, :, None, None])
+
+
 def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, *,
           compute_dtype: torch.dtype = torch.float32, train: bool = False,
           reducer: Optional[Callable] = None):
@@ -206,9 +311,10 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
     step computes them): each BN hands it its shard's per-channel ``Σx``
     and ``Σx²`` and takes back their sums over the shards; the count is the
     shard's times ``reducer.world`` (the shards are equal).  Without it the
-    statistics are this batch's, computed exactly as before.
+    statistics are this batch's, computed exactly as before.  Unequal
+    shards (the height shards of ``parallel/spatial.py``) call the
+    per-layer functions above with their own global count.
     """
-    f32 = torch.float32
     prev = _cl(_nchw(x.to(compute_dtype)))
     last_use = _last_use(spec)
     saved: Dict[int, torch.Tensor] = {}
@@ -216,40 +322,8 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
     new_stats: StateDict = {}
     for i, layer in enumerate(spec.layers):
         if isinstance(layer, ConvSpec):
-            w = params[f"{_conv_key(i)}.weight"].to(compute_dtype)
-            out = F.conv2d(prev, w, stride=layer.stride, padding=layer.pad)
-            if layer.batch_normalize:
-                p = _bn_key(i)
-                out32 = out.to(f32)
-                if train:
-                    n = out.shape[0] * out.shape[2] * out.shape[3]
-                    if reducer is None:
-                        mean = out32.mean(dim=(0, 2, 3))
-                        ex2 = (out32 * out32).mean(dim=(0, 2, 3))
-                    else:
-                        s1, s2 = reducer(out32.sum(dim=(0, 2, 3)),
-                                         (out32 * out32).sum(dim=(0, 2, 3)))
-                        n = n * reducer.world
-                        mean, ex2 = s1 / n, s2 / n
-                    var = torch.clamp(ex2 - mean * mean, min=0.0)
-                    with torch.no_grad():
-                        unbiased = var * (n / max(n - 1, 1))
-                        new_stats[f"{p}.running_mean"] = (
-                            (1 - BN_MOMENTUM) * params[f"{p}.running_mean"] + BN_MOMENTUM * mean)
-                        new_stats[f"{p}.running_var"] = (
-                            (1 - BN_MOMENTUM) * params[f"{p}.running_var"]
-                            + BN_MOMENTUM * unbiased)
-                else:
-                    mean = params[f"{p}.running_mean"].to(f32)
-                    var = params[f"{p}.running_var"].to(f32)
-                inv = torch.rsqrt(var + BN_EPS)
-                g = (params[f"{p}.weight"].to(f32) * inv)[None, :, None, None]
-                out = ((out32 - mean[None, :, None, None]) * g
-                       + params[f"{p}.bias"].to(f32)[None, :, None, None]).to(compute_dtype)
-            else:
-                out = out + params[f"{_conv_key(i)}.bias"].to(compute_dtype)[None, :, None, None]
-            if layer.activation == "leaky":
-                out = _leaky(out)
+            out = conv_layer(params, i, layer, prev, compute_dtype, train=train,
+                             reducer=reducer, new_stats=new_stats)
         else:
             out = _plain_layer(layer, prev, saved, head_maps)
         if i in last_use:
@@ -320,11 +394,7 @@ def _folded_layers(folded: Folded, spec: GraphSpec, prev: torch.Tensor,
             skip_until = i + 3
             continue
         if isinstance(layer, ConvSpec):
-            w = folded[f"conv_{i}"]["w"].to(compute_dtype)
-            out = F.conv2d(prev, w, stride=layer.stride, padding=layer.pad)
-            out = out + folded[f"conv_{i}"]["b"].to(compute_dtype)[None, :, None, None]
-            if layer.activation == "leaky":
-                out = _leaky(out)
+            out = folded_conv(folded, i, layer, prev, compute_dtype)
         else:
             out = _plain_layer(layer, prev, saved, head_maps)
         if i in last_use:
@@ -611,4 +681,6 @@ __all__ = ["init_params", "apply", "fold_batchnorm", "fusible_residual_blocks",
            "quantize_folded_int8", "calibrate_act_scales", "apply_folded_int8",
            "int8_full_conv_indices", "quantize_folded_int8_full",
            "calibrate_act_scales_full", "apply_folded_int8_full",
+           "conv", "conv_layer", "folded_conv", "conv_bias", "activate", "bn_batch_moments",
+           "bn_moments_from_sums", "bn_running_stats", "bn_running_moments", "bn_normalize",
            "BN_EPS", "BN_MOMENTUM", "LEAKY_SLOPE"]

@@ -51,8 +51,8 @@ generator and each shard takes its rows, and a shard's target rows carry
 shard-local batch indices.  In one process the host issues every device's
 launches, so :class:`MeshShards` is the semantic counterpart of the
 reference's ``data_parallel``; the multi-process form is the one that
-scales.  Spatial sharding (``parallel/spatial.py``) is not ported
-(ROADMAP Queue 1 item 7).
+scales.  ``parallel.spatial.SpatialShards`` is a third ``shards``: the
+image height split over devices as well as the batch.
 """
 
 from __future__ import annotations
@@ -376,8 +376,8 @@ def _micro_step(state: TrainState, spec: GraphSpec, optimizer: Optimizer, batch,
     """One micro-batch: forward and backward (gradients add into ``.grad``),
     the apply when ``do_apply``, the BN running statistics, the EMA on an
     apply, the counters.  ``shards`` (:class:`MeshShards`,
-    ``distributed.ProcessShards``) runs the forward and backward data
-    parallel.  The ``train/*`` ranges name its parts in a
+    ``distributed.ProcessShards``, ``spatial.SpatialShards``) runs the
+    forward and backward over several devices.  The ``train/*`` ranges name its parts in a
     ``torch.profiler`` trace (the backward's kernels run on autograd's
     device thread, outside them)."""
     dev = _device(state.params)

@@ -24,7 +24,9 @@ Several devices (the reference's ``training.py:113-205``):
 
 * ``data_parallel=N``: one process over a mesh of N devices
   (``parallel.steps.shard_train_step``), numerically the one-device step
-  on the global batch; with ``device="cpu"`` the mesh is N CPU entries;
+  on the global batch; with ``device="cpu"`` the mesh is N CPU entries,
+  and ``device`` may list the mesh's devices (``"cuda:0,cuda:0"`` or a
+  list: two shards on one card);
 * ``distributed=True``: one process a device (``parallel.distributed``).
   ``batch_size`` is the global batch; every rank derives the same shuffle
   and collates its own rows of each batch (``ListDataset.iter_epoch
@@ -32,8 +34,13 @@ Several devices (the reference's ``training.py:113-205``):
   other ranks wait for it at a barrier after each epoch's evaluation and
   save, so their next collective does not time out meanwhile.
 
-``spatial_shard > 1`` is not ported (ROADMAP Queue 1 item 7,
-``parallel/spatial.py``) and raises.  ``s2d_stem`` and ``image_layout``
+* ``spatial_shard=N``: the activations height-sharded over N devices
+  (``parallel.spatial.shard_spatial_train_step``), on a (dp, sp) mesh of
+  ``data_parallel or 1`` rows of N devices; ``device`` as for
+  ``data_parallel``.  It does not compose with ``distributed``
+  (``ValueError``, as the reference's ``training.py:188-191``).
+
+``s2d_stem`` and ``image_layout``
 select TPU layouts of the same function; the port runs its one plain path
 whatever they say.
 """
@@ -54,6 +61,7 @@ from .io.datasets import ListDataset
 from .models import darknet
 from .parallel import steps as steps_mod
 from .parallel.mesh import make_mesh
+from .parallel.spatial import make_spatial_mesh, shard_spatial_train_step
 from .parsecfg import load_classes, parse_data_config
 from .utils.device import DeviceLike, resolve_device
 from .utils.logging import MetricsLogger
@@ -83,7 +91,7 @@ class TrainConfig:
     logdir: str = "logs"
     seed: int = 0
     data_parallel: Optional[int] = None     # devices of the in-process mesh (None = 1)
-    spatial_shard: Optional[int] = None     # not ported (Queue 1 item 7)
+    spatial_shard: Optional[int] = None     # devices the image height splits over (None = 1)
     distributed: bool = False               # one process a device; batch_size is global
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
@@ -110,10 +118,10 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, spec: Optional[GraphSpec] = None,
                  device: DeviceLike = None):
-        if (cfg.spatial_shard or 1) > 1:
-            raise NotImplementedError(
-                "spatial_shard is not ported to the PyTorch package yet "
-                "(ROADMAP.md Queue 1 item 7: parallel/spatial.py)")
+        n_sp, n_dp = cfg.spatial_shard or 1, cfg.data_parallel or 1
+        if n_sp > 1 and cfg.distributed:
+            raise ValueError("spatial_shard does not compose with distributed "
+                             "(one process a device)")
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {list(COMPUTE_DTYPES)}")
         self.cfg = cfg
@@ -136,18 +144,20 @@ class Trainer:
         self.is_main = self.pid == 0
         mesh = None
         if self.nproc > 1:
-            if (cfg.data_parallel or 1) > 1:
+            if n_dp > 1:
                 raise ValueError("distributed training drives one device a process; "
                                  "data_parallel > 1 does not compose with it")
-        elif (cfg.data_parallel or 1) > 1:
-            dev = resolve_device(device)
-            if dev.type == "cpu":  # N CPU entries stand for N devices
-                mesh = make_mesh(devices=[dev] * cfg.data_parallel)
-            else:
-                mesh = make_mesh(cfg.data_parallel)
-                if dev.index is not None and dev != mesh.devices[0]:
-                    raise ValueError(f"device {dev} is not the mesh's first device "
-                                     f"{mesh.devices[0]}")
+        elif n_dp > 1 or n_sp > 1:
+            listed = (device.split(",") if isinstance(device, str) and "," in device
+                      else list(device) if isinstance(device, (list, tuple)) else None)
+            dev = resolve_device(listed[0] if listed else device)
+            if listed is None and dev.type == "cpu":  # N CPU entries stand for N devices
+                listed = [dev] * (n_dp * n_sp)
+            mesh = (make_spatial_mesh(n_sp, n_dp, devices=listed) if n_sp > 1
+                    else make_mesh(n_dp, devices=listed))
+            if dev.index is not None and dev != mesh.devices[0]:
+                raise ValueError(f"device {dev} is not the mesh's first device "
+                                 f"{mesh.devices[0]}")
             device = mesh.devices[0]
         self.device = resolve_device(device)
         self.spec = spec or yolov3_spec(num_classes=cfg.num_classes)
@@ -176,6 +186,8 @@ class Trainer:
         if self.nproc > 1:
             self.step_fn = self._dist.shard_train_step_multiprocess(
                 self.step_fn, self._dist.global_mesh())
+        elif n_sp > 1:
+            self.step_fn = shard_spatial_train_step(self.step_fn, mesh)
         elif mesh is not None:
             self.step_fn = steps_mod.shard_train_step(self.step_fn, mesh)
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)

@@ -137,7 +137,26 @@ Phases (any failure exits non-zero; nothing is caught):
    checked one, on the host clock; (e) ``cli sweep --data_parallel 2``
    over two WSIs of phase 10's tiles: the one-device sweep's counts at the
    same batch a device;
-14. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
+14. spatial sharding (``parallel/spatial.py``), at the same width with the
+   weights of phase 6, at the tiles' native 1536² (no resize), float32 with
+   TF32 off, ``sp=2`` over cuda:0,1 (two entries on cuda:0 where there is
+   one card): (a) ``spatial_forward`` and ``spatial_detect`` (conf 0.8, NMS
+   0.4, capacity 64) on B=2 stain tiles against the unsharded forward on
+   the card: decoded predictions within rtol 1e-4 / atol 1e-5,
+   ``n_candidates`` and ``valid`` equal, dets within 1e-4
+   (``tests/test_spatial.py``'s bounds); ms a call and peak memory per
+   card; (b) the height-sharded train step at B=2, one apply, augment off,
+   against the one-device step: loss within ``DP_LOSS_RTOL``, parameters
+   within rtol 1e-4 / atol 2.05 lr, BN running statistics within
+   ``STEP_RTOL``; step ms (host clock, mean of ``DP_TIMED_STEPS`` after
+   the checked one) and peak memory per card of both; one bf16 sharded
+   step finite; (c) ``Trainer(spatial_shard=2)`` for one epoch of 2
+   batches of 2 augmented 1536² tiles: losses finite; (d) where there are
+   four cards, ``sp=4`` over cuda:0-3 at B=8: loss, step ms and peak
+   memory per card, and whether the unsharded B=8 step fits one card (an
+   out-of-memory error there is reported, not fatal; where it fits, its
+   loss within ``DP_LOSS_RTOL``); K1/K2/K3 launch 0/0/0 over the phase;
+15. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
@@ -2112,6 +2131,283 @@ def parallel_phase(spec, params, card: str, dev, size: int = 416, side: int = 15
     return record
 
 
+# --------------------------------------------------------------------------
+# phase 14: spatial sharding
+# --------------------------------------------------------------------------
+
+SP_B = 2                  # (a)-(c): the batch, at the tiles' native resolution
+SP_B4 = 8                 # (d): the reference recipe's batch, over four cards
+SP_DETECT = dict(conf_thres=0.8, nms_thres=0.4, capacity=64)  # spatial_detect's defaults
+# phase 6's random weights put no objectness at 0.8 (measured on the card):
+# the pipeline is also compared at 0.5, where the pool of 64 overflows
+SP_CONFS = (0.8, 0.5)
+SP_PRED_RTOL, SP_PRED_ATOL = 1e-4, 1e-5  # decoded predictions (tests/test_spatial.py:26)
+SP_DET_TOL = 1e-4         # dets, rtol and atol (tests/test_spatial.py:58-61)
+SP_TRAIN_SET = dict(n_train=4, n_valid=2)  # (c)
+
+
+def _reset_peaks(devices) -> None:
+    import torch
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
+
+
+def _peak_gib(devices) -> dict:
+    """``torch.cuda.max_memory_allocated`` of each card, GiB ({} on the CPU)."""
+    import torch
+    return {str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30
+            for d in dict.fromkeys(devices) if d.type == "cuda"}
+
+
+def _sync(devices) -> None:
+    import torch
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _free(devices) -> None:
+    import gc
+    import torch
+    gc.collect()
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+
+
+def _step_run(spec, params, dev, batch, size: int, mesh=None, dtype=None) -> dict:
+    """One float32 (or ``dtype``) train step, one apply, augment off, on
+    ``dev`` or height-sharded over ``mesh``: its loss, launches, parameters
+    after, peak memory per card, then ``DP_TIMED_STEPS`` more on the host
+    clock."""
+    import torch
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from amyloid_yolo_tpu_torch.parallel import spatial, steps
+    devices = list(mesh.devices) if mesh is not None else [dev]
+    _free(devices)
+    _reset_peaks(devices)
+    opt = steps.make_optimizer(DP_LR)
+    state = steps.init_train_state(params, opt, device=dev)
+    step = steps.make_train_step(spec, opt, augment=False,
+                                 compute_dtype=dtype or torch.float32)
+    if mesh is not None:
+        step = spatial.shard_spatial_train_step(step, mesh)
+    reset_launch_counts()
+    state, metrics = step(state, *batch, None, size)
+    loss = float(metrics["loss"])
+    _sync(devices)
+    rec = {"loss": loss, "launches": launch_counts(), "peak_gib": _peak_gib(devices),
+           "after": {k: v.detach().clone() for k, v in state.params.items()}}
+    if dtype is None:
+
+        def again():
+            nonlocal state
+            state, m = step(state, *batch, None, size)
+            float(m["loss"])
+
+        rec["step_ms"] = host_ms(again, DP_TIMED_STEPS, devices)
+    del state, opt, step
+    _free(devices)
+    return rec
+
+
+def spatial_phase(spec, params, card: str, dev, side: int = 1536) -> dict:
+    """Phase 14 (see the module docstring); returns its JSON record.  On the
+    CPU (a rehearsal with a mini spec and a small ``side``) the meshes are
+    CPU entries, memory is not read and (d) is left out;
+    ``torch.cuda.synchronize`` and ``cuda_ms`` then need host stand-ins."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from amyloid_yolo_tpu_torch.models import darknet, heads
+    from amyloid_yolo_tpu_torch.ops.nms import non_max_suppression
+    from amyloid_yolo_tpu_torch.ops.preprocess import RECIP_255
+    from amyloid_yolo_tpu_torch.parallel import spatial
+    from amyloid_yolo_tpu_torch.parallel.mesh import tree_to
+    from amyloid_yolo_tpu_torch.training import TrainConfig, Trainer
+    from amyloid_yolo_tpu_torch.utils.device import no_tf32
+
+    cuda = dev.type == "cuda"
+    n_cards = torch.cuda.device_count() if cuda else 0
+    pair = [torch.device("cuda", i) for i in range(2)] if n_cards >= 2 else [dev, dev]
+    mesh = spatial.make_spatial_mesh(2, devices=pair)
+    plan = spatial.row_plan(spec, side, 2)
+    rows = [int(n) for n in np.diff(plan.bounds)]
+    record = {"cards": n_cards, "mesh_devices": [str(d) for d in mesh.devices],
+              "side": side, "batch": SP_B, "coarsest_rows": rows}
+    print(f"phase 14 on {n_cards} card(s): sp=2 over {record['mesh_devices']}, {side}x{side} "
+          f"at B={SP_B}; the coarsest map's {sum(rows)} rows split {rows} (stride {plan.step})",
+          flush=True)
+    rng = np.random.RandomState(SEED + 14)
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # (a) spatial_forward and spatial_detect against the unsharded forward
+    folded = tree_to(darknet.fold_batchnorm(params, spec), dev)
+    tiles = torch.from_numpy(np.stack([stain_tile(rng, side, side) for _ in range(SP_B)])).to(dev)
+    x = tiles.to(torch.float32) * RECIP_255
+
+    def sharded_forward():
+        return spatial.spatial_forward(folded, spec, x, mesh)
+
+    def sharded_detect(conf_thres=SP_DETECT["conf_thres"]):
+        return spatial.spatial_detect(folded, spec, tiles, mesh,
+                                      **dict(SP_DETECT, conf_thres=conf_thres))
+
+    def one_forward():
+        with torch.no_grad(), no_tf32():
+            maps = darknet.apply_folded(folded, spec, x, compute_dtype=torch.float32)
+            return heads.decode_all(maps, spec, side)
+
+    _free(mesh.devices)
+    _reset_peaks(mesh.devices)
+    reset_launch_counts()
+    pred = sharded_forward()
+    detected = {t: sharded_detect(t) for t in SP_CONFS}
+    _sync(mesh.devices)
+    add(launch_counts())
+    sp_peak = _peak_gib(mesh.devices)
+    _free([dev])
+    _reset_peaks([dev])
+    ref = one_forward()
+    _sync([dev])
+    one_peak = _peak_gib([dev])
+    conf = ref[..., 4]
+    passing = {t: (conf >= t).sum(1).cpu().tolist() for t in (0.3, 0.5, 0.8, 0.9)}
+    diff = (pred - ref).abs()
+    pred_excess = float((diff - (SP_PRED_ATOL + SP_PRED_RTOL * ref.abs())).max())
+    nms = {}
+    for t, (dets, valid, ncand) in detected.items():
+        rd, rv, rn = non_max_suppression(ref, t, SP_DETECT["nms_thres"], SP_DETECT["capacity"],
+                                         return_count=True)
+        nms[t] = {"n_candidates": ncand.cpu().tolist(), "n_candidates_one": rn.cpu().tolist(),
+                  "valid": valid.sum(1).cpu().tolist(),
+                  "counts_equal": bool(torch.equal(ncand, rn)),
+                  "valid_equal": bool(torch.equal(valid, rv)),
+                  "det_excess": float(((dets - rd).abs() - SP_DET_TOL * (1 + rd.abs())).max()),
+                  "nearest_conf_to_thres": float((conf - t).abs().min())}
+    fwd_ms = cuda_ms(sharded_forward, iters=5, warmup=1, hold=False)
+    det_ms = cuda_ms(sharded_detect, iters=5, warmup=1, hold=False)
+    one_ms = cuda_ms(one_forward, iters=5, warmup=1, hold=False)
+    record["forward"] = {
+        "pred_shape": list(pred.shape), "max_abs_diff": float(diff.max()),
+        "pred_excess": pred_excess, "passing_by_conf": passing, "detect": nms,
+        "forward_ms": fwd_ms, "detect_ms": det_ms, "one_forward_ms": one_ms,
+        "peak_gib": sp_peak, "one_peak_gib": one_peak}
+    print(f"(a) spatial_forward f32 (TF32 off), {side}x{side} B={SP_B}, against the unsharded "
+          f"forward on {dev}: predictions {tuple(pred.shape)}, max|diff| {float(diff.max()):.4g} "
+          f"(tolerance rtol {SP_PRED_RTOL} atol {SP_PRED_ATOL}; worst excess {pred_excess:.3g}); "
+          f"rows at conf >= t, unsharded: {passing}; spatial_detect {SP_DETECT} at conf "
+          f"{list(SP_CONFS)} against the unsharded pipeline (n_candidates and valid equal, dets "
+          f"within rtol/atol {SP_DET_TOL}): {json.dumps(nms)}; ms a call (CUDA events, "
+          f"5 after 1, host included): spatial_forward {fwd_ms:.2f}, spatial_detect "
+          f"{det_ms:.2f}, unsharded forward {one_ms:.2f}; peak GiB {sp_peak} (unsharded "
+          f"{one_peak}) [{card}]", flush=True)
+    if pred_excess > 0 or not torch.isfinite(pred).all():
+        raise AssertionError("spatial_forward disagrees with the unsharded forward")
+    if not all(r["counts_equal"] and r["valid_equal"] and r["det_excess"] <= 0
+               for r in nms.values()):
+        raise AssertionError("spatial_detect disagrees with the unsharded pipeline")
+    del folded, pred, ref, detected, x
+
+    # (b) the height-sharded train step against the one-device step
+    batch = train_batch(rng, SP_B, side)
+    one = _step_run(spec, params, dev, batch, side)
+    sp = _step_run(spec, params, dev, batch, side, mesh)
+    add(sp["launches"])
+    loss_rel = abs(sp["loss"] - one["loss"]) / abs(one["loss"])
+    close = _params_close(sp.pop("after"), one.pop("after"))
+    bf16 = _step_run(spec, params, dev, batch, side, mesh, torch.bfloat16)
+    bf16_finite = math.isfinite(bf16["loss"]) and all(
+        bool(torch.isfinite(v).all()) for v in bf16.pop("after").values()
+        if v.is_floating_point())
+    add(bf16["launches"])
+    per_image = {k: v / SP_B for k, v in one["peak_gib"].items()}
+    record["step"] = {"loss": sp["loss"], "loss_one": one["loss"], "loss_rel": loss_rel, **close,
+                      "step_ms": sp["step_ms"], "one_step_ms": one["step_ms"],
+                      "peak_gib": sp["peak_gib"], "one_peak_gib": one["peak_gib"],
+                      "one_peak_gib_per_image": per_image, "bf16_loss": bf16["loss"],
+                      "bf16_peak_gib": bf16["peak_gib"]}
+    print(f"(b) height-sharded train step over {record['mesh_devices']}, B={SP_B} at {side}, "
+          f"float32 with TF32 off, one apply: loss {sp['loss']} vs the one-device step "
+          f"{one['loss']} (rel {loss_rel:.3g}, tolerance {DP_LOSS_RTOL}); parameters within "
+          f"rtol 1e-4 / atol 2.05 lr (worst excess {close['param_worst_excess']}); BN running "
+          f"stats worst rel {close['stat_worst_rel']} (tolerance {STEP_RTOL}); the next "
+          f"{DP_TIMED_STEPS} steps {sp['step_ms']:.1f} ms each against {one['step_ms']:.1f} ms "
+          f"on one device (host clock, mean); peak GiB {sp['peak_gib']} against "
+          f"{one['peak_gib']} ({per_image} an image); bf16 sharded step loss {bf16['loss']}, "
+          f"parameters finite {bf16_finite}, peak GiB {bf16['peak_gib']} [{card}]", flush=True)
+    if loss_rel > DP_LOSS_RTOL or not bf16_finite:
+        raise AssertionError("the height-sharded train step disagrees with the one-device step")
+
+    # (c) Trainer(spatial_shard=2): one short epoch on synthetic tiles
+    root = tempfile.mkdtemp(prefix="phase14_")
+    try:
+        data = write_train_set(root, SEED + 14, side=side, **SP_TRAIN_SET)
+        cfg = TrainConfig(data_config=data, epochs=1, batch_size=SP_B, gradient_accumulations=1,
+                          img_size=side, multiscale=False, augment=True, spatial_shard=2,
+                          learning_rate=TRAIN_LR, evaluation_interval=0,
+                          checkpoint_dir=os.path.join(root, "ckpts"),
+                          logdir=os.path.join(root, "logs"))
+        tr = Trainer(cfg, spec=spec, device=",".join(str(d) for d in mesh.devices))
+        losses = []
+        t0 = time.perf_counter()
+        tr.train(callback=lambda epoch, bi, m: losses.append(m["loss"]))
+        wall = time.perf_counter() - t0
+        losses = torch.stack(losses).cpu().tolist()
+        want_steps = SP_TRAIN_SET["n_train"] // SP_B
+        record["trainer"] = {"losses": losses, "step": tr.state.step, "seen": tr.state.seen,
+                             "wall_s": wall, "checkpoints": sorted(os.listdir(cfg.checkpoint_dir))}
+        print(f"(c) Trainer(spatial_shard=2, device={','.join(record['mesh_devices'])}), one "
+              f"epoch of {want_steps} batches of {SP_B} at {side}, augment on: losses "
+              f"{losses}, step {tr.state.step}, seen {tr.state.seen}, {wall:.2f} s with the "
+              f"checkpoint [{card}]", flush=True)
+        if len(losses) != want_steps or not all(math.isfinite(l) for l in losses) \
+                or tr.state.step != want_steps:
+            raise AssertionError("the spatially sharded Trainer did not train")
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) four cards: sp=4 at the reference recipe's batch
+    if n_cards >= 4:
+        mesh4 = spatial.make_spatial_mesh(4)
+        batch8 = train_batch(rng, SP_B4, side)
+        sp4 = _step_run(spec, params, dev, batch8, side, mesh4)
+        add(sp4["launches"])
+        sp4.pop("after")
+        probe = {}
+        try:
+            one8 = _step_run(spec, params, dev, batch8, side)
+            one8.pop("after")
+            probe = {"fits": True, "peak_gib": one8["peak_gib"], "step_ms": one8["step_ms"],
+                     "loss": one8["loss"],
+                     "loss_rel": abs(sp4["loss"] - one8["loss"]) / abs(one8["loss"])}
+        except torch.cuda.OutOfMemoryError as e:
+            probe = {"fits": False, "error": str(e).splitlines()[0]}
+        _free([dev])
+        record["four_cards"] = {"mesh_devices": [str(d) for d in mesh4.devices],
+                                "loss": sp4["loss"], "step_ms": sp4["step_ms"],
+                                "peak_gib": sp4["peak_gib"], "unsharded_b8": probe}
+        print(f"(d) sp=4 over {record['four_cards']['mesh_devices']}, B={SP_B4} at {side}, f32: "
+              f"loss {sp4['loss']}, the next {DP_TIMED_STEPS} steps {sp4['step_ms']:.1f} ms "
+              f"each (host clock, mean); peak GiB a card {sp4['peak_gib']} (the unsharded B="
+              f"{SP_B} step: {per_image} an image); the unsharded B={SP_B4} step on {dev}: "
+              f"{probe} [{card}]", flush=True)
+        if probe.get("fits") and probe["loss_rel"] > DP_LOSS_RTOL:
+            raise AssertionError("sp=4 and the unsharded B=8 step disagree")
+    record["launches"] = counts
+    print(f"phase 14 launches of K1/K2/K3 on the spatial path: {counts} (want 0 each)", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"the spatial path launched kernels: {counts}")
+    return record
+
+
 def drive(det, batches, want_counts: dict) -> None:
     """One Detector over the batches with the launch counters set to 0
     just before: the counts must be ``want_counts``, the outputs finite
@@ -2458,6 +2754,9 @@ def main() -> int:
     parallel = parallel_phase(spec, params, card, dev)
     mesh_rec = parallel["mesh_detector"]
 
+    # 14. spatial sharding
+    spatial = spatial_phase(spec, params, card, dev)
+
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
 
@@ -2477,7 +2776,8 @@ def main() -> int:
          "serving_launches": served["launches"]["resize_normalize"],
          "serving_dispatches": served["dispatches"],
          "mesh_launches": mesh_rec["launches"]["resize_normalize"],
-         "mesh_shards": mesh_rec["shards"]},
+         "mesh_shards": mesh_rec["shards"],
+         "spatial_launches": spatial["launches"].get("resize_normalize", 0)},
         {"name": "fused_residual_block", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/conv_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/conv_block.py:107",
@@ -2491,7 +2791,8 @@ def main() -> int:
          "serving_launches": served["launches"]["fused_residual_block"],
          "serving_dispatches": served["dispatches"],
          "mesh_launches": mesh_rec["launches"]["fused_residual_block"],
-         "mesh_shards": mesh_rec["shards"]},
+         "mesh_shards": mesh_rec["shards"],
+         "spatial_launches": spatial["launches"].get("fused_residual_block", 0)},
         {"name": "fused_residual_block_int8", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/int8_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/int8_block.py:150",
@@ -2503,13 +2804,15 @@ def main() -> int:
          "shape": "the 23 units of one B=8 batch", "stages": stages3,
          "stages_b32": k3_rows[32],
          "serving_launches": served["launches"]["fused_residual_block_int8"],
-         "serving_dispatches": served["dispatches"]},
+         "serving_dispatches": served["dispatches"],
+         "spatial_launches": spatial["launches"].get("fused_residual_block_int8", 0)},
     ]
     print(json.dumps({"detector": detector, "card": card}))
     print(json.dumps({"folder": folder, "card": card}))
     print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"parallel": parallel, "card": card}))
+    print(json.dumps({"spatial": spatial, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,6 +30,7 @@ import amyloid_yolo_tpu.detectors as jax_detectors_mod
 import amyloid_yolo_tpu.training as jax_training_mod
 import amyloid_yolo_tpu_torch.detectors as detectors_mod
 import amyloid_yolo_tpu_torch.evaluate as evaluate_mod
+import amyloid_yolo_tpu_torch.parallel.spatial as spatial_mod
 import amyloid_yolo_tpu_torch.training as training_mod
 from amyloid_yolo_tpu.cli import main as jax_cli
 from amyloid_yolo_tpu.io import weights as jax_weights
@@ -324,12 +325,34 @@ def test_model_commands_need_cuda_or_an_explicit_cpu(mini, tiny_dataset, tiles, 
             cli.main(argv)
 
 
-def test_unported_commands_raise(tmp_path):
+def test_unported_commands_raise(mini, tiny_dataset, tmp_path, monkeypatch):
+    """``bench`` still raises; ``train --spatial_shard`` (ported) trains one
+    batch height-sharded over two CPU entries and refuses ``--distributed``."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         cli.main(["bench"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cli.main(["train", "--data_config", str(tmp_path / "none.data"), "--spatial_shard",
-                  "2", "--device", "cpu"])
+    runs = []
+    real = spatial_mod.SpatialShards.run
+
+    def spy(self, *a, **kw):
+        runs.append(self.mesh.shape)
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(spatial_mod.SpatialShards, "run", spy)
+    argv = ["train", "--model_def", mini["cfg"], "--data_config",
+            str(tiny_dataset / "custom.data"), "--epochs", "1", "--batch_size", "2",
+            "--img_size", "64", "--multiscale_training", "False", "--max_batches_per_epoch",
+            "1", "--checkpoint_dir", str(tmp_path / "ck"), "--logdir", str(tmp_path / "logs"),
+            "--gradient_accumulations", "1", "--evaluation_interval", "0",
+            "--spatial_shard", "2", "--device", "cpu"]
+    assert cli.main(argv) == 0
+    assert runs == [{"dp": 1, "sp": 2}]
+    ck = torch.load(tmp_path / "ck" / "yolov3_ckpt_0.pt", weights_only=True)
+    assert (ck["step"], ck["seen"]) == (1, 2)
+    assert all(torch.isfinite(v).all() for v in ck["params"].values() if v.is_floating_point())
+    with pytest.raises(ValueError, match="spatial_shard does not compose with distributed"):
+        cli.main(argv + ["--distributed", "True", "--coordinator_address", "127.0.0.1:1",
+                         "--num_processes", "1", "--process_id", "0"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_clear(tmp_path):

@@ -30,6 +30,7 @@ from amyloid_yolo_tpu.io import weights as jax_weights
 from amyloid_yolo_tpu.ops import metrics as jax_metrics
 from amyloid_yolo_tpu_torch.evaluate import evaluate
 from amyloid_yolo_tpu_torch.io import weights
+from amyloid_yolo_tpu_torch.io.datasets import ListDataset
 from amyloid_yolo_tpu_torch.io.weights import params_from_jax
 from amyloid_yolo_tpu_torch.ops import metrics
 from amyloid_yolo_tpu_torch.parallel import steps
@@ -244,9 +245,27 @@ def test_entry_points_default_to_cuda(tiny_dataset, tmp_path):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 Trainer(ddp, spec=port_mini_spec(), device=device)
         assert not torch.distributed.is_initialized()
-    bad = TrainConfig(data_config=str(tiny_dataset / "custom.data"), spatial_shard=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Trainer(bad, spec=port_mini_spec(), device="cpu")
+    # spatial_shard is ported: with device="cpu" its mesh is CPU entries, and
+    # a step through it trains; it refuses distributed before joining a group
+    sp = TrainConfig(data_config=str(tiny_dataset / "custom.data"), spatial_shard=2,
+                     logdir=str(tmp_path / "logs"), augment=False,
+                     gradient_accumulations=1)
+    tr = Trainer(sp, spec=port_mini_spec(), device="cpu")
+    assert tr.device.type == "cpu"
+    batch = next(iter(ListDataset(tr.train_path, img_size=64, multiscale=False,
+                                  augment=False).iter_epoch(2)))
+    state, m = tr.step_fn(tr.state, batch["images"], batch["targets"], batch["target_mask"],
+                          tr.rng, 64)
+    assert np.isfinite(float(m["loss"])) and state.step == 1
+    # device may list the mesh's entries (two shards on one card: "cuda:0,cuda:0")
+    assert Trainer(sp, spec=port_mini_spec(), device="cpu,cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="requested 2 devices, listed 3"):
+        Trainer(sp, spec=port_mini_spec(), device=["cpu"] * 3)
+    with pytest.raises(ValueError, match="does not compose with distributed"):
+        Trainer(TrainConfig(data_config=str(tiny_dataset / "custom.data"), spatial_shard=2,
+                            distributed=True, logdir=str(tmp_path / "logs")),
+                spec=port_mini_spec(), device="cpu")
+    assert not torch.distributed.is_initialized()
     # data_parallel is ported: with device="cpu" its mesh is CPU entries
     dp = TrainConfig(data_config=str(tiny_dataset / "custom.data"), data_parallel=2,
                      logdir=str(tmp_path / "logs"))

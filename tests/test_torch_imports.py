@@ -16,8 +16,8 @@ TRAINING_MODULES = ("ops.boxes", "models.heads", "ops.targets", "ops.loss", "mod
 # the serving path and the CLI's modules
 SERVING_MODULES = ("serving", "cli", "cli.main", "io.tiles", "analysis", "analysis.validation",
                    "domain")
-# data parallelism: the mesh and the multi-process step
-PARALLEL_MODULES = ("parallel.mesh", "parallel.distributed")
+# data and spatial parallelism: the mesh, the multi-process step, height sharding
+PARALLEL_MODULES = ("parallel.mesh", "parallel.distributed", "parallel.spatial")
 SCRIPTS = ("chip_smoke", "bench_k2")  # the port's scripts at the repo root
 
 
