@@ -1,5 +1,6 @@
-"""Analysis layer of the port: the whole-slide sweep
-(:mod:`.validation`).  The plots, the prospective study, the data checks
-and the CERAD statistics are not ported yet (ROADMAP.md)."""
+"""Analysis layer of the port: the whole-slide sweep, the CERAD statistics
+and the speed check (:mod:`.validation`), the prospective study
+(:mod:`.prospective`), its figures (:mod:`.plots`) and the checks of the
+study data (:mod:`.data_checks`)."""
 
-from . import validation  # noqa: F401
+from . import plots, prospective, validation  # noqa: F401

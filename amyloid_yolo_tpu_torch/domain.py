@@ -1,19 +1,28 @@
-"""Domain layer: the consensus-model CAA filter and the helpers of the CLI.
+"""Domain layer: the study metrics, the consensus-model CAA filter, the
+weak-label maps and the helpers of the CLI.
 
 Counterpart of the reference package's ``domain.py``:
 
+* :func:`iou_xyxy` (alias :data:`IOU`), :func:`get_accuracy` and
+  :func:`get_tps` (its ``:39-95``), the study metrics of the original
+  ``core.py:497-571``, host Python like the reference's;
 * :class:`CAAFilter`, :func:`_crop` (its ``:102-197``), which reproduce the
   original ``filterDetectionsByCAAModel`` (``core.py:425-452``) with one
   resident classifier and one batched call per tile;
 * :func:`write_caa_detections` (its ``:200``), the original
   ``writeCAADetectionsToPickle`` (``core.py:454-480``) with its centre
   quirk: centres are (x2-x1)/2, relative to the box, not absolute;
+* :func:`pre_process` and :func:`filter_map_to_get_cored_or_caa` (its
+  ``:228``, ``:272``), the weak-label maps of ``core.py:25-78, 223-246``;
+  weak labels come from :meth:`CAAFilter.predict_crops` on its device;
 * :func:`draw_bboxes` and :func:`draw_detections` (its ``:297``, ``:330``),
   PIL rendering pixel-equal to the reference package's;
-* :func:`wsis_with_most_caas` (its ``:396``) and :func:`clear_output_dir`
-  (its ``:429``, the original ``clear.py``).
-
-The study metrics and the weak-label maps are not ported yet (ROADMAP.md).
+* :func:`seed_folder_from_list` and :func:`compare_premerge_with_postmerge`
+  (its ``:349``, ``:364``);
+* :func:`wsis_with_most_caas` (its ``:396``), :func:`device_memory_stats`
+  (its ``:411``, the original's ``nvidia-smi`` call, from torch's per-card
+  statistics here) and :func:`clear_output_dir` (its ``:429``, the original
+  ``clear.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +40,70 @@ from .io.native import decode_one
 from .models import classifier
 from .ops.preprocess import crop256_window, normalize_crops
 from .utils.device import DeviceLike, resolve_device
+
+
+# ---------------------------------------------------------------------------
+# Study metrics (core.py:497-571)
+# ---------------------------------------------------------------------------
+
+def iou_xyxy(boxA: Sequence[float], boxB: Sequence[float]) -> float:
+    """Scalar IoU with the +1-pixel convention (``core.py:497-518``)."""
+    xA = max(boxA[0], boxB[0])
+    yA = max(boxA[1], boxB[1])
+    xB = min(boxA[2], boxB[2])
+    yB = min(boxA[3], boxB[3])
+    inter = max(0, xB - xA + 1) * max(0, yB - yA + 1)
+    areaA = (boxA[2] - boxA[0] + 1) * (boxA[3] - boxA[1] + 1)
+    areaB = (boxB[2] - boxB[0] + 1) * (boxB[3] - boxB[1] + 1)
+    return inter / float(areaA + areaB - inter)
+
+
+# the original's spelling
+IOU = iou_xyxy
+
+
+def get_accuracy(l1: Sequence, l2: Sequence) -> float:
+    """Elementwise match rate of two equal-length lists (``core.py:520-525``)."""
+    assert len(l1) == len(l2)
+    return sum(1 for a, b in zip(l1, l2) if a == b) / float(len(l1))
+
+
+def get_tps(predictions: Sequence[Sequence[float]], labels: Sequence[Sequence[float]],
+            iou_threshold: float, pascal_voc_scheme: bool = True) -> List[int]:
+    """TP flags per prediction (``getTPs``, ``core.py:527-571``).
+
+    Predictions ``[x1, y1, x2, y2, conf, cls_conf, cls_pred]``, labels
+    ``[x1, y1, x2, y2, class]``; the class is the last entry of each.
+    Predictions are visited by confidence, highest first; under the
+    Pascal-VOC-2012 scheme each label justifies at most one TP.
+
+    The original sorts ascending, then reverses (``core.py:543-546``), so
+    predictions of equal confidence are visited in *reversed* order: the
+    later row claims a label first.  Labels equal by value count as one.
+    """
+    order = sorted(range(len(predictions)), key=lambda k: predictions[k][4])
+    order.reverse()
+    tp_labels: List = []
+    flag_by_index: Dict[int, int] = {}
+    for oi in order:
+        prediction = predictions[oi]
+        is_tp = False
+        for label in labels:
+            if label[-1] != prediction[-1]:
+                continue
+            if pascal_voc_scheme and _in(label, tp_labels):
+                continue
+            if iou_xyxy(prediction[0:4], label[0:4]) >= iou_threshold:
+                is_tp = True
+                tp_labels.append(label)
+                break
+        flag_by_index[oi] = 1 if is_tp else 0
+    return [flag_by_index[i] for i in range(len(predictions))]
+
+
+def _in(item, seq) -> bool:
+    """``item in seq`` of the original: identity, then equality."""
+    return any(item is x or item == x for x in seq)
 
 
 class CAAFilter:
@@ -144,6 +217,76 @@ def write_caa_detections(pickle_path: str, img_name: str, detections: np.ndarray
         pickle.dump(store, fh)
 
 
+# ---------------------------------------------------------------------------
+# Weak-label maps (core.py:25-78, 223-246)
+# ---------------------------------------------------------------------------
+
+def pre_process(image_details_csv: str, consensus_csv: str,
+                images_dir: str = "data/custom/images/",
+                weak_label: bool = False,
+                caa_filter: Optional[CAAFilter] = None) -> Dict[str, list]:
+    """``{1536² image path: [(bbox_xywh, (cored, diffuse, CAA)), ...]}``.
+
+    The human labels of the consensus-of-2 CSV take precedence; with
+    ``weak_label=True`` and a ``caa_filter``, the other boxes get the
+    classifier's probabilities, one crop a box through
+    :meth:`CAAFilter.predict_crops` on the filter's device
+    (``core.py:25-78``).  pandas is imported here, not with the module.
+    """
+    import pandas as pd
+
+    consensus = pd.read_csv(consensus_csv)
+    mapp: Dict[str, tuple] = {}
+    for _, row in consensus.iterrows():
+        full = row["imagename"]
+        img_name = full[full.find("/") + 1:]
+        mapp[img_name] = (int(row["cored"]), int(row["diffuse"]), int(row["CAA"]))
+
+    df = pd.read_csv(image_details_csv)
+    final_mapp: Dict[str, list] = {}
+    for _, row in df.iterrows():
+        img_path_1536 = (images_dir + row["source"] + "_0_" + str(row["tile_row"])
+                         + "_" + str(row["tile_column"]) + ".jpg")
+        bbox_coord = row["blob coordinates (xywh)"]
+        bbox_coord = bbox_coord.replace("[", "").replace("]", "").split(" ")
+        bbox_coord = [int(x) for x in bbox_coord if x != ""]
+        if row["imagename"] in mapp:
+            label = mapp[row["imagename"]]
+        elif weak_label and caa_filter is not None:
+            img = load_image_rgb(img_path_1536)
+            crop = _crop(img, np.array(bbox_coord[:2] + [
+                bbox_coord[0] + bbox_coord[2], bbox_coord[1] + bbox_coord[3],
+            ], float))
+            probs = caa_filter.predict_crops(crop[None])[0]
+            label = tuple(float(p) for p in probs)
+        else:
+            continue
+        final_mapp.setdefault(img_path_1536, []).append((bbox_coord, label))
+    return final_mapp
+
+
+def filter_map_to_get_cored_or_caa(mapp: Dict[str, list], just_CAA: bool = False,
+                                   just_Cored: bool = False) -> Dict[str, list]:
+    """The images of a weak-label map with a cored or CAA label (>= 0.5),
+    or with just one of them (``core.py:223-246``)."""
+    new_mapp = {}
+    for img, pairs in mapp.items():
+        for _, preds in pairs:
+            has_cored = preds[0] >= 0.5
+            has_caa = preds[2] >= 0.5
+            if just_CAA == just_Cored:
+                if has_cored or has_caa:
+                    new_mapp[img] = pairs
+                    break
+            elif just_CAA and has_caa:
+                new_mapp[img] = pairs
+                break
+            elif just_Cored and has_cored:
+                new_mapp[img] = pairs
+                break
+    return new_mapp
+
+
 def draw_bboxes(img: np.ndarray, bbox_class_preds, color_by_class: bool = False) -> np.ndarray:
     """Draw ``(bbox_xywh, (cored, diffuse, CAA))`` entries on an RGB array
     (the original ``drawBBox``, ``core.py:602-633``, in PIL): entries with
@@ -190,6 +333,53 @@ def draw_detections(img: np.ndarray, detections: np.ndarray,
     return np.asarray(im)
 
 
+def seed_folder_from_list(list_path: str, dest_dir: str) -> None:
+    """Copy the images a train or valid list names into a fresh flat folder
+    (the original's ``seedTestFolder``/``seedTrainFolder``,
+    ``core.py:80-106``, as one function)."""
+    if os.path.isdir(dest_dir):
+        shutil.rmtree(dest_dir)
+    os.makedirs(dest_dir)
+    with open(list_path) as fh:
+        for line in fh.read().splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            shutil.copy(line, os.path.join(dest_dir, os.path.basename(line)))
+
+
+def compare_premerge_with_postmerge(premerge: Dict[str, list],
+                                    postmerge: Dict[str, list],
+                                    output_dir: str = "output",
+                                    sample_size: int = 100,
+                                    seed: int = 0) -> None:
+    """Render pre- and post-merge label maps of the same images into
+    ``<output_dir>/premerge`` and ``/postmerge``
+    (``comparePreMergeLabelsWithPostMerge``, ``core.py:573-600``): images
+    with a CAA label only, ``sample_size`` of them in an order shuffled by
+    ``seed``, boxes drawn uncoloured."""
+    import random as _random
+
+    from PIL import Image
+
+    assert set(premerge.keys()) == set(postmerge.keys())
+    pre = filter_map_to_get_cored_or_caa(premerge, just_CAA=True)
+    post = filter_map_to_get_cored_or_caa(postmerge, just_CAA=True)
+    images = list(pre.keys())
+    _random.Random(seed).shuffle(images)
+    images = images[:sample_size]
+    for mapp, l_type in [(pre, "premerge"), (post, "postmerge")]:
+        save_dir = os.path.join(output_dir, l_type)
+        os.makedirs(save_dir, exist_ok=True)
+        for img_name in images:
+            if img_name not in mapp:
+                continue
+            img = load_image_rgb(img_name)
+            annotated = draw_bboxes(img, mapp[img_name], color_by_class=False)
+            save_name = l_type + "_" + img_name.replace("/", "_")
+            Image.fromarray(annotated).save(os.path.join(save_dir, save_name))
+
+
 def wsis_with_most_caas(counts_pickle: str, n: int = 12) -> List[str]:
     """The ``n`` WSIs with the most CAA of a plaque-counts pickle.  The
     original calls ``getWSIsWithMostCAAs(n=12)`` (``validation.py:79``)
@@ -201,6 +391,30 @@ def wsis_with_most_caas(counts_pickle: str, n: int = 12) -> List[str]:
     return [wsi for wsi, _ in ranked[:n]]
 
 
+def device_memory_stats(devices: Optional[Sequence[DeviceLike]] = None
+                        ) -> Dict[int, Dict[str, int]]:
+    """``{i: {"bytes_in_use", "bytes_limit"}}`` for each device, in place of
+    the original's ``nvidia-smi`` call (``core.py:482-495``).
+
+    A card reports ``torch.cuda.memory_allocated`` and the card's total
+    memory (``torch.cuda.mem_get_info``); a CPU device reports zeros, as the
+    reference package's CPU devices do.  ``devices`` defaults to every card,
+    and then raises without one, as :func:`~.utils.device.resolve_device`
+    does."""
+    if devices is None:
+        resolve_device("cuda")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    out = {}
+    for i, d in enumerate(devices):
+        dev = resolve_device(d)
+        if dev.type == "cuda":
+            out[i] = {"bytes_in_use": int(torch.cuda.memory_allocated(dev)),
+                      "bytes_limit": int(torch.cuda.mem_get_info(dev)[1])}
+        else:
+            out[i] = {"bytes_in_use": 0, "bytes_limit": 0}
+    return out
+
+
 def clear_output_dir(path: str = "output/") -> None:
     """Reset an output directory (the original ``clear.py``)."""
     if os.path.isdir(path):
@@ -208,5 +422,10 @@ def clear_output_dir(path: str = "output/") -> None:
     os.makedirs(path, exist_ok=True)
 
 
-__all__ = ["CAAFilter", "write_caa_detections", "draw_bboxes", "draw_detections",
-           "wsis_with_most_caas", "clear_output_dir"]
+__all__ = [
+    "iou_xyxy", "IOU", "get_accuracy", "get_tps", "CAAFilter",
+    "write_caa_detections", "pre_process", "filter_map_to_get_cored_or_caa",
+    "draw_bboxes", "draw_detections", "device_memory_stats", "clear_output_dir",
+    "seed_folder_from_list", "compare_premerge_with_postmerge",
+    "wsis_with_most_caas",
+]

@@ -27,6 +27,16 @@ def xywh2xyxy_np(x: np.ndarray) -> np.ndarray:
     return y
 
 
+def xyxy2xywh_np(x: np.ndarray) -> np.ndarray:
+    """(x1, y1, x2, y2) → (cx, cy, w, h), numpy."""
+    y = np.zeros_like(x)
+    y[..., 0] = (x[..., 0] + x[..., 2]) / 2
+    y[..., 1] = (x[..., 1] + x[..., 3]) / 2
+    y[..., 2] = x[..., 2] - x[..., 0]
+    y[..., 3] = x[..., 3] - x[..., 1]
+    return y
+
+
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
     """Elementwise xyxy IoU with the +1-pixel area convention; broadcasts
     over leading dims."""
@@ -108,5 +118,5 @@ def rescale_from_tile_frame(dets: np.ndarray, tile_size: int,
     return out
 
 
-__all__ = ["xywh2xyxy", "xywh2xyxy_np", "bbox_iou", "bbox_iou_np", "bbox_wh_iou",
-           "rescale_boxes", "rescale_from_tile_frame"]
+__all__ = ["xywh2xyxy", "xywh2xyxy_np", "xyxy2xywh_np", "bbox_iou", "bbox_iou_np",
+           "bbox_wh_iou", "rescale_boxes", "rescale_from_tile_frame"]

@@ -155,8 +155,31 @@ Phases (any failure exits non-zero; nothing is caught):
    four cards, ``sp=4`` over cuda:0-3 at B=8: loss, step ms and peak
    memory per card, and whether the unsharded B=8 step fits one card (an
    out-of-memory error there is reported, not fatal; where it fits, its
-   loss within ``DP_LOSS_RTOL``); K1/K2/K3 launch 0/0/0 over the phase;
-15. one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
+   loss within ``DP_LOSS_RTOL``); K1/K2/K3 launch 0/0/0 over the phase.
+   (a) first raises the objectness biases of the three head convs by one
+   constant (:func:`raise_objectness`), so that ``SP_OBJ_SHARE`` of the
+   unsharded forward's rows pass conf 0.8, and both confs must compare a
+   nonzero number of candidates;
+15. the study path (``analysis/prospective.py``, ``plots.py``,
+   ``validation.speed_check``, ``domain.pre_process``), at the same width
+   with the weights of phase 6, the bf16 ``Detector`` at conf 0.3 and NMS
+   0.4 and phase 10's random CAA filter, on a folder like phase 10's:
+   (a) ``run_model_on_validation_images`` at B=8 with merge and filter:
+   K1/K2/K3 launch 1/23/0 per batch, the pickle equal to
+   ``recompute_folder``'s rows, wall and tiles/s of two runs; (b) annotator
+   sets made from those predictions (:func:`study_annotators`): the TPs at
+   IoU 0.5 equal the rows NP1 copies, the interrater agreement of NP1 and
+   NP2 is 1.0 for each class present; where pandas is installed the PRC
+   tables at IoU 0.1-0.9, precision 1.0 on the copied images and the AP
+   maps (sklearn's branch or the numpy one); the PIL overlays, and the
+   matplotlib figures where it is installed; (c) ``speed_check`` at B=1
+   and 8 over a two-WSI tree of the folder's tiles: every tile counted,
+   model time, down time and seconds a tile; (d) ``pre_process(weak_label=
+   True)`` on a synthetic CSV pair, the filter on the card within
+   ``PREPROCESS_TOL`` of the CPU; (e) ``examples/run_study_torch.py
+   --synthetic`` in a process of its own: exit 0 and its five stages;
+16. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
+   every path above), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
@@ -2138,9 +2161,13 @@ def parallel_phase(spec, params, card: str, dev, size: int = 416, side: int = 15
 SP_B = 2                  # (a)-(c): the batch, at the tiles' native resolution
 SP_B4 = 8                 # (d): the reference recipe's batch, over four cards
 SP_DETECT = dict(conf_thres=0.8, nms_thres=0.4, capacity=64)  # spatial_detect's defaults
-# phase 6's random weights put no objectness at 0.8 (measured on the card):
-# the pipeline is also compared at 0.5, where the pool of 64 overflows
+# phase 6's random weights put no objectness at 0.8 (0 candidates, measured on
+# the card), so (a) raises the three head convs' objectness biases by one
+# constant, chosen from the unsharded forward's objectness logits so that
+# SP_OBJ_SHARE of the rows pass 0.8; the pipeline is also compared at 0.5,
+# where the pool of 64 overflows
 SP_CONFS = (0.8, 0.5)
+SP_OBJ_SHARE = 0.005
 SP_PRED_RTOL, SP_PRED_ATOL = 1e-4, 1e-5  # decoded predictions (tests/test_spatial.py:26)
 SP_DET_TOL = 1e-4         # dets, rtol and atol (tests/test_spatial.py:58-61)
 SP_TRAIN_SET = dict(n_train=4, n_valid=2)  # (c)
@@ -2213,6 +2240,31 @@ def _step_run(spec, params, dev, batch, size: int, mesh=None, dtype=None) -> dic
     return rec
 
 
+def raise_objectness(folded, spec, maps, share: float, conf: float):
+    """Add one constant to the objectness bias (channel 4 of each anchor's
+    5 + C) of the head conv before each ``yolo`` layer of the folded weights,
+    in place: the constant that puts ``share`` (within a quarter of it) of
+    the rows of the head maps ``maps`` (the forward of ``folded`` as given)
+    above ``conf``, the threshold halfway across the widest gap between
+    two consecutive objectness logits there, so that no row sits near it.
+    Returns the constant."""
+    import torch
+    from amyloid_yolo_tpu_torch.graphspec import ConvSpec
+    nch = 5 + spec.num_classes
+    logits = torch.cat([m.reshape(-1, nch)[:, 4].float() for m in maps])
+    k0 = max(4, int(share * logits.numel()))
+    top = torch.topk(logits, k0 + k0 // 4 + 1).values  # descending
+    lo = k0 - k0 // 4
+    k = lo + int(torch.argmax(top[lo - 1:-1] - top[lo:]))  # top[k - 1] passes, top[k] not
+    shift = math.log(conf / (1 - conf)) - float(top[k - 1] + top[k]) / 2
+    for i in spec.yolo_indices:
+        head = spec.layers[i - 1]
+        if not isinstance(head, ConvSpec) or head.batch_normalize:
+            raise AssertionError(f"layer {i - 1} before yolo layer {i} is not a head conv")
+        folded[f"conv_{i - 1}"]["b"][4::nch] += shift
+    return shift
+
+
 def spatial_phase(spec, params, card: str, dev, side: int = 1536) -> dict:
     """Phase 14 (see the module docstring); returns its JSON record.  On the
     CPU (a rehearsal with a mini spec and a small ``side``) the meshes are
@@ -2247,10 +2299,19 @@ def spatial_phase(spec, params, card: str, dev, side: int = 1536) -> dict:
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
 
-    # (a) spatial_forward and spatial_detect against the unsharded forward
+    # (a) spatial_forward and spatial_detect against the unsharded forward,
+    # with objectness biases that put SP_OBJ_SHARE of the rows at conf 0.8
     folded = tree_to(darknet.fold_batchnorm(params, spec), dev)
     tiles = torch.from_numpy(np.stack([stain_tile(rng, side, side) for _ in range(SP_B)])).to(dev)
     x = tiles.to(torch.float32) * RECIP_255
+    with torch.no_grad(), no_tf32():
+        maps = darknet.apply_folded(folded, spec, x, compute_dtype=torch.float32)
+    shift = raise_objectness(folded, spec, maps, SP_OBJ_SHARE, SP_DETECT["conf_thres"])
+    del maps
+    record["objectness_shift"] = shift
+    print(f"(a) objectness biases of the head convs raised by {shift:.4f}, so that "
+          f"{SP_OBJ_SHARE} of the unsharded forward's rows pass conf "
+          f"{SP_DETECT['conf_thres']}", flush=True)
 
     def sharded_forward():
         return spatial.spatial_forward(folded, spec, x, mesh)
@@ -2313,6 +2374,9 @@ def spatial_phase(spec, params, card: str, dev, side: int = 1536) -> dict:
     if not all(r["counts_equal"] and r["valid_equal"] and r["det_excess"] <= 0
                for r in nms.values()):
         raise AssertionError("spatial_detect disagrees with the unsharded pipeline")
+    if not all(sum(r["n_candidates_one"]) > 0 for r in nms.values()):
+        raise AssertionError(f"a conf of {list(SP_CONFS)} has no candidates: the comparison "
+                             "there is empty")
     del folded, pred, ref, detected, x
 
     # (b) the height-sharded train step against the one-device step
@@ -2405,6 +2469,287 @@ def spatial_phase(spec, params, card: str, dev, side: int = 1536) -> dict:
     print(f"phase 14 launches of K1/K2/K3 on the spatial path: {counts} (want 0 each)", flush=True)
     if any(counts.values()):
         raise AssertionError(f"the spatial path launched kernels: {counts}")
+    return record
+
+
+# --------------------------------------------------------------------------
+# phase 15: the study path
+# --------------------------------------------------------------------------
+
+STUDY_CONF = 0.3           # random weights put no detection at the reference's 0.8
+STUDY_B = 8                # (a) the validation run's batch
+STUDY_SPEED_BATCHES = (1, 8)  # (c) speed_check's batches
+STUDY_JITTER = 2           # (b) NP2: NP1's boxes moved by at most this many pixels
+STUDY_IOU = 0.5            # (b) the TP, precision and interrater checks
+PREPROCESS_TOL = 1e-4      # (d) weak labels, card vs CPU float32
+STUDY_LIBS = ("pandas", "matplotlib", "sklearn")
+
+
+def _prediction_entries(dets, classes=("CAA", "Cored")) -> list:
+    """(N, 7) rows as the predictions pickle holds them
+    (``run_model_on_validation_images``)."""
+    return [({"x1": float(r[0]), "x2": float(r[2]), "y1": float(r[1]), "y2": float(r[3]),
+              "conf": float(r[4]), "cls_conf": float(r[5]), "cls_pred": float(r[6])},
+             classes[int(r[6])]) for r in dets]
+
+
+def study_annotators(preds, seed: int) -> tuple:
+    """Annotator sets built from the predictions: NP1 an exact copy of the
+    boxes of the first half of the images (class from ``cls_pred``), empty on
+    the rest; NP2 NP1 moved by at most ``STUDY_JITTER`` px; NP3 NP2 emptied
+    on two of the copied images.  Returns (sets, copied image names)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    names = sorted(preds)
+    copied = names[: len(names) // 2]
+    np1 = {n: ([({k: d[k] for k in ("x1", "y1", "x2", "y2")}, ("CAA", "Cored")[int(d["cls_pred"])])
+                for d, _ in preds[n]] if n in copied else []) for n in names}
+    np2 = {n: [({k: v + int(rng.randint(-STUDY_JITTER, STUDY_JITTER + 1)) for k, v in d.items()},
+                c) for d, c in e] for n, e in np1.items()}
+    emptied = [n for n in copied if np1[n]][:2]
+    np3 = {n: ([] if n in emptied else e) for n, e in np2.items()}
+    return {"NP1": np1, "NP2": np2, "NP3": np3}, copied
+
+
+def write_study_csvs(root: str, tiles, seed: int) -> str:
+    """The two CSVs of ``pre_process`` over ``tiles`` (hard-linked under
+    ``root/images`` with the names it builds): 12 boxes, 4 of them labelled
+    in the consensus CSV.  Returns the images directory."""
+    import numpy as np
+    import pandas as pd
+    rng = np.random.RandomState(seed)
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    names = []
+    for k, src in enumerate(tiles):
+        names.append((f"S{k}", k, 2 * k + 1))
+        os.link(src, os.path.join(images, f"S{k}_0_{k}_{2 * k + 1}.jpg"))
+    details, consensus = [], []
+    for k in range(12):
+        source, r, c = names[k % len(names)]
+        x, y = rng.randint(0, 1400, 2)
+        w, h = rng.randint(20, 200, 2)
+        name = f"{source}/blob_{k}.jpg"
+        details.append({"imagename": name, "source": source, "tile_row": r, "tile_column": c,
+                        "blob coordinates (xywh)": f"[{x} {y} {w} {h}]"})
+        if k % 3 == 0:
+            consensus.append({"imagename": f"set/{name}", "cored": k % 2, "diffuse": 1,
+                              "CAA": 1 - k % 2})
+    pd.DataFrame(details).to_csv(os.path.join(root, "details.csv"), index=False)
+    pd.DataFrame(consensus).to_csv(os.path.join(root, "consensus.csv"), index=False)
+    return images + "/"
+
+
+def study_phase(spec, params, card: str, dev, size: int = 416, folder_kw=None) -> dict:
+    """Phase 15 (see the module docstring); returns its JSON record.
+    ``size`` and ``folder_kw`` cut it down for a rehearsal on the CPU, where
+    ``torch.cuda.synchronize`` needs a host stand-in and the launch counts
+    are 0."""
+    import importlib.util
+    import pickle
+
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.analysis import plots, prospective
+    from amyloid_yolo_tpu_torch.analysis.validation import speed_check
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    from amyloid_yolo_tpu_torch.domain import CAAFilter, get_tps, pre_process
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from amyloid_yolo_tpu_torch.models import classifier
+
+    cuda = dev.type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    libs = {m: importlib.util.find_spec(m) is not None for m in STUDY_LIBS}
+    print(f"phase 15, the study path: host libraries found {libs}", flush=True)
+    record = {"libraries": libs}
+    det = Detector(spec, params, conf_thres=STUDY_CONF, nms_thres=0.4, model_size=size,
+                   device=dev)
+    cparams = classifier.from_jax_params(random_classifier_params(SEED))
+    caa = CAAFilter(cparams, device=dev)
+    folder_kw = dict(FOLDER, **(folder_kw or {}))
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "images")
+        os.makedirs(folder)
+        readable, *_ = write_folder(folder, SEED + 15, **folder_kw)
+
+        # (a) the predictions, through Detector.detect_folder
+        n_batches = -(-len(readable) // STUDY_B)
+        pkl = os.path.join(tmp, "pickles", "prospective_validation_predictions.pkl")
+        walls = []
+        for run in range(2):
+            reset_launch_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                preds = prospective.run_model_on_validation_images(
+                    det, folder, pkl, caa_filter=caa, merge=True, batch_size=STUDY_B)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            if run == 0:
+                counts = launch_counts()
+        with open(pkl, "rb") as fh:
+            stored = pickle.load(fh)
+        with contextlib.redirect_stdout(io.StringIO()):
+            want, _, _ = recompute_folder(det, folder, STUDY_B, caa)
+        want = {os.path.basename(p): ([] if d is None else _prediction_entries(d))
+                for p, d in want.items()}
+        n_rows = sum(len(v) for v in preds.values())
+        record["predictions"] = {"tiles": len(readable), "batches": n_batches, "rows": n_rows,
+                                 "launches": counts, "wall_s": walls,
+                                 "tiles_per_s": [len(readable) / w for w in walls]}
+        print(f"(a) run_model_on_validation_images over {len(readable)} tiles at B={STUDY_B} "
+              f"(merge, CAA filter; conf {STUDY_CONF}): {n_rows} rows in {len(preds)} images; "
+              f"launches {counts} over {n_batches} batches; wall {[round(w, 3) for w in walls]} "
+              f"s = {[round(len(readable) / w, 1) for w in walls]} tiles/s (the first run "
+              f"checked, host clock) [{card}]", flush=True)
+        want_counts = {"resize_normalize": n_batches if cuda else 0,
+                       "fused_residual_block": 23 * n_batches if cuda else 0,
+                       "fused_residual_block_int8": 0}
+        if counts != want_counts:
+            raise AssertionError(f"the study path launched {counts}, want {want_counts}")
+        if stored != preds or preds != want:
+            raise AssertionError("the predictions pickle differs from detect_folder's "
+                                 "explicit recomputation")
+        if n_rows == 0 or sorted(preds) != sorted(os.path.basename(p) for p in readable):
+            raise AssertionError("the study's predictions are empty or miss an image")
+
+        # (b) the analysis, on annotator sets with known content
+        by_np, copied = study_annotators(preds, SEED + 15)
+        n_copied = sum(len(by_np["NP1"][n]) for n in copied)
+        flags = {n: get_tps([[d["x1"], d["y1"], d["x2"], d["y2"], d["conf"], d["cls_conf"],
+                               d["cls_pred"]] for d, _ in preds[n]],
+                              [[d["x1"], d["y1"], d["x2"], d["y2"], int(c == "Cored")]
+                               for d, c in by_np["NP1"][n]], STUDY_IOU) for n in preds}
+        n_tp = sum(sum(f) for f in flags.values())
+        pair = prospective.get_interrater_agreement(by_np, STUDY_IOU)[("NP1", "NP2")]
+        present = {c for e in by_np["NP1"].values() for _, c in e}
+        consensus = prospective.create_merged_or_consensus_benchmark(by_np, "consensus",
+                                                                     STUDY_IOU)
+        relative = prospective.get_precisions_of_annotators_relative_to_each_other(
+            by_np, iou_thresholds=[STUDY_IOU])
+        record["analysis"] = {"copied_rows": n_copied, "tp_at_0.5": n_tp,
+                              "interrater_np1_np2": pair,
+                              "consensus_rows": sum(len(v) for v in consensus.values()),
+                              "relative_precision": {c: relative[c]["NP1"]["NP2"][STUDY_IOU]
+                                                     for c in present}}
+        print(f"(b) NP1 copies {n_copied} rows of {len(copied)} images: TPs at IoU {STUDY_IOU} "
+              f"{n_tp}; interrater NP1-NP2 {pair}; consensus {record['analysis']['consensus_rows']}"
+              f" boxes; NP2's precision against NP1 {record['analysis']['relative_precision']}",
+              flush=True)
+        if n_tp != n_copied or n_copied == 0:
+            raise AssertionError(f"{n_tp} TPs at IoU {STUDY_IOU}, want the {n_copied} copied rows")
+        if not all(all(flags[n]) for n in copied):
+            raise AssertionError("a copied image has a prediction that is not a TP")
+        if any(pair[c] != 1.0 for c in present):
+            raise AssertionError(f"NP2 (NP1 moved by <= {STUDY_JITTER} px) disagrees with NP1")
+        if libs["pandas"]:
+            prc_dir, maps_dir = os.path.join(tmp, "PRC_tables"), os.path.join(tmp, "maps")
+            ious = [round(t, 2) for t in np.arange(0.1, 1.0, 0.1)]
+            annotators = ["consensus"] + sorted(by_np)
+            for t in ious:
+                sets = dict(by_np, consensus=prospective.create_merged_or_consensus_benchmark(
+                    by_np, "consensus", t))
+                for a in annotators:
+                    frames = prospective.compare_annotations_to_predictions(
+                        sets[a], preds, t, a, prc_dir=prc_dir, precision_maps_dir=maps_dir)
+                    if a == "NP1" and t == STUDY_IOU:
+                        table_tp = sum(int(f["TP"].sum()) for f in frames.values())
+            ap_map = prospective.ap_map_from_tables(prc_dir, annotators, iou_thresholds=ious)
+            precision = {}
+            for cls in prospective.AMYLOID_CLASSES:
+                with open(os.path.join(maps_dir, f"prospective_precision_img_map_{cls}_NP1_"
+                                                 f"{STUDY_IOU}.pkl"), "rb") as fh:
+                    precision[cls] = {n: v for n, v in pickle.load(fh).items() if n in copied}
+            record["analysis"].update({
+                "prc_tables": len(os.listdir(prc_dir)), "tp_in_table_at_0.5": table_tp,
+                "ap_np1_at_0.5": {c: ap_map["NP1"][c][STUDY_IOU] for c in ap_map["NP1"]},
+                "ap_branch": "sklearn" if libs["sklearn"] else "numpy"})
+            print(f"(b) PRC tables {len(os.listdir(prc_dir))} (IoU 0.1-0.9 x {annotators} x 2 "
+                  f"classes): NP1's TPs at {STUDY_IOU} {table_tp}; NP1's AP at {STUDY_IOU} "
+                  f"{record['analysis']['ap_np1_at_0.5']} ({record['analysis']['ap_branch']} "
+                  f"branch); precision of the copied images {precision}", flush=True)
+            if table_tp != n_copied:
+                raise AssertionError(f"the PRC table counts {table_tp} TPs, want {n_copied}")
+            if any(v not in (1.0, -1) for m in precision.values() for v in m.values()) \
+                    or not any(v == 1.0 for m in precision.values() for v in m.values()):
+                raise AssertionError("precision is not 1.0 on the copied images")
+        figures = os.path.join(tmp, "figures")
+        plots.plot_all_annotations(by_np, folder, output_dir=os.path.join(figures, "all"))
+        plots.plot_image_comparisons(by_np["NP1"], preds, folder, os.path.join(figures, "cmp"))
+        if libs["matplotlib"] and libs["pandas"]:
+            plots.plot_aps_for_prospective(prc_dir, figures_dir=figures, annotators=annotators)
+            plots.plot_interrater_agreement(
+                prospective.get_interrater_agreement(by_np, STUDY_IOU), figures_dir=figures,
+                annotators=sorted(by_np))
+        n_figures = sum(len(files) for _, _, files in os.walk(figures))
+        record["analysis"]["figures"] = n_figures
+        print(f"(b) figures written: {n_figures} (the PIL overlays"
+              f"{' and the matplotlib plots' if libs['matplotlib'] and libs['pandas'] else ''})",
+              flush=True)
+
+        # (c) speed_check over a two-WSI tree of the folder's tiles
+        tree = os.path.join(tmp, "wsis")
+        half = len(readable) // 2
+        n_tree = len(write_wsi_tree(tree, [("WSI_A", readable[:half], -(-half // 2)),
+                                           ("WSI_B", readable[half:],
+                                            -(-(len(readable) - half) // 2))]))
+        t0 = time.perf_counter()
+        times = speed_check(tree, det, caa_filter=caa, include_merge_and_filter=True,
+                            batch_sizes=STUDY_SPEED_BATCHES,
+                            pickles_dir=os.path.join(tmp, "pickles"))
+        speed_wall = time.perf_counter() - t0
+        record["speed_check"] = {str(b): {k: v for k, v in t.items()
+                                          if k not in ("machine", "time spent")}
+                                 for b, t in times.items()}
+        record["speed_check"]["wall_s"] = speed_wall
+        for b, t in times.items():
+            print(f"(c) speed_check B={b}, merge and CAA filter on, {n_tree} tiles in 2 WSIs: "
+                  f"model time {t['model time spent']:.3f} s, down time {t['down time']:.3f} s, "
+                  f"{t['avg time / 1536 img']:.4f} s a tile, {t['avg time / WSI']:.3f} s a WSI "
+                  f"(host clock) [{card}]", flush=True)
+            if t["num 1536 images"] != n_tree:
+                raise AssertionError(f"speed_check counted {t['num 1536 images']} tiles of "
+                                     f"{n_tree}")
+        if not any(n.startswith("run_times_") for n in os.listdir(os.path.join(tmp, "pickles"))):
+            raise AssertionError("speed_check wrote no pickle")
+
+        # (d) pre_process with weak labels from the CAA filter on the card
+        csv_root = os.path.join(tmp, "csvs")
+        images_dir = write_study_csvs(csv_root, readable[:3], SEED + 15)
+        csvs = (os.path.join(csv_root, "details.csv"), os.path.join(csv_root, "consensus.csv"))
+        t0 = time.perf_counter()
+        weak = pre_process(*csvs, images_dir=images_dir, weak_label=True, caa_filter=caa)
+        weak_s = time.perf_counter() - t0
+        ref = pre_process(*csvs, images_dir=images_dir, weak_label=True,
+                          caa_filter=CAAFilter(cparams, device="cpu"))
+        rows = [(g, w) for k in ref for g, w in zip(weak.get(k, []), ref[k])]
+        err = max((abs(a - b) for (gb, gl), (wb, wl) in rows for a, b in zip(gl, wl)),
+                  default=float("inf"))
+        n_weak = sum(1 for _, (_, wl) in rows if not isinstance(wl[0], int))
+        record["pre_process"] = {"rows": len(rows), "weak_rows": n_weak, "max_abs_err": err,
+                                 "s": weak_s}
+        print(f"(d) pre_process(weak_label=True): {len(rows)} boxes, {n_weak} weak labels from "
+              f"the CAA filter on {dev}; max |card - CPU f32| {err:.3g} (tolerance "
+              f"{PREPROCESS_TOL}); {weak_s:.2f} s", flush=True)
+        if list(weak) != list(ref) or len(rows) != 12 or n_weak != 8 or err > PREPROCESS_TOL \
+                or any(gb != wb for (gb, _), (wb, _) in rows):
+            raise AssertionError("pre_process on the card disagrees with the CPU")
+
+        # (e) the study script, in a process of its own
+        work = os.path.join(tmp, "study")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join("examples", "run_study_torch.py"),
+                               "--synthetic", "--workdir", work, "--device", str(dev)],
+                              capture_output=True, text=True, timeout=600, cwd=root)
+        script_s = time.perf_counter() - t0
+        stages = [l for l in proc.stdout.splitlines() if l.startswith("[")]
+        record["script"] = {"rc": proc.returncode, "s": script_s, "stages": stages}
+        print(f"(e) examples/run_study_torch.py --synthetic: exit {proc.returncode} in "
+              f"{script_s:.1f} s; {stages}", flush=True)
+        if proc.returncode != 0 or not all(any(l.startswith(f"[{k}/5]") for l in stages)
+                                           for k in range(1, 6)):
+            raise AssertionError(f"the study script failed:\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+    record["launches"] = counts
     return record
 
 
@@ -2757,6 +3102,9 @@ def main() -> int:
     # 14. spatial sharding
     spatial = spatial_phase(spec, params, card, dev)
 
+    # 15. the study path
+    study = study_phase(spec, params, card, dev)
+
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
 
@@ -2777,7 +3125,8 @@ def main() -> int:
          "serving_dispatches": served["dispatches"],
          "mesh_launches": mesh_rec["launches"]["resize_normalize"],
          "mesh_shards": mesh_rec["shards"],
-         "spatial_launches": spatial["launches"].get("resize_normalize", 0)},
+         "spatial_launches": spatial["launches"].get("resize_normalize", 0),
+         "study_launches": study["launches"]["resize_normalize"]},
         {"name": "fused_residual_block", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/conv_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/conv_block.py:107",
@@ -2792,7 +3141,8 @@ def main() -> int:
          "serving_dispatches": served["dispatches"],
          "mesh_launches": mesh_rec["launches"]["fused_residual_block"],
          "mesh_shards": mesh_rec["shards"],
-         "spatial_launches": spatial["launches"].get("fused_residual_block", 0)},
+         "spatial_launches": spatial["launches"].get("fused_residual_block", 0),
+         "study_launches": study["launches"]["fused_residual_block"]},
         {"name": "fused_residual_block_int8", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/int8_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/int8_block.py:150",
@@ -2805,7 +3155,8 @@ def main() -> int:
          "stages_b32": k3_rows[32],
          "serving_launches": served["launches"]["fused_residual_block_int8"],
          "serving_dispatches": served["dispatches"],
-         "spatial_launches": spatial["launches"].get("fused_residual_block_int8", 0)},
+         "spatial_launches": spatial["launches"].get("fused_residual_block_int8", 0),
+         "study_launches": study["launches"]["fused_residual_block_int8"]},
     ]
     print(json.dumps({"detector": detector, "card": card}))
     print(json.dumps({"folder": folder, "card": card}))
@@ -2813,6 +3164,7 @@ def main() -> int:
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"parallel": parallel, "card": card}))
     print(json.dumps({"spatial": spatial, "card": card}))
+    print(json.dumps({"study": study, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,11 +18,16 @@ SERVING_MODULES = ("serving", "cli", "cli.main", "io.tiles", "analysis", "analys
                    "domain")
 # data and spatial parallelism: the mesh, the multi-process step, height sharding
 PARALLEL_MODULES = ("parallel.mesh", "parallel.distributed", "parallel.spatial")
+# the study: the prospective validation, its figures, the data checks, the cfgs
+STUDY_MODULES = ("analysis.prospective", "analysis.plots", "analysis.data_checks",
+                 "config.make_cfg")
 SCRIPTS = ("chip_smoke", "bench_k2")  # the port's scripts at the repo root
+EXAMPLES = ("run_study_torch",)       # the port's scripts under examples/
 
 
 def _port_files():
     files = [os.path.join(REPO, f"{m}.py") for m in SCRIPTS]
+    files += [os.path.join(REPO, "examples", f"{m}.py") for m in EXAMPLES]
     for root, _, names in os.walk(os.path.join(REPO, PKG)):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return files
@@ -30,7 +35,7 @@ def _port_files():
 
 def _port_modules():
     mods = []
-    for path in _port_files()[len(SCRIPTS):]:
+    for path in _port_files()[len(SCRIPTS) + len(EXAMPLES):]:
         if path.endswith("__main__.py"):  # runs the CLI when imported
             continue
         mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
@@ -45,7 +50,9 @@ def _forbidden(name: str) -> bool:
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {_port_modules() + list(SCRIPTS)!r}: importlib.import_module(m)\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'examples')!r})\n"
+        f"for m in {_port_modules() + list(SCRIPTS) + list(EXAMPLES)!r}: "
+        "importlib.import_module(m)\n"
         f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
         "print(sorted(bad))\n"
         "sys.exit(1 if bad else 0)\n"
@@ -75,7 +82,10 @@ def test_port_sources_name_no_jax_module():
     assert not found, found
     assert len(_port_files()) > 15
     mods = set(_port_modules())
-    assert {f"{PKG}.{m}" for m in TRAINING_MODULES + SERVING_MODULES + PARALLEL_MODULES} <= mods
+    assert {f"{PKG}.{m}" for m in TRAINING_MODULES + SERVING_MODULES + PARALLEL_MODULES
+            + STUDY_MODULES} <= mods
+    for m in EXAMPLES:
+        assert os.path.join(REPO, "examples", f"{m}.py") in _port_files()
     assert os.path.join(REPO, PKG, "cli", "__main__.py") in _port_files()
 
 

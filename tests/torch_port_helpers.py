@@ -130,11 +130,13 @@ def stain_crops(seed: int, n: int = 6) -> np.ndarray:
     return np.stack([img[y:y + 256, x:x + 256] for x, y in xy])
 
 
-def jax_classifier_params(seed: int, fc_scale: float = 1.0):
+def jax_classifier_params(seed: int, fc_scale: float = 1.0, jit: bool = False):
     """JAX ``init_params`` as numpy, with random BN statistics, the linear
     layer scaled by ``fc_scale`` and its bias set so the median logit of
     some stain crops is 0: probabilities then fall on both sides of 0.5
-    (unscaled random weights put them all near one value)."""
+    (unscaled random weights put them all near one value).  ``jit`` runs
+    the probe compiled (~1 s instead of ~5 s of eager compiles), with a
+    bias that differs from the eager one in the last bits."""
     p = jax.tree.map(np.asarray, jax_classifier.init_params(jax.random.PRNGKey(seed)))
     rng = np.random.RandomState(seed)
     for i, w in enumerate(jax_classifier.STAGE_WIDTHS):
@@ -145,7 +147,8 @@ def jax_classifier_params(seed: int, fc_scale: float = 1.0):
                         "var": (0.5 + rng.rand(w)).astype(np.float32)}
     p["fc"]["w"] = (p["fc"]["w"] * fc_scale).astype(np.float32)
     probe = stain_crops(1000 + seed, 8).astype(np.float32) / 255.0
-    logits = np.asarray(jax_classifier.apply(p, probe))
+    apply = jax.jit(jax_classifier.apply) if jit else jax_classifier.apply
+    logits = np.asarray(apply(p, probe))
     p["fc"]["b"] = (-np.median(logits, axis=0)).astype(np.float32)
     return p
 
@@ -162,3 +165,13 @@ def copy_always(monkeypatch, *modules):
     for mod in modules:
         monkeypatch.setattr(mod, "to_device", copy)
     return moved
+
+
+def low_dpi_figures(monkeypatch, dpi: int = 20):
+    """Make matplotlib save every figure at ``dpi``: the study's figures ask
+    for 300, which costs ~0.3 s a PNG, and the parity tests compare the
+    files' names and the returned numbers, not the pixels."""
+    from matplotlib.figure import Figure
+
+    save = Figure.savefig
+    monkeypatch.setattr(Figure, "savefig", lambda self, *a, **kw: save(self, *a, **{**kw, "dpi": dpi}))
