@@ -21,11 +21,9 @@ Where the port differs:
 
 * every command takes ``--device`` (default ``cuda``); a command that builds
   a model raises without CUDA unless ``--device cpu`` is passed;
-* ``--fast_path`` leaves out two of the reference's Detector options: its
-  ``approx_topk=True`` (the GPU has no approximate top-k; the port selects
-  the candidate pool exactly) and, with ``int8_full``, ``s2d_stem=True``
-  (the port's ``Detector`` has no space-to-depth stem, and the plain stem
-  computes the same function up to summation order);
+* ``--fast_path`` leaves out one of the reference's Detector options, its
+  ``approx_topk=True``: the GPU has no approximate top-k, and the port
+  selects the candidate pool exactly;
 * ``export`` reads and writes ``.pth`` and darknet ``.weights`` and reads the
   port's ``Trainer`` checkpoints (``path#ema`` for the EMA); orbax
   directories are not ported and raise;
@@ -64,12 +62,10 @@ def _fast_path_kwargs(args) -> dict:
     lazy sparse decode).  Off by default: the box-for-box parity pipeline.
 
     ``--precision`` selects the int8 flavour: ``int8_early`` (the default,
-    the backbone prefix in int8) or ``int8_full``.  The reference adds
-    ``s2d_stem=True`` for ``int8_full``; the port's ``Detector`` raises on
-    that option, so it is left out here: the plain stem computes the same
-    function up to summation order (ROADMAP.md, "space-to-depth options").
-    The reference's ``approx_topk=True`` is left out too: the port always
-    selects the candidate pool exactly (:func:`~..ops.nms.topk_stable`)."""
+    the backbone prefix in int8) or ``int8_full``, which adds
+    ``s2d_stem=True`` as the reference does.  The reference's
+    ``approx_topk=True`` is left out: the port always selects the candidate
+    pool exactly (:func:`~..ops.nms.topk_stable`)."""
     if not _truthy(getattr(args, "fast_path", False)):
         ignored = [f"--{n}" for n in ("precision", "calib_percentile")
                    if getattr(args, n, None) is not None]
@@ -86,6 +82,8 @@ def _fast_path_kwargs(args) -> dict:
     kw = {"precision": precision, "lazy_decode": True}
     if precision == "int8_early":
         kw["int8_downsample"] = 32
+    elif precision == "int8_full":
+        kw["s2d_stem"] = True
     pct = getattr(args, "calib_percentile", None)
     if pct is not None:
         kw["calib_percentile"] = float(pct)
@@ -505,8 +503,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="apply the (bit-identical) nearest multiscale resize "
                         "on the host before the upload")
     t.add_argument("--s2d_stem", type=str, default="auto",
-                   help="the reference's space-to-depth stem (auto/True/False); "
-                        "the port runs its one plain stem whatever it says")
+                   help="space-to-depth training stem (auto/True/False): layers "
+                        "0-1 on the s2d grid, gradients mapped back to the 3x3 "
+                        "weights; auto = on where the stem qualifies and "
+                        "--spatial_shard is 1")
     t.add_argument("--keep_checkpoints", type=int, default=None,
                    help="retention: keep only the most recent N epoch "
                         "checkpoints plus every tracked best epoch "
@@ -518,8 +518,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(e.g. 0.999) and evaluate it beside the raw weights")
     t.add_argument("--image_layout", type=str, default="planar",
                    choices=["planar", "nhwc"],
-                   help="the reference's in-step layout; the port's path is "
-                        "one plain layout whatever it says")
+                   help="in-step image layout: planar runs the resize and the "
+                        "augmentation on (B, 3, H, W) images; the same results")
     t.add_argument("--resume", type=str, default=None,
                    help="a checkpoint of the port's Trainer to resume from "
                         "(restores the optimizer state too)")

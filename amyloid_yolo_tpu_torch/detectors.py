@@ -15,8 +15,9 @@ executors in ``models.darknet``, no K2), calibration and its sidecars, and
 through the reader (:mod:`.io.datasets`, :mod:`.io.native`), the call
 above, the border rescale, the union merge (:mod:`.ops.merge`) and the CAA
 filter (:mod:`.domain`).  With ``mesh=`` (:mod:`.parallel.mesh`) a call
-splits its batch over several devices.  The TPU-only options are not
-ported (see ROADMAP.md).
+splits its batch over several devices.  The reference's layout options
+``s2d_stem``, ``s2d_downsample`` and ``pallas_blocks`` are accepted where
+it accepts them.
 """
 
 from __future__ import annotations
@@ -80,6 +81,8 @@ class _Replica(NamedTuple):
     params: Dict
     packs: Optional[darknet.Packs]
     qparams: Optional[darknet.QParams]
+    s2d: Optional[Dict] = None                       # the s2d stem
+    s2d_downs: Optional[Dict[int, torch.Tensor]] = None
 
 
 class Detector:
@@ -124,9 +127,23 @@ class Detector:
         calibrate once, on the first device, and every shard uses those
         scales.
 
-    ``pallas_blocks``, ``s2d_stem`` and ``s2d_downsample`` are the
-    reference's TPU options; they raise here (ROADMAP.md).  The bf16 path
-    with BN folded runs every residual unit in K2 without being asked.
+      s2d_stem: layers 0-1 on the space-to-depth grid
+        (:func:`~.models.darknet.s2d_stem_forward`; for ``int8_full``
+        :func:`~.models.darknet.make_s2d_stem_int8`): the same function up
+        to summation order.  bf16 (BN folded) and ``int8_full`` only.
+      s2d_downsample: ``int8_full`` with ``s2d_stem`` only: the narrow
+        3x3/s2 convs after the stem on the s2d grid too
+        (:func:`~.models.darknet.make_s2d_down_int8`; the same integer
+        sums).
+      pallas_blocks: accepted for the folded bf16 precision, where the
+        reference takes it, and raises elsewhere as it does.  It changes
+        nothing here: the folded bf16 path always runs every residual unit
+        in K2 (all 23 of YOLOv3, the 208² one included, where the
+        reference's Pallas blocks leave that unit to XLA), and float32 runs
+        none (:func:`route`).
+
+    It raises ``ValueError`` where the reference ``Detector`` raises
+    (``detectors.py:141-196``).
     """
 
     #: at or below this an activation scale came from an all-zero layer
@@ -166,10 +183,17 @@ class Detector:
             raise ValueError(f"unknown precision {precision!r}")
         if precision.startswith("int8") and not fold_bn:
             raise ValueError(f"{precision} requires fold_bn=True")
-        for name, value in (("pallas_blocks", pallas_blocks), ("s2d_stem", s2d_stem),
-                            ("s2d_downsample", s2d_downsample)):
-            if value:
-                raise ValueError(f"{name} is not ported yet (ROADMAP.md Queue 1)")
+        if pallas_blocks and precision != "bf16":
+            raise ValueError("pallas_blocks currently supports precision='bf16'")
+        if pallas_blocks and not fold_bn:
+            raise ValueError("pallas_blocks requires fold_bn=True")
+        if s2d_stem and precision == "int8_early":
+            raise ValueError("s2d_stem supports precision 'bf16' (fold_bn) and 'int8_full'")
+        if s2d_stem and not fold_bn:
+            raise ValueError("s2d_stem requires fold_bn=True")
+        if s2d_downsample and not (s2d_stem and precision == "int8_full"):
+            raise ValueError("s2d_downsample requires s2d_stem=True and "
+                             "precision='int8_full'")
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"unsupported compute_dtype {compute_dtype}")
         if mesh is not None:
@@ -190,6 +214,7 @@ class Detector:
         self.packs: Optional[darknet.Packs] = None
         self._qparams: Optional[darknet.QParams] = None
         self._folded_cpu: Optional[darknet.Folded] = None
+        s2d = s2d_downs = None
         if not fold_bn:
             # conv weights in compute_dtype, BN statistics and biases in f32
             self.params = {k: (v.to(dev, cd).contiguous(memory_format=torch.channels_last)
@@ -213,7 +238,21 @@ class Detector:
                       else darknet.quantize_folded_int8_full(folded, self.spec))
                 self._qparams = {k: {n: t.to(dev) for n, t in v.items()}
                                  for k, v in qp.items()}
-        replica = _Replica(self.params, self.packs, self._qparams)
+            if s2d_stem and precision == "int8_full":
+                s2d = darknet.make_s2d_stem_int8(folded, qp, self.spec)
+                if s2d_downsample:
+                    s2d_downs = {i: w.to(dev)
+                                 for i, w in darknet.make_s2d_down_int8(qp, self.spec).items()}
+            elif s2d_stem:
+                s2d = darknet.make_s2d_stem(folded, self.spec)
+            if s2d is not None:
+                # the float weights in compute_dtype and channels_last, as the
+                # convs'; the biases in the dtype the executor adds them in
+                s2d = {k: (v.to(dev, cd).contiguous(memory_format=torch.channels_last)
+                           if k in ("wa", "wb") else
+                           v.to(dev, bias_dtype) if k in ("ba", "bb") else v.to(dev))
+                       for k, v in s2d.items()}
+        replica = _Replica(self.params, self.packs, self._qparams, s2d, s2d_downs)
         self._replicas = replicate(replica, mesh) if mesh is not None else [replica]
         self._act_scales: Optional[Dict[str, float]] = None
         self._calib_meta: Dict = {}
@@ -229,6 +268,8 @@ class Detector:
         self.fold_bn = fold_bn
         self.precision = precision
         self.int8_compute = int8_compute
+        self.pallas_blocks = pallas_blocks
+        self.s2d_stem = s2d_stem
         self.int32_accum_max_hw = int32_accum_max_hw
         self.calib_percentile = float(calib_percentile)
         self._last_ncand: Optional[torch.Tensor] = None
@@ -271,7 +312,8 @@ class Detector:
         if self.precision == "int8_full":
             return darknet.apply_folded_int8_full(
                 rep.params, rep.qparams, self._act_scales, self.spec, x,
-                compute_dtype=cd, int32_accum_max_hw=self.int32_accum_max_hw)
+                compute_dtype=cd, s2d_stem=rep.s2d, s2d_downs=rep.s2d_downs,
+                int32_accum_max_hw=self.int32_accum_max_hw)
         if self.precision == "int8_early":
             return darknet.apply_folded_int8(
                 rep.params, rep.qparams, self._act_scales, self.spec, x,
@@ -279,7 +321,7 @@ class Detector:
         if not self.fold_bn:
             return darknet.apply(rep.params, self.spec, x, compute_dtype=cd)
         return darknet.apply_folded(rep.params, self.spec, x, compute_dtype=cd,
-                                    packs=rep.packs)
+                                    packs=rep.packs, s2d_stem=rep.s2d)
 
     @torch.inference_mode()
     def calibrate(self, tiles_u8, *, accumulate: bool = False,

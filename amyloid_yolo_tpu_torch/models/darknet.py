@@ -10,11 +10,15 @@ Counterpart of the reference package's ``models/darknet.py``:
 :func:`apply_folded_int8`, ``:767-971``) and the ``int8_full`` path
 (:func:`int8_full_conv_indices`, :func:`quantize_folded_int8_full`,
 :func:`calibrate_act_scales_full`, :func:`apply_folded_int8_full`,
-``:986-1230``).  The space-to-depth stems (inference and training) and
-the planar training layout compute the same functions and are not ported.
-The float layer loops call per-layer functions (:func:`conv`, the BN
-steps, :func:`folded_conv`), which the height-sharded runner of
-``parallel/spatial.py`` calls on each shard.
+``:986-1230``), and the reference's layout options: the space-to-depth
+(s2d) stem of inference (:func:`make_s2d_stem`, :func:`make_s2d_stem_int8`,
+:func:`s2d_stem_forward`, ``:492-765``) and training (``apply(s2d_stem=
+True)``, ``:215-240``), the s2d downsample of ``int8_full``
+(:func:`make_s2d_down_int8`), the planar input (``apply(input_layout=
+"planar")``) and the BN statistics as matrix products (``apply(bn_form=
+"matmul")``, :mod:`..ops.bnstats`).  The float layer loops call per-layer
+functions (:func:`conv`, the BN steps, :func:`folded_conv`), which the
+height-sharded runner of ``parallel/spatial.py`` calls on each shard.
 
 Layout: float activations are NCHW tensors in ``channels_last`` memory —
 physically NHWC, which is what the kernels K1 and K2 read and write, and
@@ -40,6 +44,8 @@ accumulate in float32 over bf16 values and keep the float32 result.
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple
 
 import numpy as np
@@ -57,6 +63,7 @@ from ..graphspec import (
 )
 from ..io.weights import StateDict, _bn_key, _conv_key, _np32
 from ..kernels.conv_block import LEAKY_SLOPE, fused_residual_block, pack_block_weights
+from ..ops import bnstats
 from ..ops import int8 as q8
 from ..utils.device import no_tf32
 
@@ -65,6 +72,9 @@ Packs = Dict[int, Tuple[torch.Tensor, ...]]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # torch BatchNorm2d(momentum=0.9), reference models.py:43
+#: train-mode BN statistics form, ``"reduce"`` or ``"matmul"`` (see
+#: :func:`apply`); ``apply(bn_form=None)`` reads it at each call
+BN_FORM = os.environ.get("AMYOLO_BN_FORM", "reduce")
 
 
 def init_params(generator: torch.Generator, spec: GraphSpec) -> StateDict:
@@ -151,6 +161,11 @@ def _leaky(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 0, v, v * torch.tensor(LEAKY_SLOPE, dtype=v.dtype))
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """At least float32: widens bf16 without narrowing a float64 forward."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _maxpool(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     # kernel-2/stride-1 pools get the reference's (0,1,0,1) ZERO pad
     # (models.py:50-51); symmetric (k-1)//2 padding of -inf otherwise
@@ -200,18 +215,38 @@ def bn_moments_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: int
     return mean, torch.clamp(ex2 - mean * mean, min=0.0)
 
 
-def bn_batch_moments(out32: torch.Tensor, reducer: Optional[Callable] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+def bn_batch_moments(out32: torch.Tensor, reducer: Optional[Callable] = None,
+                     groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Train-mode BN statistics ``(mean, var, n)`` of an NCHW f32 conv
     output: this batch's (one pass, ``.mean``), or with ``reducer`` those
-    of the global batch its equal shards make up (see :func:`apply`)."""
-    n = out32.shape[0] * out32.shape[2] * out32.shape[3]
+    of the global batch its equal shards make up (see :func:`apply`).
+    ``groups > 1``: the channels are ``groups`` s2d phase copies of the C
+    real ones, phase-major, and the statistics of each real channel reduce
+    over its phases too (``n`` counts them)."""
+    b, cc, h, w = out32.shape
+    v = out32.reshape(b, groups, cc // groups, h, w) if groups > 1 else out32
+    dims = (0, 1, 3, 4) if groups > 1 else (0, 2, 3)
+    n = b * h * w * groups
     if reducer is None:
-        mean = out32.mean(dim=(0, 2, 3))
-        ex2 = (out32 * out32).mean(dim=(0, 2, 3))
+        mean = v.mean(dim=dims)
+        ex2 = (v * v).mean(dim=dims)
         return mean, torch.clamp(ex2 - mean * mean, min=0.0), n
-    s1, s2 = reducer(out32.sum(dim=(0, 2, 3)), (out32 * out32).sum(dim=(0, 2, 3)))
+    s1, s2 = reducer(v.sum(dim=dims), (v * v).sum(dim=dims))
     n = n * reducer.world
+    return (*bn_moments_from_sums(s1, s2, n), n)
+
+
+def bn_batch_moments_matmul(out: torch.Tensor, reducer: Optional[Callable] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`bn_batch_moments` in the ``"matmul"`` form: ``Σx`` and ``Σx²``
+    of the NCHW conv output in its own dtype as one product
+    (:func:`~..ops.bnstats.channel_sums` over its NHWC rows)."""
+    c = out.shape[1]
+    s1, s2 = bnstats.channel_sums(_nhwc(out).reshape(-1, c))
+    n = out.shape[0] * out.shape[2] * out.shape[3]
+    if reducer is not None:
+        s1, s2 = reducer(s1, s2)
+        n = n * reducer.world
     return (*bn_moments_from_sums(s1, s2, n), n)
 
 
@@ -237,15 +272,20 @@ def bn_running_moments(params: Mapping[str, torch.Tensor], i: int
 
 
 def bn_normalize(params: Mapping[str, torch.Tensor], i: int, out32: torch.Tensor,
-                 mean: torch.Tensor, var: torch.Tensor, compute_dtype: torch.dtype
-                 ) -> torch.Tensor:
-    """``(x − mean)·γ·rsqrt(var + ε) + β`` in f32, rounded to ``compute_dtype``."""
-    f32 = torch.float32
+                 mean: torch.Tensor, var: torch.Tensor, compute_dtype: torch.dtype,
+                 groups: int = 1) -> torch.Tensor:
+    """``(x − mean)·γ·rsqrt(var + ε) + β`` in ``out32``'s dtype (f32, or
+    f64 in a float64 forward), rounded to ``compute_dtype`` (``groups``: the
+    per-channel vectors tiled over the s2d phases)."""
+    wide = out32.dtype
     p = _bn_key(i)
     inv = torch.rsqrt(var + BN_EPS)
-    g = (params[f"{p}.weight"].to(f32) * inv)[None, :, None, None]
-    return ((out32 - mean[None, :, None, None]) * g
-            + params[f"{p}.bias"].to(f32)[None, :, None, None]).to(compute_dtype)
+    g = params[f"{p}.weight"].to(wide) * inv
+    beta = params[f"{p}.bias"].to(wide)
+    if groups > 1:
+        mean, g, beta = mean.repeat(groups), g.repeat(groups), beta.repeat(groups)
+    return ((out32 - mean[None, :, None, None]) * g[None, :, None, None]
+            + beta[None, :, None, None]).to(compute_dtype)
 
 
 def conv_bias(params: Mapping[str, torch.Tensor], i: int, out: torch.Tensor,
@@ -261,20 +301,39 @@ def activate(layer: ConvSpec, out: torch.Tensor) -> torch.Tensor:
 def conv_layer(params: Mapping[str, torch.Tensor], i: int, layer: ConvSpec, x: torch.Tensor,
                compute_dtype: torch.dtype, *, train: bool = False,
                reducer: Optional[Callable] = None, new_stats: Optional[StateDict] = None,
-               ) -> torch.Tensor:
+               bn_form: str = "reduce") -> torch.Tensor:
     """Conv ``i`` with its BN (eval: running statistics; train: batch
     statistics, its new running statistics written into ``new_stats``) or
     its bias, and its activation, on the NCHW map ``x``."""
     out = conv(params[f"{_conv_key(i)}.weight"], layer, x, compute_dtype)
     if not layer.batch_normalize:
         return activate(layer, conv_bias(params, i, out, compute_dtype))
-    out32 = out.to(torch.float32)
+    return activate(layer, _bn(params, i, out, compute_dtype, train, reducer, new_stats,
+                               bn_form=bn_form))
+
+
+def _bn(params: Mapping[str, torch.Tensor], i: int, out: torch.Tensor,
+        compute_dtype: torch.dtype, train: bool, reducer: Optional[Callable],
+        new_stats: Optional[StateDict], groups: int = 1, bn_form: str = "reduce"
+        ) -> torch.Tensor:
+    """BN ``i`` of the NCHW conv output ``out`` (see :func:`conv_layer`);
+    ``groups`` as :func:`bn_batch_moments` takes it.  The ``"matmul"`` form
+    (train mode, ``groups == 1``) takes its sums and its normalize's
+    backward sums as products (:mod:`..ops.bnstats`)."""
+    if train and bn_form == "matmul" and groups == 1:
+        mean, var, n = bn_batch_moments_matmul(out, reducer)
+        new_stats.update(bn_running_stats(params, i, mean, var, n))
+        p = _bn_key(i)
+        f32 = torch.float32
+        return bnstats.bn_normalize(out, mean, torch.rsqrt(var + BN_EPS),
+                                    params[f"{p}.weight"].to(f32), params[f"{p}.bias"].to(f32))
+    out32 = _wide(out)
     if train:
-        mean, var, n = bn_batch_moments(out32, reducer)
+        mean, var, n = bn_batch_moments(out32, reducer, groups)
         new_stats.update(bn_running_stats(params, i, mean, var, n))
     else:
         mean, var = bn_running_moments(params, i)
-    return activate(layer, bn_normalize(params, i, out32, mean, var, compute_dtype))
+    return bn_normalize(params, i, out32, mean, var, compute_dtype, groups)
 
 
 def folded_conv(folded: Folded, i: int, layer: ConvSpec, x: torch.Tensor,
@@ -287,7 +346,8 @@ def folded_conv(folded: Folded, i: int, layer: ConvSpec, x: torch.Tensor,
 
 def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, *,
           compute_dtype: torch.dtype = torch.float32, train: bool = False,
-          reducer: Optional[Callable] = None):
+          reducer: Optional[Callable] = None, s2d_stem: bool = False,
+          input_layout: str = "nhwc", bn_form: Optional[str] = None):
     """Forward over *unfolded* parameters (a state dict in the reference
     layout, BN running statistics included); returns the f32 NHWC map at
     each yolo layer, and with ``train=True`` the pair ``(head_maps,
@@ -298,13 +358,28 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
     ``compute_dtype``, as the reference (``darknet.py:155-318``).
 
     Eval mode normalises with the running statistics and ``rsqrt(var + ε)``.
-    Train mode is the reference's ``BN_FORM="reduce"`` branch: one-pass f32
-    batch statistics ``mean`` and ``E[x²]``, ``var = max(E[x²] − mean², 0)``
-    (biased) to normalise, and the running statistics
-    ``(1 − m)·old + m·batch`` with ``m = BN_MOMENTUM`` and the unbiased
-    ``var·n/(n − 1)``.  ``new_stats`` maps each ``…running_mean`` and
-    ``…running_var`` key to its new (detached) value; gradients flow through
-    the batch statistics, as autodiff of the reference does.
+    Train mode: one-pass f32 batch statistics ``mean`` and ``E[x²]``,
+    ``var = max(E[x²] − mean², 0)`` (biased) to normalise, and the running
+    statistics ``(1 − m)·old + m·batch`` with ``m = BN_MOMENTUM`` and the
+    unbiased ``var·n/(n − 1)``.  ``new_stats`` maps each ``…running_mean``
+    and ``…running_var`` key to its new (detached) value; gradients flow
+    through the batch statistics, as autodiff of the reference does.
+
+    ``bn_form`` (train mode; ``None`` reads the module's ``BN_FORM``, from
+    ``AMYOLO_BN_FORM``): ``"reduce"`` sums with reductions; ``"matmul"``
+    takes ``Σx``, ``Σx²`` and the normalize's backward sums ``Σdy``,
+    ``Σdy·x`` as products with a ones row (:mod:`..ops.bnstats`).  Same
+    function, other summation order.
+
+    ``input_layout="planar"``: ``x`` is a (B, 3, H, W) image (contiguous
+    NCHW, the planar training pipeline's layout) instead of NHWC.
+
+    ``s2d_stem=True`` computes layers 0-1 (3x3/s1 conv into the 3x3/s2
+    conv, both with BN and leaky) on the space-to-depth grid, the weights
+    relabelled inside the forward (:func:`_s2d_relabel`), so gradients come
+    back in the standard 3x3 parameterization; the BN statistics of layer
+    0 reduce over its four phases too.  Same function up to summation
+    order.
 
     ``reducer`` (train mode) makes the batch statistics those of a global
     batch split into shards (sync-BN, as the reference's data-parallel
@@ -315,15 +390,29 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
     shards (the height shards of ``parallel/spatial.py``) call the
     per-layer functions above with their own global count.
     """
-    prev = _cl(_nchw(x.to(compute_dtype)))
+    if bn_form is None:
+        bn_form = BN_FORM
+    planar = input_layout == "planar"
     last_use = _last_use(spec)
     saved: Dict[int, torch.Tensor] = {}
     head_maps: List[torch.Tensor] = []
     new_stats: StateDict = {}
+    x = x.to(compute_dtype)
+    start = 0
+    if s2d_stem:
+        prev = _s2d_train_stem(params, spec, x, compute_dtype, train, reducer, new_stats,
+                               planar)
+        if 1 in last_use:
+            saved[1] = prev
+        start = 2
+    else:
+        prev = _cl(x if planar else _nchw(x))
     for i, layer in enumerate(spec.layers):
+        if i < start:
+            continue
         if isinstance(layer, ConvSpec):
             out = conv_layer(params, i, layer, prev, compute_dtype, train=train,
-                             reducer=reducer, new_stats=new_stats)
+                             reducer=reducer, new_stats=new_stats, bn_form=bn_form)
         else:
             out = _plain_layer(layer, prev, saved, head_maps)
         if i in last_use:
@@ -345,7 +434,7 @@ def _plain_layer(layer, prev: torch.Tensor, saved: Dict[int, torch.Tensor],
     if isinstance(layer, ShortcutSpec):
         return prev + saved[layer.from_index]
     if isinstance(layer, YoloSpec):
-        head_maps.append(_nhwc(prev.to(torch.float32)).contiguous())
+        head_maps.append(_nhwc(_wide(prev)).contiguous())
         return prev
     raise TypeError(f"unknown layer spec {layer!r}")  # pragma: no cover
 
@@ -354,7 +443,7 @@ def apply_folded(folded: Folded, spec: GraphSpec, x: torch.Tensor, *,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  packs: Optional[Packs] = None,
                  block_fn: Callable[..., torch.Tensor] = fused_residual_block,
-                 ) -> List[torch.Tensor]:
+                 s2d_stem: Optional[Folded] = None) -> List[torch.Tensor]:
     """Inference forward over BN-folded params; returns the f32 NHWC map at
     each yolo layer.
 
@@ -362,10 +451,17 @@ def apply_folded(folded: Folded, spec: GraphSpec, x: torch.Tensor, *,
     ``compute_dtype`` on entry).  ``packs`` (:func:`pack_residual_blocks`)
     sends each packed residual unit through ``block_fn`` — K2 by default;
     its plain version to compare with.  Without packs every layer runs
-    unfused.
+    unfused.  ``s2d_stem`` (:func:`make_s2d_stem`) computes layers 0-1 on
+    the space-to-depth grid (:func:`s2d_stem_forward`); the residual units
+    from layer 2 on are unchanged.
     """
-    x = _cl(_nchw(x.to(compute_dtype)))
-    return _folded_layers(folded, spec, x, {}, 0, compute_dtype, packs, block_fn)
+    x = x.to(compute_dtype)
+    if s2d_stem is None:
+        return _folded_layers(folded, spec, _cl(_nchw(x)), {}, 0, compute_dtype, packs,
+                              block_fn)
+    prev = s2d_stem_forward(s2d_stem, x, compute_dtype)
+    saved = {1: prev} if 1 in _last_use(spec) else {}
+    return _folded_layers(folded, spec, prev, saved, 2, compute_dtype, packs, block_fn)
 
 
 def _folded_layers(folded: Folded, spec: GraphSpec, prev: torch.Tensor,
@@ -402,6 +498,185 @@ def _folded_layers(folded: Folded, spec: GraphSpec, prev: torch.Tensor,
         _release(saved, last_use, i)
         prev = out
     return head_maps
+
+
+# ---------------------------------------------------------------------------
+# Space-to-depth stem and downsample (reference ``darknet.py:492-765``)
+#
+# Layers 0-1 of YOLOv3 (3x3/s1 over the RGB image into 3x3/s2) are the same
+# function as, on the space-to-depth grid (x (2H, 2W, C) → (H, W, 4C),
+# channel (ph·2 + pw)·C + c):
+#   conv_a  3x3/s1, 4·Cin → 4·C0: conv 0 with its outputs phase-encoded,
+#           a[(ph·2+pw)·C0 + o, H, W] = conv0(x)[o, 2H+ph, 2W+pw];
+#   conv_b  2x2/s1 with one row and column of zero padding at the top and
+#           left, 4·C0 → C1: conv 1, whose 3x3/s2 taps read s2d rows H−1
+#           and H across the phases.
+# The relabelled weights hold each weight once per phase or zero, so the
+# products are the same and only the order of the sums differs; the int8
+# conv_b reuses conv 1's integer weights, whose int32 sums are exact.
+# Weights here are OIHW (the port's layout), activations NCHW in
+# channels_last memory; the s2d channel order is the reference's.
+# ---------------------------------------------------------------------------
+
+def _check_s2d_spec(spec: GraphSpec) -> None:
+    """Raise ``ValueError`` unless layers 0-1 are the YOLOv3 stem: conv
+    3x3/s1 leaky into conv 3x3/s2 leaky, layer 0 read by layer 1 only."""
+    l0, l1 = spec.layers[0], spec.layers[1]
+    ok = (isinstance(l0, ConvSpec) and l0.kernel == 3 and l0.stride == 1
+          and l0.activation == "leaky"
+          and isinstance(l1, ConvSpec) and l1.kernel == 3 and l1.stride == 2
+          and l1.activation == "leaky"
+          and not spec.consumers[0])
+    if not ok:
+        raise ValueError(
+            "s2d stem needs the YOLOv3 stem shape: conv 3x3/s1 leaky into "
+            "conv 3x3/s2 leaky with layer 0 consumed only by layer 1")
+
+
+def s2d_train_stem_qualifies(spec: GraphSpec) -> bool:
+    """Whether ``apply(s2d_stem=True)`` takes this spec: the stem shape and
+    BN on layers 0 and 1 (the reference ``Trainer``'s automatic choice,
+    ``training.py:165-173``)."""
+    try:
+        _check_s2d_spec(spec)
+    except ValueError:
+        return False
+    return bool(spec.layers[0].batch_normalize and spec.layers[1].batch_normalize)
+
+
+def _space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """NHWC (B, 2H, 2W, C) → (B, H, W, 4C), channel (ph·2 + pw)·C + c."""
+    b, h2, w2, c = x.shape
+    x = x.reshape(b, h2 // 2, 2, w2 // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h2 // 2, w2 // 2, 4 * c)
+
+
+def _space_to_depth_planar(x: torch.Tensor) -> torch.Tensor:
+    """Planar (B, C, 2H, 2W) → NHWC (B, H, W, 4C) in :func:`_space_to_depth`'s
+    channel order, in one permute (the NHWC image is never made)."""
+    b, c, h2, w2 = x.shape
+    x = x.reshape(b, c, h2 // 2, 2, w2 // 2, 2).permute(0, 2, 4, 3, 5, 1)
+    return x.reshape(b, h2 // 2, w2 // 2, 4 * c)
+
+
+def _s2d_transform_conv_a(w0: np.ndarray, b0: Optional[np.ndarray] = None):
+    """3x3/s1 OIHW (C0, Cin) → 3x3/s1 on the s2d grid (4·C0, 4·Cin), zero
+    filled, in ``w0``'s dtype; and the bias tiled over the four phases."""
+    c0, cin = w0.shape[:2]
+    wa = np.zeros((4 * c0, 4 * cin, 3, 3), w0.dtype)
+    for ph in range(2):
+        for pw in range(2):
+            for dh in range(3):
+                for dw in range(3):
+                    qh, rh = divmod(ph + dh - 1, 2)
+                    qw, rw = divmod(pw + dw - 1, 2)
+                    o, i = (ph * 2 + pw) * c0, (rh * 2 + rw) * cin
+                    wa[o:o + c0, i:i + cin, qh + 1, qw + 1] = w0[:, :, dh, dw]
+    return wa, (None if b0 is None else np.tile(np.asarray(b0, np.float32), 4))
+
+
+def _s2d_transform_conv_b(w1: np.ndarray) -> np.ndarray:
+    """3x3/s2 OIHW (C1, C0) → 2x2/s1 with top/left padding over the phase-
+    encoded channels (C1, 4·C0), zero filled, in ``w1``'s dtype (float or
+    already-quantized int8: the zeros add exactly nothing)."""
+    c1, c0 = w1.shape[:2]
+    wb = np.zeros((c1, 4 * c0, 2, 2), w1.dtype)
+    for kh in range(2):
+        for kw in range(2):
+            for rh in range(2):
+                for rw in range(2):
+                    dh, dw = 2 * kh + rh - 1, 2 * kw + rw - 1
+                    if 0 <= dh < 3 and 0 <= dw < 3:
+                        i = (rh * 2 + rw) * c0
+                        wb[:, i:i + c0, kh, kw] = w1[:, :, dh, dw]
+    return wb
+
+
+def make_s2d_stem(folded: Folded, spec: GraphSpec) -> Folded:
+    """The s2d stem of the float path from folded conv 0 and conv 1:
+    ``{"wa", "ba", "wb", "bb"}``, f32 on the CPU."""
+    _check_s2d_spec(spec)
+    wa, ba = _s2d_transform_conv_a(_np32(folded["conv_0"]["w"]), _np32(folded["conv_0"]["b"]))
+    wb = _s2d_transform_conv_b(_np32(folded["conv_1"]["w"]))
+    return {"wa": torch.from_numpy(wa), "ba": torch.from_numpy(ba),
+            "wb": torch.from_numpy(wb), "bb": torch.from_numpy(_np32(folded["conv_1"]["b"]))}
+
+
+def _conv_b(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """2x2/s1 conv of an NCHW map with one zero row on top and one zero
+    column on the left (the s2d image of conv 1's symmetric pad 1)."""
+    return F.conv2d(_cl(F.pad(x, (1, 0, 1, 0))), w)
+
+
+def s2d_stem_forward(stem: Folded, x: torch.Tensor, compute_dtype: torch.dtype
+                     ) -> torch.Tensor:
+    """Layers 0-1 of the folded path on the s2d grid: NHWC ``x`` (B, S, S,
+    Cin) → layer 1's NCHW output (B, C1, S/2, S/2), channels_last.  Rounded
+    where the reference rounds: each conv's f32 sum to ``compute_dtype``,
+    then the bias in ``compute_dtype``, then leaky."""
+    xs = _cl(_nchw(_space_to_depth(x.to(compute_dtype))))
+    a = F.conv2d(xs, stem["wa"].to(compute_dtype), padding=1)
+    a = _leaky(a + stem["ba"].to(compute_dtype)[None, :, None, None])
+    b = _conv_b(a, stem["wb"].to(compute_dtype))
+    return _leaky(b + stem["bb"].to(compute_dtype)[None, :, None, None])
+
+
+# -- the training stem: the relabel inside the forward ----------------------
+#
+# Each relabelled weight is zero or one element of the 3x3 kernel, so the
+# relabel is a gather from the flat kernel plus one appended zero; autograd
+# scatter-adds its gradient back onto the 3x3 kernel, and the optimizer
+# keeps the reference parameterization.
+
+def _gather_indices(transform, shape) -> np.ndarray:
+    """Flat-index map of ``transform`` (one of the two above) over a weight
+    of ``shape``: the source element of each relabelled position, or
+    ``prod(shape)`` (the appended zero) where it is zero filled."""
+    n = int(np.prod(shape))
+    idx = transform(np.arange(1, n + 1, dtype=np.int64).reshape(shape))
+    idx = (idx[0] if isinstance(idx, tuple) else idx) - 1
+    return np.where(idx < 0, n, idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _s2d_gather_indices_a(cin: int, c0: int, device: str = "cpu") -> torch.Tensor:
+    """Gather map of conv_a, (4·C0, 4·Cin, 3, 3) into conv 0's flat OIHW
+    weight."""
+    return torch.from_numpy(_gather_indices(_s2d_transform_conv_a, (c0, cin, 3, 3))).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _s2d_gather_indices_b(c0: int, c1: int, device: str = "cpu") -> torch.Tensor:
+    """Gather map of conv_b, (C1, 4·C0, 2, 2) into conv 1's flat OIHW
+    weight."""
+    return torch.from_numpy(_gather_indices(_s2d_transform_conv_b, (c1, c0, 3, 3))).to(device)
+
+
+def _s2d_relabel(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Differentiable zero-filled relabel of ``w`` by a gather map."""
+    return torch.cat([w.reshape(-1), w.new_zeros(1)])[idx]
+
+
+def _s2d_train_stem(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor,
+                    compute_dtype: torch.dtype, train: bool, reducer: Optional[Callable],
+                    new_stats: StateDict, planar: bool) -> torch.Tensor:
+    """Layers 0-1 of :func:`apply` on the s2d grid (reference ``darknet.py:
+    215-240``): NHWC or planar ``x`` → layer 1's NCHW output."""
+    _check_s2d_spec(spec)
+    l0: ConvSpec = spec.layers[0]  # type: ignore[assignment]
+    l1: ConvSpec = spec.layers[1]  # type: ignore[assignment]
+    if not (l0.batch_normalize and l1.batch_normalize):
+        raise ValueError("s2d training stem requires BN on layers 0-1")
+    dev = str(x.device)
+    wa = _s2d_relabel(params[f"{_conv_key(0)}.weight"].to(compute_dtype),
+                      _s2d_gather_indices_a(l0.in_ch, l0.out_ch, dev))
+    xs = _space_to_depth_planar(x) if planar else _space_to_depth(x)
+    a = F.conv2d(_cl(_nchw(xs)), wa, padding=1)
+    a = _leaky(_bn(params, 0, a, compute_dtype, train, reducer, new_stats, groups=4))
+    wb = _s2d_relabel(params[f"{_conv_key(1)}.weight"].to(compute_dtype),
+                      _s2d_gather_indices_b(l1.in_ch, l1.out_ch, dev))
+    out = _conv_b(a, wb)
+    return _leaky(_bn(params, 1, out, compute_dtype, train, reducer, new_stats))
 
 
 # ---------------------------------------------------------------------------
@@ -532,11 +807,22 @@ def _dequant(q: torch.Tensor, s: float) -> torch.Tensor:
 
 
 def _int8_conv(qp: Mapping[str, torch.Tensor], xq: torch.Tensor, s_in: float,
-               layer: ConvSpec, int32_accum: bool) -> torch.Tensor:
-    """Quantized conv + f32 epilogue (``acc·(s_in·ws) + b``, leaky): NHWC
-    int8 in, f32 out.  The exact int32 sum is rounded to bf16 unless
-    ``int32_accum``."""
-    acc = q8.conv_int8(xq, qp["wq"], layer.stride, layer.pad)
+               layer: ConvSpec, int32_accum: bool, s2d_wq: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """Quantized conv + f32 epilogue (:func:`_int8_epilogue`): NHWC int8 in,
+    f32 out.  ``s2d_wq`` (:func:`make_s2d_down_int8`) runs a 3x3/s2 conv as
+    the 2x2 conv_b over the s2d grid of ``xq``: the same integer sums."""
+    if s2d_wq is not None:
+        acc = q8.conv_int8(_space_to_depth(xq), s2d_wq, 1, (1, 0))
+    else:
+        acc = q8.conv_int8(xq, qp["wq"], layer.stride, layer.pad)
+    return _int8_epilogue(acc, qp, s_in, layer, int32_accum)
+
+
+def _int8_epilogue(acc: torch.Tensor, qp: Mapping[str, torch.Tensor], s_in: float,
+                   layer: ConvSpec, int32_accum: bool) -> torch.Tensor:
+    """``acc·(s_in·ws) + b`` in f32 (and leaky) of the exact int32 sums
+    ``acc``, rounded to bf16 first unless ``int32_accum``."""
     if not int32_accum:
         acc = acc.to(torch.bfloat16)
     y = acc.to(torch.float32) * (qp["ws"] * s_in) + qp["b"]
@@ -548,11 +834,18 @@ def _bf16_conv(folded: Folded, i: int, layer: ConvSpec, xf: torch.Tensor,
     """A conv the int8 paths keep in ``compute_dtype``: NHWC ``xf`` (already
     in ``compute_dtype``) → f32 NHWC, the sum taken in f32 over the rounded
     values and kept in f32, plus the f32 bias (and leaky)."""
-    w = folded[f"conv_{i}"]["w"].to(compute_dtype).to(torch.float32)
-    y = _nhwc(F.conv2d(_nchw(xf.to(torch.float32)), w, stride=layer.stride,
-                       padding=layer.pad))
-    y = y + folded[f"conv_{i}"]["b"].to(torch.float32)
+    y = _wide_conv(folded[f"conv_{i}"]["w"], folded[f"conv_{i}"]["b"], xf, compute_dtype,
+                   layer.stride, layer.pad)
     return _leaky(y) if layer.activation == "leaky" else y
+
+
+def _wide_conv(w: torch.Tensor, b: torch.Tensor, xf: torch.Tensor,
+               compute_dtype: torch.dtype, stride: int, pad: int) -> torch.Tensor:
+    """NHWC ``xf`` through the OIHW ``w`` rounded to ``compute_dtype``, the
+    sum in f32, plus the f32 bias: f32 NHWC."""
+    w = w.to(compute_dtype).to(torch.float32)
+    y = _nhwc(F.conv2d(_nchw(xf.to(torch.float32)), w, stride=stride, padding=pad))
+    return y + b.to(torch.float32)
 
 
 def _in_dtype(q: torch.Tensor, s: Optional[float], dtype: torch.dtype) -> torch.Tensor:
@@ -606,10 +899,43 @@ def apply_folded_int8(folded: Folded, qparams: QParams, act_scales: Mapping[str,
     return _folded_layers(folded, spec, prev, saved, upto, compute_dtype)
 
 
+def make_s2d_stem_int8(folded: Folded, qparams: QParams, spec: GraphSpec) -> QParams:
+    """The s2d stem of ``int8_full``: conv_a in ``compute_dtype`` from folded
+    conv 0, conv_b with conv 1's int8 weights relabelled (the same integer
+    sums), conv 1's scales and bias: ``{"wa", "ba", "wbq", "wbs", "bb"}``
+    on the CPU."""
+    _check_s2d_spec(spec)
+    if "conv_1" not in qparams:
+        raise ValueError("conv_1 is not quantized in these qparams")
+    wa, ba = _s2d_transform_conv_a(_np32(folded["conv_0"]["w"]), _np32(folded["conv_0"]["b"]))
+    q1 = qparams["conv_1"]
+    wbq = _s2d_transform_conv_b(q1["wq"].cpu().numpy())
+    return {"wa": torch.from_numpy(wa), "ba": torch.from_numpy(ba),
+            "wbq": torch.from_numpy(wbq), "wbs": q1["ws"].cpu(), "bb": q1["b"].cpu()}
+
+
+def make_s2d_down_int8(qparams: QParams, spec: GraphSpec, max_in_ch: int = 64
+                       ) -> Dict[int, torch.Tensor]:
+    """``{i: relabelled int8 weight}`` of every quantized 3x3/s2 pad-1 conv
+    other than conv 1 with at most ``max_in_ch`` input channels (conv 5,
+    64 → 128 at 208², in YOLOv3), to run as conv_b on its input's s2d grid
+    (reference ``darknet.py:636-661``).  Scales and biases stay in
+    ``qparams``."""
+    out: Dict[int, torch.Tensor] = {}
+    for i, layer in enumerate(spec.layers):
+        if (isinstance(layer, ConvSpec) and layer.kernel == 3 and layer.stride == 2
+                and layer.pad == 1 and i != 1 and layer.in_ch <= max_in_ch
+                and f"conv_{i}" in qparams):
+            out[i] = torch.from_numpy(
+                _s2d_transform_conv_b(qparams[f"conv_{i}"]["wq"].cpu().numpy()))
+    return out
+
+
 def apply_folded_int8_full(folded: Folded, qparams: QParams,
                            act_scales: Mapping[str, float], spec: GraphSpec,
                            x: torch.Tensor, *, compute_dtype: torch.dtype = torch.bfloat16,
-                           s2d_stem=None, s2d_downs=None,
+                           s2d_stem: Optional[QParams] = None,
+                           s2d_downs: Optional[Mapping[int, torch.Tensor]] = None,
                            int32_accum_max_hw: int = 0) -> List[torch.Tensor]:
     """``int8_full``: every activation int8 at the static ``act_scales``,
     the convs of :func:`int8_full_conv_indices` int8 (exact int32 sums when
@@ -617,10 +943,13 @@ def apply_folded_int8_full(folded: Folded, qparams: QParams,
     above), the stem and the head convs in ``compute_dtype``.  Routes
     rescale each branch to the route's scale; shortcuts dequantize, add
     and requantize; max pool and upsample stay int8.  ``x`` is the f32 NHWC
-    input in [0, 1]; returns the f32 NHWC head maps."""
-    if s2d_stem is not None or s2d_downs:
-        raise NotImplementedError("the space-to-depth stems are not ported yet "
-                                  "(ROADMAP.md Queue 1)")
+    input in [0, 1]; returns the f32 NHWC head maps.
+
+    ``s2d_stem`` (:func:`make_s2d_stem_int8`) runs layers 0-1 on the s2d
+    grid: conv_a in ``compute_dtype`` with an f32 sum, quantized at conv
+    0's scale, the int8 conv_b (bf16-rounded sum, as the reference), then
+    quantized at conv 1's.  ``s2d_downs`` (:func:`make_s2d_down_int8`) runs
+    those convs on their input's s2d grid, with the same integer sums."""
     x = x.to(torch.float32)
     sc = q8.scale_tensors(act_scales, x.device)
     quantized = int8_full_conv_indices(spec)
@@ -630,7 +959,21 @@ def apply_folded_int8_full(folded: Folded, qparams: QParams,
     saved: Dict[int, Tuple[torch.Tensor, Optional[float]]] = {}
     head_maps: List[torch.Tensor] = []
     prev_q, prev_s = x, None
+    start = 0
+    if s2d_stem is not None:
+        a = _wide_conv(s2d_stem["wa"], s2d_stem["ba"], _space_to_depth(x.to(compute_dtype)),
+                       compute_dtype, 1, 1)
+        aq = q8.quant(_leaky(a), sc["0"])
+        y = _int8_epilogue(q8.conv_int8(aq, s2d_stem["wbq"], 1, (1, 0)),
+                           {"ws": s2d_stem["wbs"], "b": s2d_stem["bb"]}, act_scales["0"],
+                           spec.layers[1], False)
+        prev_q, prev_s = q8.quant(y, sc["1"]), act_scales["1"]
+        if 1 in last_use:
+            saved[1] = (prev_q, prev_s)
+        start = 2
     for i, layer in enumerate(spec.layers):
+        if i < start:
+            continue
         out_s: Optional[float] = None
         if isinstance(layer, ConvSpec):
             if i in quantized:
@@ -638,7 +981,8 @@ def apply_folded_int8_full(folded: Folded, qparams: QParams,
                     prev_q, prev_s = q8.quant(prev_q, sc["in"]), act_scales["in"]
                 out_hw = prev_q.shape[1] // layer.stride
                 y = _int8_conv(qparams[f"conv_{i}"], prev_q, prev_s, layer,
-                               out_hw <= int32_accum_max_hw)
+                               out_hw <= int32_accum_max_hw,
+                               s2d_downs.get(i) if s2d_downs else None)
                 out_q, out_s = q8.quant(y, sc[str(i)]), act_scales[str(i)]
             else:
                 y = _bf16_conv(folded, i, layer, _in_dtype(prev_q, prev_s, compute_dtype),
@@ -681,6 +1025,9 @@ __all__ = ["init_params", "apply", "fold_batchnorm", "fusible_residual_blocks",
            "quantize_folded_int8", "calibrate_act_scales", "apply_folded_int8",
            "int8_full_conv_indices", "quantize_folded_int8_full",
            "calibrate_act_scales_full", "apply_folded_int8_full",
+           "make_s2d_stem", "make_s2d_stem_int8", "make_s2d_down_int8", "s2d_stem_forward",
+           "s2d_train_stem_qualifies",
            "conv", "conv_layer", "folded_conv", "conv_bias", "activate", "bn_batch_moments",
-           "bn_moments_from_sums", "bn_running_stats", "bn_running_moments", "bn_normalize",
-           "BN_EPS", "BN_MOMENTUM", "LEAKY_SLOPE"]
+           "bn_batch_moments_matmul", "bn_moments_from_sums", "bn_running_stats",
+           "bn_running_moments", "bn_normalize", "BN_EPS", "BN_MOMENTUM", "BN_FORM",
+           "LEAKY_SLOPE"]

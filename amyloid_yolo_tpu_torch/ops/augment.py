@@ -24,8 +24,15 @@ two parts: :func:`draw_augment_params` makes the eight draws of
 16-row grouping of each shear pass (``_shear_rows``, ``:168-204``) is a TPU
 layout device with the same result as the per-row resample done here.
 
-Images are NHWC float32 in [0, 1]; every op is batched over images with
-per-image parameters, and nothing synchronises with the host.
+Images are float32 in [0, 1], NHWC, or with ``layout="planar"`` contiguous
+(B, 3, H, W): the reference's planar pipeline (``:238-406``), whose
+``_shear_rows_planar``, ``_affine_shear3_planar`` and ``_sharpen_planar``
+are the helpers below with ``planar=True``; ``_rgb_to_hsv`` and
+``_hsv_to_rgb`` take planes in either layout (its ``_rgb_to_hsv_planes``,
+``_hsv_to_rgb_planes``).  The draws do not depend on the layout, and
+neither do the results: each op does the same arithmetic on each pixel.
+Every op is batched over images with per-image parameters, and nothing
+synchronises with the host.
 """
 
 from __future__ import annotations
@@ -92,44 +99,52 @@ def _hsv_to_rgb(h, s, v):
     return select(v, q, p, p, t, v), select(t, v, v, q, p, p), select(p, p, t, v, v, q)
 
 
-def _sharpen(img: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+def _sharpen(img: torch.Tensor, alpha: torch.Tensor, planar: bool = False) -> torch.Tensor:
     """``(1 − α)·img + α·(img ⊛ SHARPEN_KERNEL)`` per channel, zero padded.
     The nine taps are summed elementwise, not by a convolution, so the card
     runs them in float32 whatever cuDNN's TF32 setting."""
-    h, w = img.shape[1], img.shape[2]
-    pad = F.pad(img, (0, 0, 1, 1, 1, 1))
+    h, w = img.shape[-2:] if planar else img.shape[1:3]
+    pad = F.pad(img, (1, 1, 1, 1) if planar else (0, 0, 1, 1, 1, 1))
     sharp = None
     for di in range(3):
         for dj in range(3):
-            tap = SHARPEN_KERNEL[di][dj] * pad[:, di:di + h, dj:dj + w]
+            win = pad[..., di:di + h, dj:dj + w] if planar else pad[:, di:di + h, dj:dj + w]
+            tap = SHARPEN_KERNEL[di][dj] * win
             sharp = tap if sharp is None else sharp + tap
     a = alpha[:, None, None, None]
     return (1 - a) * img + a * sharp
 
 
-def _shear_rows(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+def _shear_rows(img: torch.Tensor, shift: torch.Tensor, planar: bool = False) -> torch.Tensor:
     """Resample each row at ``x + shift[b, row]``: a 2-tap lerp with zeros
-    outside.  ``img`` (B, H, W, C), ``shift`` (B, H)."""
-    bsz, h, w, c = img.shape
+    outside.  ``img`` (B, H, W, C), or (B, C, H, W) with ``planar``;
+    ``shift`` (B, H)."""
+    w = img.shape[-1] if planar else img.shape[2]
     k = torch.floor(shift)
-    f = (shift - k)[..., None, None]
+    f = (shift - k)[..., None]
     i0 = torch.arange(w, device=img.device)[None, None, :] + k.long()[..., None]
+    if planar:  # (B, 1, H, W) over the channels
+        f, i0 = f[:, None], i0[:, None]
+    else:       # (B, H, W, 1)
+        f, i0 = f[..., None], i0[..., None]
+    dim = 3 if planar else 2
 
     def tap(idx):
-        inside = ((idx >= 0) & (idx < w))[..., None]
-        v = torch.gather(img, 2, idx.clamp(0, w - 1)[..., None].expand(-1, -1, -1, c))
+        inside = (idx >= 0) & (idx < w)
+        v = torch.gather(img, dim, idx.clamp(0, w - 1).expand_as(img))
         return torch.where(inside, v, 0.0)
 
     return (1.0 - f) * tap(i0) + f * tap(i0 + 1)
 
 
 def _affine_shear3(img: torch.Tensor, angle_deg: torch.Tensor, tx: torch.Tensor,
-                   ty: torch.Tensor) -> torch.Tensor:
+                   ty: torch.Tensor, planar: bool = False) -> torch.Tensor:
     """Rotate each image about its centre by ``angle_deg`` and translate by
     (tx, ty)·size, as three shear passes (x, y, x); the constants make the
     composition the exact inverse map of the 2-D warp (reference
     ``_affine_shear3``'s derivation)."""
-    s = img.shape[1]
+    s = img.shape[2] if planar else img.shape[1]
+    hw = (2, 3) if planar else (1, 2)
     c = (s - 1) / 2.0
     th = torch.deg2rad(angle_deg)[:, None]
     cos, sin = torch.cos(th), torch.sin(th)
@@ -141,9 +156,9 @@ def _affine_shear3(img: torch.Tensor, angle_deg: torch.Tensor, tx: torch.Tensor,
     d2 = c2 + sin * d3
     d1 = c1 - d3 - t2 * c2
     idx = torch.arange(s, dtype=torch.float32, device=img.device)[None, :]
-    out = _shear_rows(img, t2 * idx + d1)                                   # x
-    out = _shear_rows(out.transpose(1, 2), -sin * idx + d2).transpose(1, 2)  # y
-    return _shear_rows(out, t2 * idx + d3)                                  # x
+    out = _shear_rows(img, t2 * idx + d1, planar)                                  # x
+    out = _shear_rows(out.transpose(*hw), -sin * idx + d2, planar).transpose(*hw)  # y
+    return _shear_rows(out, t2 * idx + d3, planar)                                 # x
 
 
 def _affine_boxes(boxes: torch.Tensor, angle_deg: torch.Tensor, tx: torch.Tensor,
@@ -168,25 +183,29 @@ def _affine_boxes(boxes: torch.Tensor, angle_deg: torch.Tensor, tx: torch.Tensor
 
 
 def augment_batch(images: torch.Tensor, targets: torch.Tensor,
-                  target_mask: torch.Tensor, draws: Draws
+                  target_mask: torch.Tensor, draws: Draws, layout: str = "nhwc"
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Apply the policy with ``draws`` (:func:`draw_augment_params`) to
-    ``images`` (B, S, S, 3) float32 in [0, 1] and the padded targets
-    (T, 6) rows ``(batch_idx, class, cx, cy, w, h)``; returns (images,
-    targets, target_mask)."""
+    ``images`` (B, S, S, 3) float32 in [0, 1] — (B, 3, S, S) with
+    ``layout="planar"`` — and the padded targets (T, 6) rows
+    ``(batch_idx, class, cx, cy, w, h)``; returns (images, targets,
+    target_mask)."""
+    planar = layout == "planar"
     bsz = images.shape[0]
-    img = torch.where(draws["drop_u"][..., None] < draws["drop_rate"][:, None, None, None],
-                      0.0, images)                                           # dropout
-    img = _sharpen(img, draws["sharp_alpha"])                               # sharpen
+    per_image = (slice(None), None, None, None)
+    drop_u = draws["drop_u"][:, None] if planar else draws["drop_u"][..., None]
+    img = torch.where(drop_u < draws["drop_rate"][per_image], 0.0, images)        # dropout
+    img = _sharpen(img, draws["sharp_alpha"], planar)                            # sharpen
     angle, trans = draws["angle"], draws["trans"]
-    img = _affine_shear3(img, angle, trans[:, 0], trans[:, 1])              # affine
-    img = torch.clamp(img + draws["bright"][:, None, None, None], 0.0, 1.0)  # brightness
-    img = torch.clamp(img, 0.0, 1.0)                                        # hue
-    h, s, v = _rgb_to_hsv(img[..., 0], img[..., 1], img[..., 2])
+    img = _affine_shear3(img, angle, trans[:, 0], trans[:, 1], planar)           # affine
+    img = torch.clamp(img + draws["bright"][per_image], 0.0, 1.0)                # brightness
+    img = torch.clamp(img, 0.0, 1.0)                                             # hue
+    cdim = 1 if planar else 3
+    h, s, v = _rgb_to_hsv(*img.unbind(cdim))
     h = torch.remainder(h + draws["hue"][:, None, None], 1.0)
-    img = torch.stack(_hsv_to_rgb(h, s, v), dim=-1)
+    img = torch.stack(_hsv_to_rgb(h, s, v), dim=cdim)
     flip = draws["flip"]
-    img = torch.where(flip[:, None, None, None], img.flip(2), img)          # flip
+    img = torch.where(flip[per_image], img.flip(3 if planar else 2), img)        # flip
 
     bidx = targets[:, 0].long().clamp(0, bsz - 1)
     box = _affine_boxes(targets[:, 2:6], angle[bidx], trans[bidx, 0], trans[bidx, 1])

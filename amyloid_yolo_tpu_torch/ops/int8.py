@@ -5,9 +5,11 @@
   and more than 16 rows; the operands are zero-padded to fit, which adds
   exact zeros to every sum.
 * :func:`conv_int8` — an int8 NHWC convolution with an exact int32 result:
-  one GEMM for a 1×1, nine shifted GEMMs for a 3×3 (strided rows for stride
-  2), and one GEMM on an im2col matrix when the input has fewer than a
-  multiple of 8 channels (the RGB stem, K = 27 → 32).  int8 ``F.conv2d`` and
+  one GEMM for a 1×1, one shifted GEMM a tap otherwise (nine for a 3×3,
+  strided rows for stride 2; four for the space-to-depth 2×2, whose zero
+  padding is one row and column before the map and none after), and one
+  GEMM on an im2col matrix when the input has fewer than a multiple of 8
+  channels (the RGB stem, K = 27 → 32).  int8 ``F.conv2d`` and
   ``F.unfold`` do not exist on CUDA.
 * :func:`quant` — ``clip(round(y / s), ±127)`` with true division: ``s`` is
   a float32 tensor on ``y``'s device (:func:`scale_tensors`), because on
@@ -46,17 +48,19 @@ def int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out[:m, :n] if pad_m or pad_n else out
 
 
-def conv_int8(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1, pad: int = 0
+def conv_int8(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1, pad=0
               ) -> torch.Tensor:
     """``xq`` (B, H, W, C) int8, ``wq`` (O, C, k, k) int8 → exact int32
-    (B, Ho, Wo, O), zero padding."""
+    (B, Ho, Wo, O), zero padding: ``pad`` rows and columns on each side, or
+    a pair ``(before, after)`` (top and left, bottom and right)."""
     b, h, w, c = xq.shape
     o, _, k, _ = wq.shape
-    ho = (h + 2 * pad - k) // stride + 1
-    wo = (w + 2 * pad - k) // stride + 1
-    if k == 1 and stride == 1 and pad == 0:
+    p0, p1 = (pad, pad) if isinstance(pad, int) else pad
+    ho = (h + p0 + p1 - k) // stride + 1
+    wo = (w + p0 + p1 - k) // stride + 1
+    if k == 1 and stride == 1 and p0 == p1 == 0:
         return int_mm(xq.reshape(-1, c), wq.reshape(o, c)).reshape(b, h, w, o)
-    xp = F.pad(xq, (0, 0, pad, pad, pad, pad)) if pad else xq
+    xp = F.pad(xq, (0, 0, p0, p1, p0, p1)) if p0 or p1 else xq
 
     def tap(di: int, dj: int) -> torch.Tensor:
         return xp[:, di:di + stride * (ho - 1) + 1:stride,

@@ -32,17 +32,26 @@ def nearest_indices(out_size: int, in_size: int) -> np.ndarray:
     return np.minimum(idx, in_size - 1)
 
 
-def resize_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
-    """Nearest-neighbour resize of an NHWC (or HWC) tensor to (size, size)."""
-    h_axis, w_axis = x.dim() - 3, x.dim() - 2
+def resize_nearest(x: torch.Tensor, size: int, *, layout: str = "nhwc") -> torch.Tensor:
+    """Nearest-neighbour resize to (size, size) of an NHWC (or HWC) tensor,
+    or with ``layout="planar"`` of a (B, C, H, W) (or (C, H, W)) one."""
+    if layout == "planar":
+        h_axis, w_axis = x.dim() - 2, x.dim() - 1
+    else:
+        h_axis, w_axis = x.dim() - 3, x.dim() - 2
     hi = torch.from_numpy(nearest_indices(size, x.shape[h_axis])).to(x.device)
     wi = torch.from_numpy(nearest_indices(size, x.shape[w_axis])).to(x.device)
     return x.index_select(h_axis, hi).index_select(w_axis, wi)
 
 
-def preprocess_tiles(tiles_u8: torch.Tensor, model_size: int = 416) -> torch.Tensor:
-    """uint8 NHWC square tiles → float32 NHWC model input in [0, 1]."""
-    x = resize_nearest(tiles_u8, model_size)
+def preprocess_tiles(tiles_u8: torch.Tensor, model_size: int = 416, *,
+                     layout: str = "nhwc") -> torch.Tensor:
+    """uint8 NHWC square tiles → float32 model input in [0, 1]: NHWC, or
+    with ``layout="planar"`` contiguous (B, C, H, W), the tiles permuted
+    once while they are uint8 (the reference's planar train step)."""
+    if layout == "planar":
+        tiles_u8 = tiles_u8.permute(0, 3, 1, 2).contiguous()
+    x = resize_nearest(tiles_u8, model_size, layout=layout)
     return x.to(torch.float32) * RECIP_255
 
 

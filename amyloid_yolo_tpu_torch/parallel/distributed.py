@@ -36,7 +36,7 @@ import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 
 from .mesh import Mesh, normalize_device
-from .steps import _loss, _device, flat_cat, flat_split, record_function, shard_batch, \
+from .steps import Layout, _loss, _device, flat_cat, flat_split, record_function, shard_batch, \
     trainable_keys
 from ..ops.augment import draw_augment_params
 from ..utils.device import resolve_device
@@ -155,7 +155,7 @@ class ProcessShards:
         self.world = mesh.size
 
     def run(self, params, spec, batch, rng, img_size: int, augment: bool,
-            compute_dtype: torch.dtype):
+            compute_dtype: torch.dtype, layout: Layout = Layout()):
         """The global batch's loss, with the global loss's gradient added
         into ``params``' ``.grad`` on every rank: ``(loss, new_stats,
         per_head, images)``, ``images`` counting the global batch."""
@@ -168,9 +168,10 @@ class ProcessShards:
             if augment:  # the global batch's draws, this rank's rows
                 draws = {k: v[row0:row0 + b] for k, v in
                          draw_augment_params(rng, b * self.world, img_size, dev).items()}
-            shard_in = shard_batch(images_u8, targets, target_mask, row0, img_size, dev, draws)
+            shard_in = shard_batch(images_u8, targets, target_mask, row0, img_size, dev, draws,
+                                   layout.image_layout)
         total, new_stats, per_head = _loss(params, spec, *shard_in, img_size, compute_dtype,
-                                           _GroupReducer(self.world))
+                                           _GroupReducer(self.world), layout)
         keys = trainable_keys(params)
         tensors = [params[k] for k in keys]
         with record_function("train/backward"):

@@ -70,7 +70,7 @@ from ..ops.loss import yolo_loss
 from ..ops.nms import non_max_suppression
 from ..ops.preprocess import RECIP_255
 from .mesh import Mesh, make_mesh, replicate, to_device
-from .steps import StepFn, _device, _precision, flat_cat, prepare_batch, record_function
+from .steps import Layout, StepFn, _device, _precision, flat_cat, prepare_batch, record_function
 
 
 @dataclasses.dataclass(frozen=True)
@@ -393,15 +393,24 @@ class SpatialShards:
         self.mesh = mesh
 
     def run(self, params: StateDict, spec: GraphSpec, batch, rng, img_size: int,
-            augment: bool, compute_dtype: torch.dtype):
+            augment: bool, compute_dtype: torch.dtype, layout: Layout = Layout()):
         """The global batch's loss, its gradient added into ``params``'
-        ``.grad``: ``(loss, new_stats, per_head, images)``."""
+        ``.grad``: ``(loss, new_stats, per_head, images)``.  The shards run
+        the plain stem and the ``"reduce"`` BN form: ``layout.s2d_stem``
+        raises (the s2d stem on row shards is not ported, ROADMAP.md
+        Queue 1)."""
         first = self.mesh.devices[0]
         if _device(params) != first:
             raise ValueError(f"the parameters are on {_device(params)}, not on the mesh's "
                              f"first device {first}")
+        if layout.s2d_stem:
+            raise ValueError("the s2d stem is not ported to the height-sharded step "
+                             "(ROADMAP.md Queue 1)")
         with record_function("train/augment"):
-            images, targets, target_mask = prepare_batch(*batch, img_size, first, augment, rng)
+            images, targets, target_mask = prepare_batch(*batch, img_size, first, augment, rng,
+                                                         layout.image_layout)
+            if layout.image_layout == "planar":
+                images = images.permute(0, 2, 3, 1)  # the NHWC view apply_sharded takes
         with record_function("train/forward"):
             maps, new_stats = apply_sharded(params, spec, images, self.mesh,
                                             compute_dtype=compute_dtype, train=True)

@@ -23,6 +23,14 @@ reference trainer ``train.py:81``, ``:104-156``):
   only on applies, with TensorFlow's ramp ``min(decay, (1 + t)/(10 + t))``
   on ``t = state.step``.
 
+The reference's layout options of a step (:class:`Layout`):
+``s2d_stem`` runs layers 0-1 on the space-to-depth grid
+(``darknet.apply(s2d_stem=True)``), and ``image_layout="planar"`` runs
+the resize and the augmentation on (B, 3, H, W) images, the tiles permuted
+once while uint8; the defaults (``False``, ``"nhwc"``) are the
+reference's.  The BN statistics' form is ``darknet.BN_FORM``
+(``AMYOLO_BN_FORM``).  Each computes the same step up to summation order.
+
 The state is updated in place (PyTorch's idiom): parameters are leaf
 tensors of a state dict in the reference layout, the trainable ones with
 ``requires_grad``.  In float32 on the card the convolutions run in full
@@ -147,6 +155,13 @@ def applies_done(opt: torch.optim.Adam) -> int:
     return 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A step's ``s2d_stem`` and ``image_layout`` (see the module docstring)."""
+    s2d_stem: bool = False
+    image_layout: str = "nhwc"
+
+
 @dataclasses.dataclass
 class TrainState:
     params: StateDict           # reference-layout state dict on the device
@@ -210,33 +225,38 @@ def _device(params: StateDict) -> torch.device:
 
 
 def prepare_batch(images_u8, targets, target_mask, img_size: int, device: torch.device,
-                  augment: bool = False, rng: Optional[torch.Generator] = None
+                  augment: bool = False, rng: Optional[torch.Generator] = None,
+                  image_layout: str = "nhwc"
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Host or device uint8 NHWC batch and padded targets → the float32
-    model input at ``img_size`` (nearest resize, /255), augmented with draws
-    from ``rng`` when ``augment``."""
+    model input at ``img_size`` (nearest resize, /255; NHWC, or (B, 3, H,
+    W) with ``image_layout="planar"``), augmented with draws from ``rng``
+    when ``augment``."""
     images_u8 = torch.as_tensor(images_u8).to(device)
     targets = torch.as_tensor(targets).to(device, torch.float32)
     target_mask = torch.as_tensor(target_mask).to(device, torch.bool)
-    images = preprocess_tiles(images_u8, img_size)
+    images = preprocess_tiles(images_u8, img_size, layout=image_layout)
     if augment:
         draws = draw_augment_params(rng, images.shape[0], img_size, device)
-        images, targets, target_mask = augment_batch(images, targets, target_mask, draws)
+        images, targets, target_mask = augment_batch(images, targets, target_mask, draws,
+                                                     image_layout)
     return images, targets, target_mask
 
 
 def _loss(params: StateDict, spec: GraphSpec, images, targets, target_mask, img_size: int,
-          compute_dtype: torch.dtype, reducer=None):
+          compute_dtype: torch.dtype, reducer=None, layout: Layout = Layout()):
     with record_function("train/forward"):
         maps, new_stats = darknet.apply(params, spec, images, compute_dtype=compute_dtype,
-                                        train=True, reducer=reducer)
+                                        train=True, reducer=reducer, s2d_stem=layout.s2d_stem,
+                                        input_layout=layout.image_layout)
     with record_function("train/loss"):
         total, per_head = yolo_loss(maps, spec, img_size, targets, target_mask, reducer)
     return total, new_stats, per_head
 
 
 def shard_batch(images_u8, targets, target_mask, row0: int, img_size: int,
-                device: torch.device, draws: Optional[Dict[str, torch.Tensor]] = None
+                device: torch.device, draws: Optional[Dict[str, torch.Tensor]] = None,
+                image_layout: str = "nhwc"
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One shard's model input: its uint8 images (the global batch's rows
     ``row0 ..``) resized and scaled on ``device``, augmented with its rows
@@ -248,9 +268,10 @@ def shard_batch(images_u8, targets, target_mask, row0: int, img_size: int,
     local = targets[:, :1] - row0
     target_mask = target_mask & (local[:, 0] >= 0) & (local[:, 0] < images_u8.shape[0])
     targets = torch.cat([local, targets[:, 1:]], dim=1)
-    images = preprocess_tiles(images_u8, img_size)
+    images = preprocess_tiles(images_u8, img_size, layout=image_layout)
     if draws is not None:
-        images, targets, target_mask = augment_batch(images, targets, target_mask, draws)
+        images, targets, target_mask = augment_batch(images, targets, target_mask, draws,
+                                                     image_layout)
     return images, targets, target_mask
 
 
@@ -310,7 +331,7 @@ class MeshShards:
         self.mesh = mesh
 
     def run(self, params: StateDict, spec: GraphSpec, batch, rng, img_size: int,
-            augment: bool, compute_dtype: torch.dtype):
+            augment: bool, compute_dtype: torch.dtype, layout: Layout = Layout()):
         """The global batch's loss, its gradient added into ``params``'
         ``.grad``: ``(loss, new_stats, per_head, images)``."""
         devices = self.mesh.devices
@@ -333,8 +354,9 @@ class MeshShards:
                     d = ({key: to_device(v[rows], dev) for key, v in draws.items()}
                          if augment else None)
                     shard_in = shard_batch(images_u8[rows], targets, target_mask, k * b,
-                                           img_size, dev, d)
-                return _loss(p, spec, *shard_in, img_size, compute_dtype, reducer.view(k))
+                                           img_size, dev, d, layout.image_layout)
+                return _loss(p, spec, *shard_in, img_size, compute_dtype, reducer.view(k),
+                             layout)
 
         total, new_stats, per_head = _run_threads(shard, len(devices), reducer.barrier)[0]
         with record_function("train/backward"):
@@ -371,8 +393,8 @@ def _run_threads(fn: Callable[[int], object], n: int, barrier: threading.Barrier
 
 def _micro_step(state: TrainState, spec: GraphSpec, optimizer: Optimizer, batch, rng,
                 img_size: int, augment: bool, compute_dtype: torch.dtype,
-                ema_decay: Optional[float], do_apply: bool, shards=None
-                ) -> Dict[str, torch.Tensor]:
+                ema_decay: Optional[float], do_apply: bool, shards=None,
+                layout: Layout = Layout()) -> Dict[str, torch.Tensor]:
     """One micro-batch: forward and backward (gradients add into ``.grad``),
     the apply when ``do_apply``, the BN running statistics, the EMA on an
     apply, the counters.  ``shards`` (:class:`MeshShards`,
@@ -383,17 +405,19 @@ def _micro_step(state: TrainState, spec: GraphSpec, optimizer: Optimizer, batch,
     dev = _device(state.params)
     if shards is None:
         with record_function("train/augment"):
-            images, targets, target_mask = prepare_batch(*batch, img_size, dev, augment, rng)
+            images, targets, target_mask = prepare_batch(*batch, img_size, dev, augment, rng,
+                                                         layout.image_layout)
         with _precision(compute_dtype, dev):
             total, new_stats, per_head = _loss(state.params, spec, images, targets,
-                                               target_mask, img_size, compute_dtype)
+                                               target_mask, img_size, compute_dtype,
+                                               layout=layout)
             with record_function("train/backward"):
                 total.backward()
         n_images = images.shape[0]
     else:
         with _precision(compute_dtype, dev):
             total, new_stats, per_head, n_images = shards.run(
-                state.params, spec, batch, rng, img_size, augment, compute_dtype)
+                state.params, spec, batch, rng, img_size, augment, compute_dtype, layout)
     with record_function("train/optimizer"):
         if do_apply:
             optimizer.apply(state.optimizer)
@@ -423,19 +447,21 @@ StepFn = Callable[..., Tuple[object, Dict[str, torch.Tensor]]]
 
 
 def make_train_step(spec: GraphSpec, optimizer: Optimizer, *, augment: bool = True,
-                    compute_dtype: torch.dtype = torch.float32,
-                    ema_decay: Optional[float] = None) -> StepFn:
+                    compute_dtype: torch.dtype = torch.float32, s2d_stem: bool = False,
+                    image_layout: str = "nhwc", ema_decay: Optional[float] = None) -> StepFn:
     """``step(state, images_u8 (B, S0, S0, 3), targets (T, 6), target_mask
     (T,), rng, img_size) -> (state, metrics)``: one micro-batch and one
     Adam apply (reference ``make_train_step``, ``parallel/steps.py:146-214``).
     ``rng`` is a ``torch.Generator`` on the device (read only when
-    ``augment``); ``shards`` runs it data parallel (:func:`shard_train_step`)."""
+    ``augment``); ``shards`` runs it data parallel (:func:`shard_train_step`);
+    ``s2d_stem`` and ``image_layout`` as the module docstring says."""
+    layout = Layout(s2d_stem, image_layout)
 
     def step(state: TrainState, images_u8, targets, target_mask, rng, img_size: int,
              shards=None):
         metrics = _micro_step(state, spec, optimizer, (images_u8, targets, target_mask), rng,
                               img_size, augment, compute_dtype, ema_decay, do_apply=True,
-                              shards=shards)
+                              shards=shards, layout=layout)
         return state, metrics
 
     return step
@@ -443,6 +469,7 @@ def make_train_step(spec: GraphSpec, optimizer: Optimizer, *, augment: bool = Tr
 
 def make_accum_train_step(spec: GraphSpec, optimizer: Optimizer, accum_steps: int, *,
                           augment: bool = True, compute_dtype: torch.dtype = torch.float32,
+                          s2d_stem: bool = False, image_layout: str = "nhwc",
                           ema_decay: Optional[float] = None) -> StepFn:
     """The reference's accumulation schedule (``parallel/steps.py:217-331``,
     ``train.py:113-119``): every micro-batch runs forward and backward
@@ -451,13 +478,14 @@ def make_accum_train_step(spec: GraphSpec, optimizer: Optimizer, accum_steps: in
     it, and the EMA follows the applies.  ``step(astate, ...) -> (astate,
     metrics)``, the arguments as :func:`make_train_step`'s; ``metrics
     ["applied"]`` is 1.0 on an apply."""
+    layout = Layout(s2d_stem, image_layout)
 
     def step(astate: AccumState, images_u8, targets, target_mask, rng, img_size: int,
              shards=None):
         do_apply = astate.micro % accum_steps == 0
         metrics = _micro_step(astate.inner, spec, optimizer, (images_u8, targets, target_mask),
                               rng, img_size, augment, compute_dtype, ema_decay, do_apply,
-                              shards=shards)
+                              shards=shards, layout=layout)
         astate.micro += 1
         metrics["applied"] = float(do_apply)
         return astate, metrics
@@ -466,11 +494,14 @@ def make_accum_train_step(spec: GraphSpec, optimizer: Optimizer, accum_steps: in
 
 
 def make_grad_step(spec: GraphSpec, *, augment: bool = False,
-                   compute_dtype: torch.dtype = torch.float32) -> Callable:
+                   compute_dtype: torch.dtype = torch.float32, s2d_stem: bool = False,
+                   image_layout: str = "nhwc") -> Callable:
     """``grad_step(params, images_u8, targets, target_mask, img_size, rng=None,
     shards=None) -> (loss, grads, new_stats)``: the gradient of the loss with
     respect to every trainable parameter, no optimizer (reference
-    ``make_grad_step``); ``shards`` as the train steps take it."""
+    ``make_grad_step``); ``shards``, ``s2d_stem`` and ``image_layout`` as
+    the train steps take them."""
+    layout = Layout(s2d_stem, image_layout)
 
     def grad_step(params: StateDict, images_u8, targets, target_mask, img_size: int,
                   rng: Optional[torch.Generator] = None, shards=None):
@@ -482,13 +513,15 @@ def make_grad_step(spec: GraphSpec, *, augment: bool = False,
         if shards is not None:
             with _precision(compute_dtype, dev):
                 total, new_stats, _, _ = shards.run(p, spec, (images_u8, targets, target_mask),
-                                                    rng, img_size, augment, compute_dtype)
+                                                    rng, img_size, augment, compute_dtype,
+                                                    layout)
             return total.detach(), {k: p[k].grad for k in keys}, new_stats
         images, targets, target_mask = prepare_batch(images_u8, targets, target_mask,
-                                                     img_size, dev, augment, rng)
+                                                     img_size, dev, augment, rng,
+                                                     image_layout)
         with _precision(compute_dtype, dev):
             total, new_stats, _ = _loss(p, spec, images, targets, target_mask, img_size,
-                                        compute_dtype)
+                                        compute_dtype, layout=layout)
             grads = torch.autograd.grad(total, [p[k] for k in keys])
         return total.detach(), dict(zip(keys, grads)), new_stats
 
@@ -524,7 +557,7 @@ def shard_train_step(step_fn: StepFn, mesh: Mesh) -> StepFn:
     return sharded
 
 
-__all__ = ["TrainState", "AccumState", "Optimizer", "make_optimizer", "applies_done",
+__all__ = ["Layout", "TrainState", "AccumState", "Optimizer", "make_optimizer", "applies_done",
            "init_train_state", "init_accum_state", "make_train_step",
            "make_accum_train_step", "make_grad_step", "make_eval_forward",
            "prepare_batch", "shard_batch", "trainable_keys", "MeshShards", "SHARD_WAIT_S",

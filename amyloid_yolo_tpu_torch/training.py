@@ -40,9 +40,14 @@ Several devices (the reference's ``training.py:113-205``):
   ``data_parallel``.  It does not compose with ``distributed``
   (``ValueError``, as the reference's ``training.py:188-191``).
 
-``s2d_stem`` and ``image_layout``
-select TPU layouts of the same function; the port runs its one plain path
-whatever they say.
+``s2d_stem`` (``None``: on where the spec has the YOLOv3 stem with BN, as
+the reference's ``training.py:165-173`` decides; ``Trainer.s2d_stem`` is
+the resolved value) and ``image_layout`` (``"planar"`` by default) are the
+reference's layout options of the step (``parallel.steps``): the same
+function up to summation order.  Under ``spatial_shard > 1`` the stem is
+the plain one: ``None`` resolves to ``False`` and ``True`` raises
+``ValueError`` (the s2d stem on row shards is not ported, ROADMAP.md
+Queue 1), where the reference runs its s2d stem there.
 """
 
 from __future__ import annotations
@@ -101,10 +106,10 @@ class TrainConfig:
     eval_nms_capacity: int = 128            # NMS pool of the in-training eval
     cache_images: bool = False              # keep decoded images in RAM across epochs
     host_resize: bool = False               # nearest resize on the host, bit-identical
-    s2d_stem: Optional[bool] = None         # a TPU layout; the port's path is plain
+    s2d_stem: Optional[bool] = None         # space-to-depth stem; None = where the spec has it
     keep_checkpoints: Optional[int] = None  # keep the last N epochs and every best
     ema_decay: Optional[float] = None       # EMA of all parameters, on applies
-    image_layout: str = "planar"            # a TPU layout; the port's path is plain
+    image_layout: str = "planar"            # "planar" (B, 3, H, W) or "nhwc" in-step images
 
 
 class Trainer:
@@ -178,7 +183,15 @@ class Trainer:
                                                 device=self.device)
         self.accum = max(1, int(cfg.gradient_accumulations or 1))
         self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        s2d = cfg.s2d_stem
+        if s2d is None:  # auto, as the reference; the height-sharded step has no s2d stem
+            s2d = n_sp == 1 and darknet.s2d_train_stem_qualifies(self.spec)
+        elif s2d and n_sp > 1:
+            raise ValueError("s2d_stem=True does not compose with spatial_shard > 1: the "
+                             "s2d stem on row shards is not ported (ROADMAP.md Queue 1)")
+        self.s2d_stem = bool(s2d)
         kw = dict(augment=cfg.augment, compute_dtype=self.compute_dtype,
+                  s2d_stem=self.s2d_stem, image_layout=cfg.image_layout,
                   ema_decay=cfg.ema_decay)
         self.step_fn = (
             steps_mod.make_accum_train_step(self.spec, self.optimizer, self.accum, **kw)

@@ -178,7 +178,33 @@ Phases (any failure exits non-zero; nothing is caught):
    True)`` on a synthetic CSV pair, the filter on the card within
    ``PREPROCESS_TOL`` of the CPU; (e) ``examples/run_study_torch.py
    --synthetic`` in a process of its own: exit 0 and its five stages;
-16. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
+16. the layout options (``Detector(s2d_stem=, s2d_downsample=)``, the train
+   steps' ``s2d_stem`` and ``image_layout``, ``bn_form``), at the same width
+   with the weights of phase 6, conf 0.3, every float32 reference with TF32
+   off: (a) ``Detector(s2d_stem=True)`` on 3 batches of 8: K1/K2/K3
+   3/69/0, head maps within ``HEAD_TOL`` of the plain-stem Detector's;
+   float32 Detectors, s2d against plain, within ``S2D_F32_TOL``; (b)
+   ``int8_full`` with the s2d stem, and with ``s2d_downsample`` too, on one
+   calibration (a sidecar): 3/0/0 each over 3 batches, the stem's head
+   maps within ``HEAD_TOL`` of the plain ``int8_full``'s and no further
+   from them than they lie from the float32 Detector's, the s2d downsample
+   bit-exact against the plain conv 5 at ``int32_accum_max_hw=416``; (c)
+   one float32 micro-step at B=8 (augment off), s2d against plain: loss
+   within ``S2D_LOSS_RTOL``, the whole gradient's cosine above ``S2D_GRAD_COS`` (see there), and the
+   gradients of a float64 forward at B=2 within ``S2D_F64_GRAD_RTOL``; an
+   augmented batch planar against nhwc within
+   ``PLANAR_TOL``, targets equal; the train forward with ``bn_form=
+   "matmul"`` against ``"reduce"``: loss within ``BN_FORM_LOSS_RTOL``;
+   the new BN statistics of the s2d and the matmul train forwards within
+   ``STEP_RTOL`` and ``BN_FORM_STAT_RTOL``, or phase 11's noise rule where
+   that is wider (see there); 0/0/0 launches over (c); (d)
+   times with their spread (``TIME_RUNS`` runs): the bf16 Detector at B=8
+   and 32 with and without the s2d stem, ``int8_full`` at B=32 with the
+   CLI's fast-path kwargs (s2d stem) and without the stem, layers 0-1
+   alone at B=32 (plain and s2d, device time), and the bf16 B=8 micro-step
+   plain or s2d, reduce or matmul, each with the host's enqueue and a
+   ``torch.profiler`` breakdown;
+17. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
    every path above), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -887,35 +913,43 @@ def trainer_run(spec, data: str, root: str, dev, size: int) -> dict:
     return rec
 
 
-def step_times(spec, params, dev, rng, size: int, side: int, dtype) -> dict:
+def step_times(spec, params, dev, rng, size: int, side: int, dtype, s2d_stem: bool = False,
+               bn_form: str = "reduce") -> dict:
     """(e): ms per B=8 micro-step (accumulation 2, augment on, inputs on the
-    card) between CUDA events, 3 warm-up steps then 10 timed one by one."""
+    card) between CUDA events, 3 warm-up steps then 10 timed one by one;
+    ``s2d_stem`` and the BN form as phase 16 (d) sets them."""
     import numpy as np
     import torch
+    from amyloid_yolo_tpu_torch.models import darknet
     from amyloid_yolo_tpu_torch.parallel import steps
     opt = steps.make_optimizer()
     astate = steps.init_accum_state(steps.init_train_state(params, opt, device=dev))
-    step = steps.make_accum_train_step(spec, opt, 2, augment=True, compute_dtype=dtype)
+    step = steps.make_accum_train_step(spec, opt, 2, augment=True, compute_dtype=dtype,
+                                       s2d_stem=s2d_stem)
     batch = [torch.as_tensor(a).to(dev) for a in train_batch(rng, 8, side)]
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for _ in range(STEP_WARMUP):
+    form, darknet.BN_FORM = darknet.BN_FORM, bn_form
+    try:
+        for _ in range(STEP_WARMUP):
+            step(astate, *batch, gen, size)
+        torch.cuda.synchronize()
+        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(STEP_ITERS)]
+        host_ms = []
+        for a, b in marks:
+            t0 = time.perf_counter()
+            a.record()
+            step(astate, *batch, gen, size)
+            b.record()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in marks]
+        torch.cuda.reset_peak_memory_stats()
         step(astate, *batch, gen, size)
-    torch.cuda.synchronize()
-    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-             for _ in range(STEP_ITERS)]
-    host_ms = []
-    for a, b in marks:
-        t0 = time.perf_counter()
-        a.record()
-        step(astate, *batch, gen, size)
-        b.record()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    ms = [a.elapsed_time(b) for a, b in marks]
-    torch.cuda.reset_peak_memory_stats()
-    step(astate, *batch, gen, size)
-    torch.cuda.synchronize()
-    prof = profile_train_step(step, astate, batch, gen, size)
+        torch.cuda.synchronize()
+        prof = profile_train_step(step, astate, batch, gen, size)
+    finally:
+        darknet.BN_FORM = form
     return {"ms": ms, "median_ms": float(np.median(ms)), "min_ms": min(ms), "max_ms": max(ms),
             "host_enqueue_ms": host_ms, "host_enqueue_median_ms": float(np.median(host_ms)),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "profile": prof}
@@ -2753,6 +2787,333 @@ def study_phase(spec, params, card: str, dev, size: int = 416, folder_kw=None) -
     return record
 
 
+# --------------------------------------------------------------------------
+# phase 16: the layout options (space-to-depth stem and downsample, planar
+# images, BN statistics as products)
+# --------------------------------------------------------------------------
+
+S2D_F32_TOL = 1e-4        # (a) max |s2d - plain| / max |plain| per head, float32, TF32 off
+# (b) the int8_full s2d stem against the plain stem: conv 0's float32 sums in
+# another order flip some of its int8 levels, and YOLOv3's 70 int8 layers
+# carry the flips to the heads.  The mini spec's bound (0.02 of the map,
+# tests/test_s2d_stem.py:133) does not hold at full depth: the first run on
+# the card (H100, 416, B=8) measured 0.0437, 0.0139, 0.00487.  So each head
+# must lie within HEAD_TOL (phase 7's bound on the int8 maps, card against
+# CPU) and no further from the plain stem's map than that map lies from the
+# float32 Detector's (the int8 path's own error)
+S2D_LOSS_RTOL = 2e-4      # (c) loss, s2d against the plain stem (tests/test_s2d_train.py:64)
+PLANAR_TOL = 1e-5         # (c) augmented images, planar against nhwc
+BN_FORM_LOSS_RTOL = 1e-4  # (c) loss, bn_form "matmul" against "reduce"
+BN_FORM_STAT_RTOL = 1e-5  # (c) new BN statistics, the same (tests/test_bnstats.py:95-108)
+# (c) The statistics' bounds come from the mini spec.  Through YOLOv3's 72 BN
+# layers each layer's reordered sums move the next one's input, and a CPU
+# rehearsal at 64², B=2 put s2d and matmul at 6.0e-5 of a tensor's largest
+# value, with three other orders of the batch at up to 3.3e-5: so each bound
+# is the larger of the stated one and STEP_GRAD_NOISE_FACTOR times the worst
+# of those orders (phase 11's noise rule)
+TIME_RUNS = 3             # (d) timings: runs of cuda_ms, their spread printed
+# (c) gradients, s2d against plain.  In float32 the stem's other summation
+# order flips leaky slopes of units near zero downstream, and the gradients
+# move by more than phase 11's noise rule allows (a CPU rehearsal at 64², B=2:
+# median 1.1e-3 and worst 2.3e-2 against 1.3e-4 and 2.6e-3 for the plain step
+# with the batch reversed), so float32 is held to the JAX suite's rule for
+# this pair, the cosine of the whole gradient (tests/test_s2d_train.py:152),
+# and the reparameterization itself in float64, where no slope flips (the
+# rehearsal: 1.2e-13)
+S2D_GRAD_COS = 0.999
+S2D_F64_GRAD_RTOL = 1e-9
+
+
+def _head_rel(maps, ref) -> list:
+    return [float((m.float() - r.float()).abs().max() / r.float().abs().max())
+            for m, r in zip(maps, ref)]
+
+
+def _stat_rel(stats, ref) -> tuple:
+    rel = {k: float((v - ref[k]).abs().max() / ref[k].abs().max().clamp(min=1e-30))
+           for k, v in stats.items()}
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst]
+
+
+def _spread(fn, **kw) -> dict:
+    import numpy as np
+    runs = [cuda_ms(fn, **kw) for _ in range(TIME_RUNS)]
+    return {"runs_ms": runs, "median_ms": float(np.median(runs)), "min_ms": min(runs),
+            "max_ms": max(runs)}
+
+
+def _f64_grads(spec, params, dev, imgs, size: int, s2d: bool) -> dict:
+    """Gradients of a smooth loss of the head maps (``Σ m² + m·r``, ``r``
+    seeded noise) through the float64 train forward, for ``imgs`` (uint8
+    NHWC) resized to ``size``."""
+    import torch
+    from amyloid_yolo_tpu_torch.models import darknet
+    from amyloid_yolo_tpu_torch.ops.preprocess import preprocess_tiles
+    from amyloid_yolo_tpu_torch.parallel import steps
+    f64 = torch.float64
+    p = {k: (v.to(dev, f64).requires_grad_(True) if k.endswith((".weight", ".bias"))
+             else v.to(dev, f64) if v.is_floating_point() else v.to(dev))
+         for k, v in params.items()}
+    x = preprocess_tiles(torch.as_tensor(imgs).to(dev), size).to(f64)
+    maps, _ = darknet.apply(p, spec, x, train=True, s2d_stem=s2d, compute_dtype=f64,
+                            bn_form="reduce")
+    gen = torch.Generator().manual_seed(SEED)
+    total = sum((m * m + m * torch.randn(m.shape, generator=gen, dtype=f64).to(dev)).sum()
+                for m in maps)
+    keys = steps.trainable_keys(p)
+    return dict(zip(keys, torch.autograd.grad(total, [p[k] for k in keys])))
+
+
+def layout_phase(spec, params, card: str, dev, size: int = 416, side: int = 1536,
+                 batch: int = 8, big: int = 32) -> dict:
+    """Phase 16: the reference's layout options on the main path's entry
+    points, at the full width with phase 6's weights (see the module
+    docstring); returns its JSON record.  ``size``, ``side``, ``batch`` and
+    ``big`` cut it down for a rehearsal on the CPU, where ``torch.cuda``'s
+    events and ``synchronize`` need host stand-ins and the launch counts
+    are 0."""
+    import argparse
+
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.cli.main import _fast_path_kwargs
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from amyloid_yolo_tpu_torch.models import darknet
+    from amyloid_yolo_tpu_torch.ops.loss import yolo_loss
+    from amyloid_yolo_tpu_torch.parallel import steps
+    from amyloid_yolo_tpu_torch.utils.device import no_tf32
+
+    cuda = dev.type == "cuda"
+    want = ({"resize_normalize": 3, "fused_residual_block": 69, "fused_residual_block_int8": 0}
+            if cuda else {"resize_normalize": 0, "fused_residual_block": 0,
+                          "fused_residual_block_int8": 0})
+    want_int8 = dict(want, fused_residual_block=0)
+    record = {"card": card}
+    rng = np.random.RandomState(SEED + 16)
+    batches = [rng.randint(0, 256, (batch, side, side, 3)).astype(np.uint8) for _ in range(3)]
+    kw = dict(conf_thres=0.3, model_size=size, device=dev)
+    print(f"phase 16, the layout options, at {size} on {side}² tiles [{card}]", flush=True)
+
+    # (a) the bf16 Detector with the s2d stem, and float32 s2d against plain
+    plain = Detector(spec, params, **kw)
+    s2d = Detector(spec, params, s2d_stem=True, **kw)
+    drive(s2d, batches, want)
+    record["bf16_launches"] = launch_counts()
+    tiles = torch.from_numpy(batches[0]).to(dev)
+    with torch.inference_mode():
+        bf16_rel = _head_rel(s2d.head_maps(tiles), plain.head_maps(tiles))
+        f32 = [Detector(spec, params, compute_dtype=torch.float32, s2d_stem=flag, **kw)
+               for flag in (True, False)]
+        f32_rel = _head_rel(f32[0].head_maps(tiles), f32[1].head_maps(tiles))
+    record.update(bf16_head_rel=bf16_rel, f32_head_rel=f32_rel)
+    print(f"(a) bf16 s2d Detector head maps max|s2d-plain|/max|plain| "
+          f"{[f'{r:.3g}' for r in bf16_rel]} (tolerance {HEAD_TOL}); float32 (TF32 off) "
+          f"{[f'{r:.3g}' for r in f32_rel]} (tolerance {S2D_F32_TOL}) [{card}]", flush=True)
+    if max(bf16_rel) > HEAD_TOL or max(f32_rel) > S2D_F32_TOL:
+        raise AssertionError("the s2d stem's head maps disagree with the plain stem's")
+    del f32
+
+    # (b) int8_full with the s2d stem, then the s2d downsample, on one calibration
+    full = Detector(spec, params, precision="int8_full", **kw)
+    full.calibrate(batches[0])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_layout_")
+    sidecar = full.save_calibration(os.path.join(tmp, "int8_full.json"))
+    int8 = {}
+    for name, opts in (("s2d", dict(s2d_stem=True)),
+                       ("s2d_down", dict(s2d_stem=True, s2d_downsample=True)),
+                       ("s2d_i32", dict(s2d_stem=True, int32_accum_max_hw=416)),
+                       ("s2d_down_i32", dict(s2d_stem=True, s2d_downsample=True,
+                                             int32_accum_max_hw=416))):
+        int8[name] = Detector(spec, params, precision="int8_full", **opts, **kw)
+        int8[name].load_calibration(sidecar)
+    record["int8_launches"] = {}
+    for name in ("s2d", "s2d_down"):
+        drive(int8[name], batches, want_int8)
+        record["int8_launches"][name] = launch_counts()
+    with torch.inference_mode():
+        ref = full.head_maps(tiles)
+        stem_rel = _head_rel(int8["s2d"].head_maps(tiles), ref)
+        f32 = Detector(spec, params, compute_dtype=torch.float32, **kw)
+        quant_rel = _head_rel(ref, f32.head_maps(tiles))
+        del f32
+        down_rel = _head_rel(int8["s2d_down"].head_maps(tiles), int8["s2d"].head_maps(tiles))
+        exact = [torch.equal(a, b) for a, b in zip(int8["s2d_down_i32"].head_maps(tiles),
+                                                   int8["s2d_i32"].head_maps(tiles))]
+    record.update(int8_stem_rel=stem_rel, int8_plain_vs_f32_rel=quant_rel,
+                  int8_down_rel_bf16_accum=down_rel,
+                  int8_down_bitexact_int32_accum=exact)
+    print(f"(b) int8_full s2d stem head maps max|s2d-plain|/max|plain| "
+          f"{[f'{r:.3g}' for r in stem_rel]} (tolerance {HEAD_TOL}, and each within the plain "
+          f"int8_full's own distance from the float32 Detector: "
+          f"{[f'{r:.3g}' for r in quant_rel]}); the s2d downsample "
+          f"against the plain conv 5: bit-exact at int32_accum_max_hw=416 {exact} (tolerance: "
+          f"bit-exact), at the default bf16 rounding {[f'{r:.3g}' for r in down_rel]} (not a "
+          f"check) [{card}]", flush=True)
+    if (max(stem_rel) > HEAD_TOL or any(a > b for a, b in zip(stem_rel, quant_rel))
+            or not all(exact)):
+        raise AssertionError("the int8_full s2d options disagree with the plain int8_full")
+    del int8["s2d_i32"], int8["s2d_down_i32"]
+
+    # (c) training: s2d against plain, planar against nhwc, matmul against reduce
+    reset_launch_counts()
+    imgs, t, m = train_batch(np.random.RandomState(SEED + 17), batch, side)
+    grad = {name: steps.make_grad_step(spec, s2d_stem=flag)(
+        {k: v.to(dev) for k, v in params.items()}, imgs, t, m, size)
+        for name, flag in (("s2d", True), ("plain", False))}
+    t_swapped = t.copy()
+    t_swapped[:, 0] = batch - 1 - t_swapped[:, 0]
+    swapped = steps.make_grad_step(spec)({k: v.to(dev) for k, v in params.items()},
+                                         imgs[::-1].copy(), t_swapped, m, size)
+    ref_g = grad["plain"][1]
+
+    def grad_rel(grads):
+        return {k: float(torch.linalg.vector_norm(g - ref_g[k])
+                         / torch.linalg.vector_norm(ref_g[k]).clamp(min=1e-30))
+                for k, g in grads.items()}
+
+    g_rel, noise = grad_rel(grad["s2d"][1]), grad_rel(swapped[1])
+    flat = [torch.cat([g[k].double().flatten() for k in ref_g])
+            for g in (grad["s2d"][1], ref_g)]
+    cos = float(flat[0] @ flat[1] / (flat[0].norm() * flat[1].norm()))
+    loss_rel = abs(float(grad["s2d"][0]) - float(grad["plain"][0])) / abs(float(grad["plain"][0]))
+    worst_s, stat_rel = _stat_rel(grad["s2d"][2], grad["plain"][2])
+    worst_g = max(g_rel, key=g_rel.get)
+    g_med, n_med, n_max = (float(np.median(list(g_rel.values()))),
+                           float(np.median(list(noise.values()))), max(noise.values()))
+    g64 = {flag: _f64_grads(spec, params, dev, imgs[:2], size, flag) for flag in (False, True)}
+    f64_worst = max(float((g64[True][k] - g).abs().max() / g.abs().max().clamp(min=1e-300))
+                    for k, g in g64[False].items())
+    train_rec = {"s2d_loss": float(grad["s2d"][0]), "plain_loss": float(grad["plain"][0]),
+                 "loss_rel": loss_rel, "stat_rel_worst": [worst_s, stat_rel],
+                 "grad_cosine": cos, "f64_grad_rel_worst": f64_worst,
+                 "grad_rel_median": g_med, "grad_rel_worst": [worst_g, g_rel[worst_g]],
+                 "swap_noise_median": n_med, "swap_noise_max": n_max}
+    print(f"(c) f32 micro-step B={batch} (TF32 off), s2d against the plain stem: loss "
+          f"{train_rec['s2d_loss']} vs {train_rec['plain_loss']} (rel {loss_rel:.3g}, tolerance "
+          f"{S2D_LOSS_RTOL}); new BN stats worst rel {stat_rel:.3g} ({worst_s}, checked "
+          f"below); gradient cosine {cos:.9f} (tolerance > {S2D_GRAD_COS}); "
+          f"||s2d-plain||/||plain|| median {g_med:.3g}, worst {g_rel[worst_g]:.3g} "
+          f"({worst_g}), beside the plain step with the batch reversed: median {n_med:.3g}, "
+          f"worst {n_max:.3g} (not a check); float64 B=2, a smooth loss of the head maps: "
+          f"worst max|s2d-plain|/max|plain| over the gradients {f64_worst:.3g} (tolerance "
+          f"{S2D_F64_GRAD_RTOL}) [{card}]", flush=True)
+    if loss_rel > S2D_LOSS_RTOL or cos <= S2D_GRAD_COS or f64_worst > S2D_F64_GRAD_RTOL:
+        raise AssertionError("the s2d train step disagrees with the plain stem's")
+    del g64
+    del grad, swapped, ref_g
+
+    prepared = {layout: steps.prepare_batch(imgs, t, m, size, dev, True,
+                                            torch.Generator(device=dev).manual_seed(SEED),
+                                            layout) for layout in ("nhwc", "planar")}
+    (n_img, n_t, n_m), (p_img, p_t, p_m) = prepared["nhwc"], prepared["planar"]
+    planar_err = float((p_img - n_img.permute(0, 3, 1, 2)).abs().max())
+    targets_equal = bool(torch.equal(p_t, n_t) and torch.equal(p_m, n_m))
+    print(f"(c) augmented B={batch} batch, planar against nhwc: images max|diff| "
+          f"{planar_err:.3g} (tolerance {PLANAR_TOL}), targets and mask equal {targets_equal}",
+          flush=True)
+    if planar_err > PLANAR_TOL or not targets_equal or not p_img.is_contiguous():
+        raise AssertionError("the planar batch disagrees with the nhwc batch")
+    del p_img, prepared
+
+    # the new BN statistics of the train forward (augmented batch): s2d and
+    # matmul against the plain reduce form, beside three other orders of the
+    # batch (the same BN sums in other orders)
+    sd = {k: v.to(dev) for k, v in params.items()}
+    forms = {}
+    orders = {"reversed": torch.arange(batch - 1, -1, -1), "rolled_1": torch.arange(batch).roll(1),
+              "rolled_half": torch.arange(batch).roll(batch // 2)}
+    with torch.no_grad(), (no_tf32() if cuda else contextlib.nullcontext()):
+        for name, opts, order in (("reduce", {}, None), ("matmul", {"bn_form": "matmul"}, None),
+                                  ("s2d", {"s2d_stem": True}, None),
+                                  *((k, {}, v) for k, v in orders.items())):
+            maps, stats = darknet.apply(sd, spec, n_img if order is None else n_img[order.to(dev)],
+                                        train=True, **{"bn_form": "reduce", **opts})
+            forms[name] = (float(yolo_loss(maps, spec, size, n_t, n_m)[0])
+                           if order is None else None, stats)
+            del maps
+    ref_stats = forms["reduce"][1]
+    noise = max((_stat_rel(forms[k][1], ref_stats) for k in orders), key=lambda r: r[1])
+    stats_rec = {}
+    for name, loss_tol, stat_tol in (("s2d", S2D_LOSS_RTOL, STEP_RTOL),
+                                     ("matmul", BN_FORM_LOSS_RTOL, BN_FORM_STAT_RTOL)):
+        lrel = abs(forms[name][0] - forms["reduce"][0]) / abs(forms["reduce"][0])
+        worst = _stat_rel(forms[name][1], ref_stats)
+        bound = max(stat_tol, STEP_GRAD_NOISE_FACTOR * noise[1])
+        stats_rec[name] = {"loss_rel": lrel, "stat_rel_worst": list(worst), "stat_bound": bound}
+        print(f"(c) f32 train forward B={batch}, {name} against the plain reduce form: loss "
+              f"{forms[name][0]} vs {forms['reduce'][0]} (rel {lrel:.3g}, tolerance {loss_tol}); "
+              f"new BN stats worst max|Δ|/max {worst[1]:.3g} ({worst[0]}; tolerance {bound:.3g}, "
+              f"the larger of {stat_tol} and {STEP_GRAD_NOISE_FACTOR}x the other batch orders' "
+              f"worst {noise[1]:.3g} at {noise[0]})", flush=True)
+        if lrel > loss_tol or worst[1] > bound:
+            raise AssertionError(f"the {name} train forward disagrees with the plain reduce form")
+    if cuda:
+        torch.cuda.synchronize()
+    train_rec.update(planar_max_diff=planar_err, planar_targets_equal=targets_equal,
+                     forward_stats=stats_rec, batch_order_stat_rel_worst=list(noise),
+                     launches=launch_counts())
+    record["training"] = train_rec
+    print(f"(c) training launches of K1/K2/K3: {train_rec['launches']} (want 0 each)", flush=True)
+    if any(train_rec["launches"].values()):
+        raise AssertionError("the training checks launched a kernel")
+    del forms, n_img, sd
+
+    # (d) times, with their spread; no claim
+    times = {}
+    with torch.inference_mode():
+        for b in sorted({batch, big}):
+            tb = torch.randint(0, 256, (b, side, side, 3), dtype=torch.uint8, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(SEED))
+            for name, d in (("bf16_plain", plain), ("bf16_s2d", s2d)):
+                times[f"{name}_b{b}"] = _spread(lambda: d(tb), iters=5, warmup=2, hold=False)
+            if b == big:
+                fast = _fast_path_kwargs(argparse.Namespace(fast_path=True,
+                                                            precision="int8_full"))
+                for name, opts in (("int8_full_fast_path", fast),
+                                   ("int8_full_plain_stem", dict(fast, s2d_stem=False))):
+                    d8 = Detector(spec, params, **opts, **kw)
+                    d8.load_calibration(sidecar)
+                    times[f"{name}_b{b}"] = _spread(lambda: d8(tb), iters=5, warmup=2,
+                                                    hold=False)
+                    del d8
+            del tb
+        # the stem alone at B=big: layers 0-1 folded, plain and s2d, bf16
+        folded = darknet.fold_batchnorm(params, spec)
+        stem = {k: (v.to(dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                    if v.dim() == 4 else v.to(dev, torch.bfloat16))
+                for k, v in darknet.make_s2d_stem(folded, spec).items()}
+        fp = {k: {n: t.to(dev, torch.bfloat16) for n, t in folded[k].items()}
+              for k in ("conv_0", "conv_1")}
+        xs = torch.rand(big, size, size, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED))
+        x_cl = xs.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        l0, l1 = spec.layers[0], spec.layers[1]
+        times[f"stem_plain_b{big}"] = _spread(lambda: darknet.folded_conv(
+            fp, 1, l1, darknet.folded_conv(fp, 0, l0, x_cl, torch.bfloat16), torch.bfloat16))
+        times[f"stem_s2d_b{big}"] = _spread(
+            lambda: darknet.s2d_stem_forward(stem, xs, torch.bfloat16))
+        del folded, stem, fp, xs, x_cl
+    for s2d_flag in (False, True):
+        for form in ("reduce", "matmul"):
+            times[f"train_bf16_b8_{'s2d' if s2d_flag else 'plain'}_{form}"] = step_times(
+                spec, params, dev, np.random.RandomState(SEED), size, side, torch.bfloat16,
+                s2d_flag, form)
+    record["times"] = times
+    shutil.rmtree(tmp)
+    for k, v in times.items():
+        prof = v.get("profile", {})
+        extra = ("" if "profile" not in v else
+                 f"; host enqueue median {v['host_enqueue_median_ms']:.3f} ms, device busy "
+                 f"{prof.get('device_busy_ms')} ms in {prof.get('launches_per_step')} launches "
+                 f"a step, top kernels {json.dumps(prof.get('top_kernels'))}")
+        print(f"(d) {k}: median {v['median_ms']:.3f} ms, min {v['min_ms']:.3f}, max "
+              f"{v['max_ms']:.3f}{extra} [{card}]", flush=True)
+    return record
+
+
 def drive(det, batches, want_counts: dict) -> None:
     """One Detector over the batches with the launch counters set to 0
     just before: the counts must be ``want_counts``, the outputs finite
@@ -3105,6 +3466,10 @@ def main() -> int:
     # 15. the study path
     study = study_phase(spec, params, card, dev)
 
+    # 16. the layout options
+    layout = layout_phase(spec, params, card, dev)
+    int8_s2d = layout["int8_launches"]["s2d"]
+
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
 
@@ -3126,7 +3491,10 @@ def main() -> int:
          "mesh_launches": mesh_rec["launches"]["resize_normalize"],
          "mesh_shards": mesh_rec["shards"],
          "spatial_launches": spatial["launches"].get("resize_normalize", 0),
-         "study_launches": study["launches"]["resize_normalize"]},
+         "study_launches": study["launches"]["resize_normalize"],
+         "s2d_bf16_launches": layout["bf16_launches"]["resize_normalize"],
+         "s2d_int8_full_launches": int8_s2d["resize_normalize"],
+         "layout_training_launches": layout["training"]["launches"]["resize_normalize"]},
         {"name": "fused_residual_block", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/conv_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/conv_block.py:107",
@@ -3142,7 +3510,10 @@ def main() -> int:
          "mesh_launches": mesh_rec["launches"]["fused_residual_block"],
          "mesh_shards": mesh_rec["shards"],
          "spatial_launches": spatial["launches"].get("fused_residual_block", 0),
-         "study_launches": study["launches"]["fused_residual_block"]},
+         "study_launches": study["launches"]["fused_residual_block"],
+         "s2d_bf16_launches": layout["bf16_launches"]["fused_residual_block"],
+         "s2d_int8_full_launches": int8_s2d["fused_residual_block"],
+         "layout_training_launches": layout["training"]["launches"]["fused_residual_block"]},
         {"name": "fused_residual_block_int8", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/int8_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/int8_block.py:150",
@@ -3156,7 +3527,11 @@ def main() -> int:
          "serving_launches": served["launches"]["fused_residual_block_int8"],
          "serving_dispatches": served["dispatches"],
          "spatial_launches": spatial["launches"].get("fused_residual_block_int8", 0),
-         "study_launches": study["launches"]["fused_residual_block_int8"]},
+         "study_launches": study["launches"]["fused_residual_block_int8"],
+         "s2d_bf16_launches": layout["bf16_launches"]["fused_residual_block_int8"],
+         "s2d_int8_full_launches": int8_s2d["fused_residual_block_int8"],
+         "layout_training_launches":
+             layout["training"]["launches"]["fused_residual_block_int8"]},
     ]
     print(json.dumps({"detector": detector, "card": card}))
     print(json.dumps({"folder": folder, "card": card}))
@@ -3165,6 +3540,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel, "card": card}))
     print(json.dumps({"spatial": spatial, "card": card}))
     print(json.dumps({"study": study, "card": card}))
+    print(json.dumps({"layout": layout, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,7 @@ package's ``cli/main.py``:
 * the parsers: for every command, the same options and defaults, except the
   port's ``--device`` (``PORT_ONLY``);
 * the helpers ``_truthy``, ``_fast_path_kwargs`` (the port leaves out
-  ``s2d_stem``, ``FAST_PATH_DIFFERENCE``) and ``_capacity_kwargs``;
+  ``approx_topk``, ``FAST_PATH_DIFFERENCE``) and ``_capacity_kwargs``;
 * ``export`` round trips both ways, equal to 1e-6;
 * ``detect`` on three 1536² JPEG tiles with a mini cfg: the same
   ``+ Label:`` rows within 1e-3 and images of the same names (both sides in
@@ -19,6 +19,7 @@ import dataclasses
 import functools
 import os
 import re
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,10 +46,9 @@ from torch_port_helpers import jax_params_np, port_mini_spec, stain_tile
 #: parser differences: options only the port has (``fn`` is each side's
 #: own command function)
 PORT_ONLY = {"device"}
-#: the kwargs of the JAX fast path the port leaves out: its Detector has no
-#: space-to-depth stem (the plain stem is the same function) and always
+#: the kwargs of the JAX fast path the port leaves out: its Detector always
 #: selects the candidate pool exactly (no approximate top-k on the GPU)
-FAST_PATH_DIFFERENCE = {"s2d_stem", "approx_topk"}
+FAST_PATH_DIFFERENCE = {"approx_topk"}
 LABEL = re.compile(r"\+ Label: (\w+), Conf: ([0-9.]+)")
 
 ARGV = [
@@ -309,6 +309,51 @@ def test_train_config_matches_jax_and_one_batch_trains(mini, tiny_dataset, tmp_p
     assert (ck["step"], ck["seen"]) == (1, 2)
     got = weights.load_pretrained(port_mini_spec(), str(tmp_path / "ck" / ckpts[0]) + "#ema")
     assert sorted(got) == sorted(weights.load_pretrained(port_mini_spec(), mini["pth"]))
+
+
+@pytest.mark.parametrize("s2d,layout,want", [("True", "nhwc", True), ("False", "planar", False),
+                                             ("auto", None, True)])
+def test_train_layout_options_reach_the_trainer(mini, tiny_dataset, tmp_path, monkeypatch,
+                                                s2d, layout, want):
+    """``train --s2d_stem`` and ``--image_layout`` reach ``TrainConfig`` as
+    the JAX CLI fills it, and the ``Trainer`` resolves the stem (auto: on,
+    the mini cfg has the YOLOv3 stem with BN) and builds its step with it."""
+    argv = ["train", "--model_def", mini["cfg"], "--data_config",
+            str(tiny_dataset / "custom.data"), "--logdir", str(tmp_path / "logs"),
+            "--s2d_stem", s2d] + (["--image_layout", layout] if layout else [])
+    built, made = [], []
+
+    class Built(training_mod.Trainer):
+        def __init__(self, cfg, spec=None, device=None):
+            super().__init__(cfg, spec=spec, device=device)
+            built.append(self)
+
+        def train(self):
+            return None
+
+    captured = {}
+
+    class Capture:
+        def __init__(self, cfg, spec=None, **kw):
+            captured["jax"] = cfg
+
+        def train(self):
+            return None
+
+    monkeypatch.setattr(jax_training_mod, "Trainer", Capture)
+    assert jax_cli.main(argv) == 0
+    make_step = training_mod.steps_mod.make_accum_train_step
+    monkeypatch.setattr(training_mod.steps_mod, "make_accum_train_step",
+                        lambda *a, **kw: made.append(kw) or make_step(*a, **kw))
+    monkeypatch.setattr(training_mod, "Trainer", Built)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    (tr,) = built
+    assert (tr.cfg.s2d_stem, tr.cfg.image_layout) == (captured["jax"].s2d_stem,
+                                                      captured["jax"].image_layout)
+    assert tr.cfg.image_layout == (layout or "planar")
+    assert tr.s2d_stem is want
+    assert (made[0]["s2d_stem"], made[0]["image_layout"]) == (want, layout or "planar")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without CUDA")

@@ -114,10 +114,10 @@ def test_entry_points_need_cuda_or_explicit_cpu():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"s2d_stem": True}, "ROADMAP"),
-    ({"pallas_blocks": True}, "ROADMAP"),
+    ({"s2d_stem": True, "precision": "int8_early"}, "s2d_stem supports"),
+    ({"pallas_blocks": True, "precision": "int8_full"}, "pallas_blocks"),
     ({"compute_dtype": torch.float16}, "compute_dtype"),
-    ({"s2d_downsample": True}, "ROADMAP"),
+    ({"s2d_downsample": True}, "s2d_downsample requires"),
     ({"precision": "int8_full", "fold_bn": False}, "requires fold_bn"),
     ({"precision": "fp8"}, "unknown precision"),
 ])

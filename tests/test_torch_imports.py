@@ -11,6 +11,7 @@ PKG = "amyloid_yolo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "amyloid_yolo_tpu")
 # the training path's modules, which the scans below must reach
 TRAINING_MODULES = ("ops.boxes", "models.heads", "ops.targets", "ops.loss", "models.darknet",
+                    "ops.bnstats",
                     "ops.augment", "parallel.steps", "io.datasets", "ops.metrics",
                     "evaluate", "utils.logging", "io.weights", "training")
 # the serving path and the CLI's modules
@@ -22,7 +23,7 @@ PARALLEL_MODULES = ("parallel.mesh", "parallel.distributed", "parallel.spatial")
 STUDY_MODULES = ("analysis.prospective", "analysis.plots", "analysis.data_checks",
                  "config.make_cfg")
 SCRIPTS = ("chip_smoke", "bench_k2")  # the port's scripts at the repo root
-EXAMPLES = ("run_study_torch",)       # the port's scripts under examples/
+EXAMPLES = ("run_study_torch", "native_res_training_torch")  # the port's scripts under examples/
 
 
 def _port_files():

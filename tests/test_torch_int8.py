@@ -132,11 +132,17 @@ def test_apply_folded_int8_full_matches_jax(model, dtype, int32_accum_max_hw):
 
 
 def test_s2d_stems_not_ported(model):
-    _, spec, _, folded, x = model
+    """The int8 s2d stem reuses conv 1's int8 weights, so it is refused
+    where conv 1 is not quantized (the mini spec's 4-channel conv 1), as
+    the JAX ``make_s2d_stem_int8`` refuses it; ``tests/test_torch_s2d.py``
+    holds the stem where it applies."""
+    ref_spec, spec, ref_folded, folded, x = model
     qp = port_darknet.quantize_folded_int8_full(folded, spec)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_darknet.apply_folded_int8_full(folded, qp, {}, spec, torch.from_numpy(x),
-                                            s2d_stem={})
+    with pytest.raises(ValueError, match="conv_1 is not quantized"):
+        jax_darknet.make_s2d_stem_int8(
+            ref_folded, jax_darknet.quantize_folded_int8_full(ref_folded, ref_spec), ref_spec)
+    with pytest.raises(ValueError, match="conv_1 is not quantized"):
+        port_darknet.make_s2d_stem_int8(folded, qp, spec)
 
 
 @pytest.mark.parametrize("kernel,stride", [(2, 1), (2, 2), (3, 1)])

@@ -424,3 +424,23 @@ def test_spatial_shards_refuse_params_off_the_first_device(weights):
     with pytest.raises(ValueError, match="first device"):
         steps.make_grad_step(port_mini_spec())(weights["port"], *_batch(64), 64,
                                                shards=SpatialShards(mesh))
+
+
+def test_native_res_training_example_runs_mini(capsys):
+    """``examples/native_res_training_torch.py --mini`` at 64² over a (1, 2)
+    grid of CPU entries: two augmented height-sharded steps, finite losses;
+    its mini spec is the suite's."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", "native_res_training_torch.py")
+    spec = importlib.util.spec_from_file_location("native_res_training_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.mini_spec(img_size=64).layers == port_mini_spec().layers
+    assert mod.main(["--mini", "--sp", "2", "--dp", "1", "--img_size", "64", "--steps", "2",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss=")[1]) for line in out.splitlines() if "loss=" in line]
+    assert len(losses) == 2 and all(np.isfinite(losses)) and out.rstrip().endswith("ok")

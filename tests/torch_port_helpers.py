@@ -81,6 +81,27 @@ def jax_params_np(spec, seed: int, bn_noise: bool = False, jit: bool = False):
     return params
 
 
+def numpy_params(spec, seed: int) -> dict:
+    """Reference-scheme weights in the JAX package's pytree layout (conv
+    HWIO) drawn with numpy alone, random BN shift and running statistics
+    included: no JAX program to compile."""
+    rng = np.random.RandomState(seed)
+    params = {}
+    for i in spec.conv_indices:
+        layer = spec.layers[i]
+        k, n = layer.kernel, layer.out_ch
+        entry = {"w": (0.02 * rng.randn(k, k, layer.in_ch, n)).astype(np.float32)}
+        if layer.batch_normalize:
+            params[f"bn_{i}"] = {"scale": (1.0 + 0.02 * rng.randn(n)).astype(np.float32),
+                                 "bias": (0.1 * rng.randn(n)).astype(np.float32),
+                                 "mean": (0.1 * rng.randn(n)).astype(np.float32),
+                                 "var": (0.5 + rng.rand(n)).astype(np.float32)}
+        else:
+            entry["b"] = (0.1 * rng.randn(n)).astype(np.float32)
+        params[f"conv_{i}"] = entry
+    return params
+
+
 def stain_tile(rng, h: int, w: int) -> np.ndarray:
     """A smooth synthetic stained-tissue tile (uint8 HWC): dark blobs of
     stain over a bright background, with a little grain, so JPEG sizes and
