@@ -38,7 +38,8 @@ Where the port differs:
 * ``train --spatial_shard N`` splits the image height over N devices
   (:mod:`..parallel.spatial`), with ``--data_parallel M`` over M rows of N;
   ``--device`` names them as for the sweep (``cpu``: CPU entries;
-  ``cuda:0,cuda:0``: two shards on one card).  It refuses ``--distributed``.
+  ``cuda:0,cuda:0``: two shards on one card).  It refuses ``--distributed``,
+  and runs the s2d stem where the spec qualifies, as without it.
 """
 
 from __future__ import annotations
@@ -505,8 +506,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--s2d_stem", type=str, default="auto",
                    help="space-to-depth training stem (auto/True/False): layers "
                         "0-1 on the s2d grid, gradients mapped back to the 3x3 "
-                        "weights; auto = on where the stem qualifies and "
-                        "--spatial_shard is 1")
+                        "weights; auto = on where the stem qualifies, "
+                        "--spatial_shard N included")
     t.add_argument("--keep_checkpoints", type=int, default=None,
                    help="retention: keep only the most recent N epoch "
                         "checkpoints plus every tracked best epoch "

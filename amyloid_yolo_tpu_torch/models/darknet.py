@@ -37,9 +37,11 @@ int8 contract (:mod:`amyloid_yolo_tpu_torch.ops.int8`): int8 convolutions
 are exact int32 sums (``torch._int_mm``), rounded to bf16 where the
 reference accumulates in bf16 — XLA's int8 convolution with a bf16 result
 equals bf16 of the exact sum; the epilogue is ``acc · (s_in·ws) + b`` in
-float32, multiply and add rounded separately; quantization divides by the
-scale.  The convolutions that stay in bf16 (the RGB stem, the head convs)
-accumulate in float32 over bf16 values and keep the float32 result.
+float32, multiply and add rounded separately; quantization multiplies by
+the scale's reciprocal, as the reference's compiled program does
+(:func:`~..ops.int8.quant`).  The convolutions that stay in bf16 (the RGB
+stem, the head convs) accumulate in float32 over bf16 values and keep the
+float32 result.
 """
 
 from __future__ import annotations
@@ -75,6 +77,17 @@ BN_MOMENTUM = 0.9  # torch BatchNorm2d(momentum=0.9), reference models.py:43
 #: train-mode BN statistics form, ``"reduce"`` or ``"matmul"`` (see
 #: :func:`apply`); ``apply(bn_form=None)`` reads it at each call
 BN_FORM = os.environ.get("AMYOLO_BN_FORM", "reduce")
+
+
+def resolve_bn_form(bn_form: Optional[str]) -> str:
+    """``bn_form`` (``None``: :data:`BN_FORM`, read at each call), or
+    ``ValueError`` unless it is ``"reduce"`` or ``"matmul"``: no form falls
+    back to another quietly."""
+    form = BN_FORM if bn_form is None else bn_form
+    if form not in ("reduce", "matmul"):
+        raise ValueError(f"unknown BN form {form!r} (AMYOLO_BN_FORM / bn_form): "
+                         "'reduce' or 'matmul'")
+    return form
 
 
 def init_params(generator: torch.Generator, spec: GraphSpec) -> StateDict:
@@ -369,7 +382,8 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
     ``AMYOLO_BN_FORM``): ``"reduce"`` sums with reductions; ``"matmul"``
     takes ``Σx``, ``Σx²`` and the normalize's backward sums ``Σdy``,
     ``Σdy·x`` as products with a ones row (:mod:`..ops.bnstats`).  Same
-    function, other summation order.
+    function, other summation order.  Another value raises
+    (:func:`resolve_bn_form`), where the reference reduces.
 
     ``input_layout="planar"``: ``x`` is a (B, 3, H, W) image (contiguous
     NCHW, the planar training pipeline's layout) instead of NHWC.
@@ -390,8 +404,7 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
     shards (the height shards of ``parallel/spatial.py``) call the
     per-layer functions above with their own global count.
     """
-    if bn_form is None:
-        bn_form = BN_FORM
+    bn_form = resolve_bn_form(bn_form)
     planar = input_layout == "planar"
     last_use = _last_use(spec)
     saved: Dict[int, torch.Tensor] = {}
@@ -865,7 +878,7 @@ def apply_folded_int8(folded: Folded, qparams: QParams, act_scales: Mapping[str,
     dequantizes into ``compute_dtype`` convs), then the standard folded
     path in ``compute_dtype``.  ``x`` is the f32 NHWC input in [0, 1]."""
     x = x.to(torch.float32)
-    sc = q8.scale_tensors(act_scales, x.device)
+    sc = q8.inverse_scales(act_scales, x.device)
     last_use = _last_use(spec)
     prev_q, prev_s = q8.quant(x, sc["in"]), act_scales["in"]
     saved_q: Dict[int, Tuple[torch.Tensor, float]] = {}
@@ -951,7 +964,7 @@ def apply_folded_int8_full(folded: Folded, qparams: QParams,
     quantized at conv 1's.  ``s2d_downs`` (:func:`make_s2d_down_int8`) runs
     those convs on their input's s2d grid, with the same integer sums."""
     x = x.to(torch.float32)
-    sc = q8.scale_tensors(act_scales, x.device)
+    sc = q8.inverse_scales(act_scales, x.device)
     quantized = int8_full_conv_indices(spec)
     last_use = _last_use(spec)
     # (map, scale) pairs; scale None marks a float map (the raw input, or a
@@ -1029,5 +1042,6 @@ __all__ = ["init_params", "apply", "fold_batchnorm", "fusible_residual_blocks",
            "s2d_train_stem_qualifies",
            "conv", "conv_layer", "folded_conv", "conv_bias", "activate", "bn_batch_moments",
            "bn_batch_moments_matmul", "bn_moments_from_sums", "bn_running_stats",
-           "bn_running_moments", "bn_normalize", "BN_EPS", "BN_MOMENTUM", "BN_FORM",
+           "bn_running_moments", "bn_normalize", "resolve_bn_form", "BN_EPS", "BN_MOMENTUM",
+           "BN_FORM",
            "LEAKY_SLOPE"]

@@ -11,11 +11,19 @@
   GEMM on an im2col matrix when the input has fewer than a multiple of 8
   channels (the RGB stem, K = 27 → 32).  int8 ``F.conv2d`` and
   ``F.unfold`` do not exist on CUDA.
-* :func:`quant` — ``clip(round(y / s), ±127)`` with true division: ``s`` is
-  a float32 tensor on ``y``'s device (:func:`scale_tensors`), because on
-  CUDA PyTorch divides by a Python or CPU scalar as ``y · (1/s)``, which
-  rounds differently.
-* :func:`requant` — ``clip(round(y · f32(1/s)), ±127)``, K3's rule.
+* :func:`quant` — ``clip(round(y · r), ±127)`` with ``r = f32(1) / f32(s)``,
+  the executors' rule.  The reference writes ``y / s`` with ``s`` a Python
+  float its compiled program closes over; XLA's algebraic simplifier (a
+  pass every backend runs) turns the division by a constant into a product
+  with the constant's reciprocal, folded in float32 from the float32 scale.
+  Folding ``1/s`` in double and rounding it instead flips int8 levels
+  against ``jax.jit`` on some scales (55 of 200 random scales give another
+  float32 factor), and so does true division, which is what eager JAX
+  computes.  ``r`` is a float32 tensor on ``y``'s device
+  (:func:`inverse_scales`).
+* :func:`requant` — ``clip(round(y · f32(1/s)), ±127)`` with ``1/s`` taken in
+  double, K3's rule: the reference kernel receives ``1.0 / s`` as a weakly
+  typed Python float, which no pass refolds.
 * :func:`maxpool_int8`, :func:`upsample_int8` — index arithmetic only, so
   they run on any device (int8 ``F.max_pool2d`` and ``F.interpolate`` are
   not available everywhere).
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 from typing import Dict, Mapping
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -79,16 +88,20 @@ def conv_int8(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1, pad=0
     return acc.reshape(b, ho, wo, o)
 
 
-def scale_tensors(scales: Mapping[str, float], device: torch.device
-                  ) -> Dict[str, torch.Tensor]:
-    """Each scale as a 0-d float32 tensor on ``device``, from one copy."""
-    values = torch.tensor(list(scales.values()), dtype=torch.float32).to(device)
+def inverse_scales(scales: Mapping[str, float], device: torch.device
+                   ) -> Dict[str, torch.Tensor]:
+    """Each scale's reciprocal ``f32(1) / f32(s)`` (an IEEE float32
+    division, as XLA folds it) as a 0-d float32 tensor on ``device``, from
+    one copy."""
+    inv = np.float32(1) / np.asarray(list(scales.values()), np.float32)
+    values = torch.from_numpy(inv).to(device)
     return dict(zip(scales, values.unbind()))
 
 
-def quant(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """``clip(round(y / s), ±127)`` as int8; ``s`` from :func:`scale_tensors`."""
-    return torch.clamp(torch.round(y / s), -QMAX, QMAX).to(torch.int8)
+def quant(y: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """``clip(round(y · inv), ±127)`` as int8; ``inv`` from
+    :func:`inverse_scales`."""
+    return torch.clamp(torch.round(y * inv), -QMAX, QMAX).to(torch.int8)
 
 
 def requant(y: torch.Tensor, s: float) -> torch.Tensor:
@@ -124,5 +137,5 @@ def upsample_int8(xq: torch.Tensor, factor: int) -> torch.Tensor:
         b, h * factor, w * factor, c)
 
 
-__all__ = ["int_mm", "conv_int8", "scale_tensors", "quant", "requant",
+__all__ = ["int_mm", "conv_int8", "inverse_scales", "quant", "requant",
            "maxpool_int8", "upsample_int8", "QMAX"]

@@ -33,12 +33,20 @@ compiler, so this module writes the row choreography itself:
   before.
 * **Lockstep.**  One thread runs the spec layer by layer over every shard
   (a thread per shard would meet at a barrier at every 3×3 conv and every
-  BN).  Parameters are replicated with differentiable copies, so one
-  ``backward()`` gives the global gradient in the first device's
-  parameters.  Each BN sums the shards' per-channel ``Σx`` and ``Σx²`` on
+  BN).  The forward reads parameters through differentiable copies;
+  the train step gives each other device leaf copies instead and, after
+  its one ``backward()``, adds their gradients into the first device's
+  parameters (:func:`leaf_replicas`), so that no gradient crosses cards
+  into a parameter inside autograd.  Each BN sums the shards' per-channel ``Σx`` and ``Σx²`` on
   the first device with the true element count (height shards are
-  unequal) and hands the global statistics back (sync-BN over sp × dp).
-  The per-layer arithmetic is :mod:`..models.darknet`'s own functions.
+  unequal) and hands the global statistics back (sync-BN over sp × dp),
+  each shard's sums taken as reductions or, in the ``"matmul"`` BN form,
+  as products (:mod:`..ops.bnstats`).  The per-layer arithmetic is
+  :mod:`..models.darknet`'s own functions.
+* **s2d stem.**  The training stem of ``darknet.apply(s2d_stem=True)``
+  runs on each shard's rows of the space-to-depth grid, which the row
+  plan keeps whole (every shard starts on an even pixel row): conv_a's
+  halo is one s2d row each way, conv_b's one row above (:func:`_s2d_stem`).
 * **Outputs.**  The head maps are small; they gather on the mesh's first
   device, along H within a dp row and along B across rows, where
   ``decode_all``, ``non_max_suppression`` and ``yolo_loss`` run unchanged.
@@ -51,7 +59,8 @@ compiles nothing per call, so there is nothing to memoize.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+import functools
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,9 +72,10 @@ from ..graphspec import (
     RouteSpec,
     UpsampleSpec,
 )
-from ..io.weights import StateDict, _conv_key
+from ..io.weights import StateDict, _bn_key, _conv_key
 from ..models import darknet, heads
 from ..models.darknet import _cl, _last_use, _nchw, _plain_layer, _release
+from ..ops import bnstats
 from ..ops.loss import yolo_loss
 from ..ops.nms import non_max_suppression
 from ..ops.preprocess import RECIP_255
@@ -245,7 +255,9 @@ def _pool_window(layer: MaxPoolSpec) -> Tuple[int, float]:
 
 
 def apply_sharded(params, spec: GraphSpec, x: torch.Tensor, mesh: SpatialMesh, *,
-                  compute_dtype: torch.dtype = torch.float32, train: bool = False):
+                  compute_dtype: torch.dtype = torch.float32, train: bool = False,
+                  s2d_stem: bool = False, bn_form: Optional[str] = None,
+                  replicas: Optional[Mapping[torch.device, StateDict]] = None):
     """The forward of ``darknet.apply`` (a state dict) or ``apply_folded``
     (folded params, no packs) with the activations sharded over ``mesh``:
     batch over dp, height over sp (see the module docstring).  ``x`` is the
@@ -254,23 +266,50 @@ def apply_sharded(params, spec: GraphSpec, x: torch.Tensor, mesh: SpatialMesh, *
     with ``train=True`` the pair ``(head_maps, new_stats)`` as
     ``darknet.apply`` does; the BN statistics are the global batch's.  The
     running statistics of ``new_stats`` come from ``params``, which must
-    then be on the first device."""
+    then be on the first device.
+
+    ``s2d_stem`` (a state dict) runs layers 0-1 as ``darknet.apply(
+    s2d_stem=True)`` does, on each shard's rows of the space-to-depth grid
+    (:func:`_s2d_stem`).  ``bn_form`` (train mode; ``None`` reads
+    ``darknet.BN_FORM`` at each call, as ``darknet.apply`` does) takes each
+    shard's sums as reductions (``"reduce"``) or as products
+    (``"matmul"``, :mod:`..ops.bnstats`); the s2d stem's two BNs reduce in
+    either form, as the unsharded stem's do.
+
+    ``replicas`` (:func:`leaf_replicas`) gives each device its copy of
+    ``params``; by default each is a differentiable copy of ``params``."""
     folded = _is_folded(params)
+    bn_form = darknet.resolve_bn_form(bn_form)
     if train and folded:
         raise ValueError("training needs unfolded parameters (a state dict)")
+    if s2d_stem and folded:
+        raise ValueError("the sharded s2d stem is the training stem: it takes a state dict")
     sharding = spatial_image_sharding(mesh)
     plan = sharding.plan(spec, x.shape[1])
     shards = sharding.shards(plan)
     devs = [mesh.device(r, c) for r, c in shards]
     first = mesh.devices[0]
-    reps = replicate(params, Mesh(tuple(devs)))
+    reps = ([replicas[d] for d in devs] if replicas is not None
+            else replicate(params, Mesh(tuple(devs))))
     cols = plan.active
     row_of = [[k for k, (r, _) in enumerate(shards) if r == rr] for rr in range(mesh.n_dp)]
 
     def prep(s: torch.Tensor) -> torch.Tensor:
         if s.dtype == torch.uint8:
             s = s.to(torch.float32) * RECIP_255
-        return _cl(_nchw(s.to(compute_dtype)))
+        s = s.to(compute_dtype)
+        return _cl(_nchw(darknet._space_to_depth(s) if s2d_stem else s))
+
+    def windows(maps: List[torch.Tensor], s_in: int, top: int, k: int, s: int, s_out: int,
+                fill: float) -> List[torch.Tensor]:
+        """Each shard's input rows, from the level-``s_in`` ``maps``, for its
+        output rows of a k/s layer at level ``s_out``."""
+        out = []
+        for j, (r, c) in enumerate(shards):
+            a, b = plan.rows(c, s_out)
+            out.append(_rows_of([maps[m] for m in row_of[r]], cols, c, plan, s_in,
+                                s * a - top, s * (b - 1) - top + k, devs[j], fill))
+        return out
 
     prev = [prep(s) for s in sharding.split(x, plan)]
     strides = layer_strides(spec)
@@ -278,32 +317,35 @@ def apply_sharded(params, spec: GraphSpec, x: torch.Tensor, mesh: SpatialMesh, *
     saved: List[Dict[int, torch.Tensor]] = [{} for _ in shards]
     head_maps: List[List[torch.Tensor]] = [[] for _ in shards]
     new_stats: StateDict = {}
-    s_in = 1
-
-    def windows(top: int, k: int, s: int, s_out: int, fill: float) -> List[torch.Tensor]:
-        """Each shard's input rows for its output rows of a k/s layer."""
-        out = []
-        for j, (r, c) in enumerate(shards):
-            a, b = plan.rows(c, s_out)
-            row = row_of[r]
-            out.append(_rows_of([prev[m] for m in row], cols, c, plan, s_in,
-                                s * a - top, s * (b - 1) - top + k, devs[j], fill))
-        return out
+    bn = functools.partial(_sync_bn, params, reps, compute_dtype=compute_dtype, train=train,
+                           first=first, new_stats=new_stats)
+    start, s_in = 0, 1
+    if s2d_stem:
+        prev = _s2d_stem(reps, spec, prev, windows, bn, compute_dtype)
+        if 1 in last_use:
+            for j in range(len(shards)):
+                saved[j][1] = prev[j]
+        start, s_in = 2, strides[1]
 
     for i, layer in enumerate(spec.layers):
+        if i < start:
+            continue
         if isinstance(layer, ConvSpec):
-            wins = windows(layer.pad, layer.kernel, layer.stride, strides[i], 0.0)
+            wins = windows(prev, s_in, layer.pad, layer.kernel, layer.stride, strides[i], 0.0)
             pad = (0, layer.pad)
             if folded:
                 out = [darknet.folded_conv(p, i, layer, w, compute_dtype, pad)
                        for p, w in zip(reps, wins)]
             else:
-                out = _conv_bn(params, reps, i, layer, wins, pad, compute_dtype, train,
-                               first, new_stats)
+                out = [darknet.conv(p[f"{_conv_key(i)}.weight"], layer, w, compute_dtype, pad)
+                       for p, w in zip(reps, wins)]
+                out = ([darknet.conv_bias(p, i, o, compute_dtype) for p, o in zip(reps, out)]
+                       if not layer.batch_normalize else bn(i, out, bn_form=bn_form))
+                out = [darknet.activate(layer, o) for o in out]
         elif isinstance(layer, MaxPoolSpec):
             top, fill = _pool_window(layer)
             out = [_pool(layer, w) for w in
-                   windows(top, layer.kernel, layer.stride, strides[i], fill)]
+                   windows(prev, s_in, top, layer.kernel, layer.stride, strides[i], fill)]
         else:
             out = [_plain_layer(layer, prev[j], saved[j], head_maps[j])
                    for j in range(len(shards))]
@@ -322,32 +364,116 @@ def apply_sharded(params, spec: GraphSpec, x: torch.Tensor, mesh: SpatialMesh, *
     return (maps, new_stats) if train else maps
 
 
-def _conv_bn(master: StateDict, reps: List[StateDict], i: int, layer: ConvSpec,
-             wins: List[torch.Tensor], pad, compute_dtype: torch.dtype, train: bool,
-             first: torch.device, new_stats: StateDict) -> List[torch.Tensor]:
-    """Conv ``i`` on every shard's window, with its bias or its BN (train:
-    the statistics of all shards together, reduced on ``first``) and its
-    activation."""
-    key = f"{_conv_key(i)}.weight"
-    out = [darknet.conv(p[key], layer, w, compute_dtype, pad) for p, w in zip(reps, wins)]
-    if not layer.batch_normalize:
-        return [darknet.activate(layer, darknet.conv_bias(p, i, o, compute_dtype))
-                for p, o in zip(reps, out)]
-    out32 = [o.to(torch.float32) for o in out]
-    if train:
-        total, n = None, 0
-        for o in out32:
-            part = to_device(flat_cat([o.sum(dim=(0, 2, 3)), (o * o).sum(dim=(0, 2, 3))]), first)
-            total = part if total is None else total + part
-            n += o.shape[0] * o.shape[2] * o.shape[3]
-        s1, s2 = total.chunk(2)
-        mean, var = darknet.bn_moments_from_sums(s1, s2, n)
-        new_stats.update(darknet.bn_running_stats(master, i, mean, var, n))
-        moments = [(to_device(mean, o.device), to_device(var, o.device)) for o in out32]
-    else:
-        moments = [darknet.bn_running_moments(p, i) for p in reps]
-    return [darknet.activate(layer, darknet.bn_normalize(p, i, o, m, v, compute_dtype))
-            for p, o, (m, v) in zip(reps, out32, moments)]
+def leaf_replicas(params: StateDict, mesh: SpatialMesh) -> Dict[torch.device, StateDict]:
+    """Each device's copy of ``params``: ``params`` itself on the first
+    device, detached copies elsewhere, which are leaves that require
+    gradients where ``params`` do.  A gradient then never crosses devices
+    into a parameter inside autograd: :func:`add_replica_grads` adds the
+    copies' gradients to the first device's after the backward, where a
+    differentiable copy would have let autograd accumulate a gradient made
+    on another card into a leaf on the first one (the AccumulateGrad stream
+    mismatch PyTorch warns of)."""
+    first = mesh.devices[0]
+    out: Dict[torch.device, StateDict] = {first: params}
+    for d in mesh.devices:
+        if d not in out:
+            out[d] = {k: to_device(v.detach(), d).requires_grad_(v.requires_grad)
+                      for k, v in params.items()}
+    return out
+
+
+def add_replica_grads(params: StateDict, replicas: Mapping[torch.device, StateDict]) -> None:
+    """Add each replica's gradients into ``params``' ``.grad`` (on the first
+    device), as the backward of a differentiable copy would."""
+    first = _device(params)
+    for d, rep in replicas.items():
+        if d == first:
+            continue
+        for k, v in rep.items():
+            if v.grad is None:
+                continue
+            g = to_device(v.grad, first)
+            if params[k].grad is None:
+                params[k].grad = g
+            else:
+                params[k].grad += g
+
+
+def _s2d_stem(reps: List[StateDict], spec: GraphSpec, xs: List[torch.Tensor],
+              windows: Callable, bn: Callable, compute_dtype: torch.dtype
+              ) -> List[torch.Tensor]:
+    """Layers 0-1 of ``darknet.apply(s2d_stem=True)`` on row shards (the
+    unsharded ``darknet._s2d_train_stem``): ``xs`` holds each shard's rows
+    of the space-to-depth image, NCHW at level 2 (the row plan's shards
+    start and end on even pixel rows, so each maps whole onto s2d rows).
+    conv_a, 3×3/s1 on the s2d grid, reads one s2d row above and one below
+    its own (two pixel rows each way); conv_b, the 2×2 conv with one zero
+    row on top, reads one row of conv_a's activated output above.  Rows
+    outside the image are zero, as each conv pads.  Each replica relabels
+    its own copy of conv 0's and conv 1's weights, so the gradients land on
+    the first device's 3×3 weights; BN 0 takes the statistics of the four
+    phases of every shard."""
+    darknet._check_s2d_spec(spec)
+    l0: ConvSpec = spec.layers[0]  # type: ignore[assignment]
+    l1: ConvSpec = spec.layers[1]  # type: ignore[assignment]
+    if not (l0.batch_normalize and l1.batch_normalize):
+        raise ValueError("s2d training stem requires BN on layers 0-1")
+
+    def relabel(i: int, gather, cin: int, cout: int) -> List[torch.Tensor]:
+        return [darknet._s2d_relabel(p[f"{_conv_key(i)}.weight"].to(compute_dtype),
+                                     gather(cin, cout, str(x.device)))
+                for p, x in zip(reps, xs)]
+
+    wa = relabel(0, darknet._s2d_gather_indices_a, l0.in_ch, l0.out_ch)
+    a = [F.conv2d(w, k, padding=(0, 1)) for w, k in zip(windows(xs, 2, 1, 3, 1, 2, 0.0), wa)]
+    a = [darknet._leaky(o) for o in bn(0, a, groups=4)]
+    wb = relabel(1, darknet._s2d_gather_indices_b, l1.in_ch, l1.out_ch)
+    out = [F.conv2d(_cl(F.pad(w, (1, 0))), k)
+           for w, k in zip(windows(a, 2, 1, 2, 1, 2, 0.0), wb)]
+    return [darknet._leaky(o) for o in bn(1, out)]
+
+
+def _sync_bn(master: StateDict, reps: List[StateDict], i: int, outs: List[torch.Tensor], *,
+             compute_dtype: torch.dtype, train: bool, first: torch.device,
+             new_stats: StateDict, groups: int = 1, bn_form: str = "reduce"
+             ) -> List[torch.Tensor]:
+    """BN ``i`` of every shard's conv output, before the activation.  Train
+    mode: the statistics of all shards together (sync-BN), each shard's
+    per-channel ``Σx`` and ``Σx²`` over its own rows summed on ``first``
+    with the true element count (``groups`` s2d phases count too, as
+    ``darknet.bn_batch_moments`` takes them), the new running statistics
+    written into ``new_stats``; ``bn_form="matmul"`` (``groups == 1``) takes
+    the sums and the normalize's backward sums as products, as
+    ``darknet._bn`` does.  Eval mode: the running statistics."""
+    if not train:
+        return [darknet.bn_normalize(p, i, darknet._wide(o), *darknet.bn_running_moments(p, i),
+                                     compute_dtype, groups) for p, o in zip(reps, outs)]
+    matmul = bn_form == "matmul" and groups == 1
+    total, n = None, 0
+    for o in outs:
+        b, cc, h, w = o.shape
+        if matmul:
+            sums = bnstats.channel_sums(darknet._nhwc(o).reshape(-1, cc))
+        else:
+            v = darknet._wide(o)
+            v = v.reshape(b, groups, cc // groups, h, w) if groups > 1 else v
+            dims = (0, 1, 3, 4) if groups > 1 else (0, 2, 3)
+            sums = (v.sum(dim=dims), (v * v).sum(dim=dims))
+        part = to_device(flat_cat(sums), first)
+        total = part if total is None else total + part
+        n += b * h * w * groups
+    mean, var = darknet.bn_moments_from_sums(*total.chunk(2), n)
+    new_stats.update(darknet.bn_running_stats(master, i, mean, var, n))
+    if matmul:
+        inv = torch.rsqrt(var + darknet.BN_EPS)
+        key = _bn_key(i)
+        return [bnstats.bn_normalize(o, to_device(mean, o.device), to_device(inv, o.device),
+                                     p[f"{key}.weight"].to(torch.float32),
+                                     p[f"{key}.bias"].to(torch.float32))
+                for p, o in zip(reps, outs)]
+    return [darknet.bn_normalize(p, i, darknet._wide(o), to_device(mean, o.device),
+                                 to_device(var, o.device), compute_dtype, groups)
+            for p, o in zip(reps, outs)]
 
 
 def spatial_forward(params, spec: GraphSpec, tiles, mesh: SpatialMesh,
@@ -396,28 +522,28 @@ class SpatialShards:
             augment: bool, compute_dtype: torch.dtype, layout: Layout = Layout()):
         """The global batch's loss, its gradient added into ``params``'
         ``.grad``: ``(loss, new_stats, per_head, images)``.  The shards run
-        the plain stem and the ``"reduce"`` BN form: ``layout.s2d_stem``
-        raises (the s2d stem on row shards is not ported, ROADMAP.md
-        Queue 1)."""
+        ``layout.s2d_stem`` on their rows (:func:`_s2d_stem`) and the BN
+        form ``darknet.BN_FORM`` names at the call, as the one-device step
+        does."""
         first = self.mesh.devices[0]
         if _device(params) != first:
             raise ValueError(f"the parameters are on {_device(params)}, not on the mesh's "
                              f"first device {first}")
-        if layout.s2d_stem:
-            raise ValueError("the s2d stem is not ported to the height-sharded step "
-                             "(ROADMAP.md Queue 1)")
         with record_function("train/augment"):
             images, targets, target_mask = prepare_batch(*batch, img_size, first, augment, rng,
                                                          layout.image_layout)
             if layout.image_layout == "planar":
                 images = images.permute(0, 2, 3, 1)  # the NHWC view apply_sharded takes
         with record_function("train/forward"):
+            replicas = leaf_replicas(params, self.mesh)
             maps, new_stats = apply_sharded(params, spec, images, self.mesh,
-                                            compute_dtype=compute_dtype, train=True)
+                                            compute_dtype=compute_dtype, train=True,
+                                            s2d_stem=layout.s2d_stem, replicas=replicas)
         with record_function("train/loss"):
             total, per_head = yolo_loss(maps, spec, img_size, targets, target_mask)
         with record_function("train/backward"):
             total.backward()
+            add_replica_grads(params, replicas)
         return total, new_stats, per_head, images.shape[0]
 
 
@@ -437,5 +563,6 @@ def shard_spatial_train_step(step_fn: StepFn, mesh: SpatialMesh) -> StepFn:
 
 
 __all__ = ["SpatialMesh", "make_spatial_mesh", "RowPlan", "row_plan", "layer_strides",
-           "ImageSharding", "spatial_image_sharding", "apply_sharded", "spatial_forward",
+           "ImageSharding", "spatial_image_sharding", "apply_sharded", "leaf_replicas",
+           "add_replica_grads", "spatial_forward",
            "spatial_detect", "SpatialShards", "shard_spatial_train_step"]

@@ -44,10 +44,9 @@ Several devices (the reference's ``training.py:113-205``):
 the reference's ``training.py:165-173`` decides; ``Trainer.s2d_stem`` is
 the resolved value) and ``image_layout`` (``"planar"`` by default) are the
 reference's layout options of the step (``parallel.steps``): the same
-function up to summation order.  Under ``spatial_shard > 1`` the stem is
-the plain one: ``None`` resolves to ``False`` and ``True`` raises
-``ValueError`` (the s2d stem on row shards is not ported, ROADMAP.md
-Queue 1), where the reference runs its s2d stem there.
+function up to summation order.  They hold under ``spatial_shard > 1`` too,
+where the shards run the s2d stem on their rows
+(``parallel.spatial._s2d_stem``), as the reference's GSPMD partitions it.
 """
 
 from __future__ import annotations
@@ -184,11 +183,8 @@ class Trainer:
         self.accum = max(1, int(cfg.gradient_accumulations or 1))
         self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         s2d = cfg.s2d_stem
-        if s2d is None:  # auto, as the reference; the height-sharded step has no s2d stem
-            s2d = n_sp == 1 and darknet.s2d_train_stem_qualifies(self.spec)
-        elif s2d and n_sp > 1:
-            raise ValueError("s2d_stem=True does not compose with spatial_shard > 1: the "
-                             "s2d stem on row shards is not ported (ROADMAP.md Queue 1)")
+        if s2d is None:  # auto, as the reference
+            s2d = darknet.s2d_train_stem_qualifies(self.spec)
         self.s2d_stem = bool(s2d)
         kw = dict(augment=cfg.augment, compute_dtype=self.compute_dtype,
                   s2d_stem=self.s2d_stem, image_layout=cfg.image_layout,

@@ -34,7 +34,11 @@ Phases (any failure exits non-zero; nothing is caught):
    above; the ``int8_full`` head maps of one tile on the card against the
    CPU with the same scales (through a calibration sidecar), within
    ``HEAD_TOL``; and the unfolded bf16 ``Detector(fold_bn=False)`` on one
-   batch: launches 1/0/0, outputs finite and shaped;
+   batch: launches 1/0/0, outputs finite and shaped.  A record, not a gate:
+   on one batch each, the int8 levels that ``ops/int8.py:quant`` (the
+   product with ``f32(1/s)`` that the compiled reference computes) sets
+   otherwise than the true division by ``s`` would on the same values
+   (:func:`division_flips`);
 8. K3's path: the 23 residual units of the calibrated ``int8_full`` model
    (``pack_model_int8_units``), chained stage by stage from a random int8
    stage input at B=8: 23 launches, each unit bit-exact against the plain
@@ -132,11 +136,19 @@ Phases (any failure exits non-zero; nothing is caught):
    (``shard_train_step_multiprocess``) in child processes, each with a
    timeout, against (c)'s one-device step with the same bounds: two gloo
    ranks with CUDA tensors on one card, NCCL at world size 1, and NCCL
-   over two cards where there are two, one group after another; the step
+   over every card where there are two or more, one group after another; the step
    times of (c) and (d) are means over ``DP_TIMED_STEPS`` steps after the
    checked one, on the host clock; (e) ``cli sweep --data_parallel 2``
    over two WSIs of phase 10's tiles: the one-device sweep's counts at the
-   same batch a device;
+   same batch a device; (f) where there are two or more cards, ``python -m
+   torch.distributed.run --standalone --nproc_per_node=<cards> -m
+   amyloid_yolo_tpu_torch.cli train --distributed True`` for one epoch of
+   ``DP_TR_BATCHES`` batches of ``DP_TRAIN_B`` synthetic tiles at 416, augment
+   off, against the one-device ``Trainer`` on the same data and seed: the
+   first batch's logged loss within ``DP_LOSS_RTOL``, the checkpoint's
+   parameters within rtol 1e-4 / atol 2.05 lr after its one apply and its
+   BN running statistics within ``STEP_RTOL`` (``tests/test_parallel.py``'s
+   bounds); on one card it prints that it did not run and why;
 14. spatial sharding (``parallel/spatial.py``), at the same width with the
    weights of phase 6, at the tiles' native 1536² (no resize), float32 with
    TF32 off, ``sp=2`` over cuda:0,1 (two entries on cuda:0 where there is
@@ -155,7 +167,18 @@ Phases (any failure exits non-zero; nothing is caught):
    four cards, ``sp=4`` over cuda:0-3 at B=8: loss, step ms and peak
    memory per card, and whether the unsharded B=8 step fits one card (an
    out-of-memory error there is reported, not fatal; where it fits, its
-   loss within ``DP_LOSS_RTOL``); K1/K2/K3 launch 0/0/0 over the phase.
+   loss within ``DP_LOSS_RTOL``); (e) the s2d stem on the row shards: the
+   height-sharded s2d grad step (B=2, float32, TF32 off) against the
+   unsharded s2d step and against the height-sharded plain-stem step, and
+   (f) ``bn_form="matmul"``: the sharded matmul step against the unsharded
+   matmul step and the sharded reduce step, each compared on the loss,
+   every gradient and the new BN statistics with the bounds of
+   :func:`sp_form_checks`; (g) the sharded train step's ms and peak GiB per
+   card in the plain, s2d and matmul forms; (h) where there are two cards,
+   four probes, one process each, of a gradient crossing from cuda:1 into
+   a tensor on cuda:0 (:data:`GRAD_PROBES`), naming the ones PyTorch warns
+   of with its AccumulateGrad stream mismatch; that warning is an error
+   throughout the phase; K1/K2/K3 launch 0/0/0 over the phase.
    (a) first raises the objectness biases of the three head convs by one
    constant (:func:`raise_objectness`), so that ``SP_OBJ_SHARE`` of the
    unsharded forward's rows pass conf 0.8, and both confs must compare a
@@ -1780,6 +1803,7 @@ DP_LR = 1e-3         # (c), (d) parameters after one apply: rtol 1e-4, atol 2.05
 DP_LOSS_RTOL = 1e-5
 DP_TIMED_STEPS = 3   # (c), (d) steps timed after the checked one
 CHILD_TIMEOUT_S = 300
+DP_TR_BATCHES = 1    # (f) batches of the torchrun epoch: one apply, the bounds of one
 
 
 def host_ms(fn, iters: int, devices, warmup: int = 0) -> float:
@@ -2097,7 +2121,7 @@ def parallel_phase(spec, params, card: str, dev, size: int = 416, side: int = 15
     if cuda:
         groups.append(("nccl1", "nccl", ["cuda:0"]))
         if n_cards >= 2:
-            groups.append(("nccl2", "nccl", ["cuda:0", "cuda:1"]))
+            groups.append((f"nccl{n_cards}", "nccl", [f"cuda:{i}" for i in range(n_cards)]))
     work = tempfile.mkdtemp(prefix="phase13_")
     try:
         with open(os.path.join(work, "model.cfg"), "w") as fh:
@@ -2185,7 +2209,87 @@ def parallel_phase(spec, params, card: str, dev, size: int = 416, side: int = 15
                            for k, v in sweeps.items()}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) train --distributed True under torchrun, one process a card
+    if n_cards >= 2:
+        record["torchrun"] = torchrun_train(spec, dev, n_cards, root, card)
+    else:
+        record["torchrun"] = {"ran": False, "why": f"{n_cards} card(s): one process a card "
+                                                   "needs two or more"}
+        print(f"(f) train --distributed True under torchrun not run: {n_cards} card(s), and "
+              "NCCL refuses two ranks on one card", flush=True)
     return record
+
+
+def _event_losses(logdir: str) -> list:
+    """(epoch, batch, loss) of every logged step under ``logdir``."""
+    import glob
+    recs = [json.loads(line) for f in sorted(glob.glob(os.path.join(logdir, "*", "events.jsonl")))
+            for line in open(f)]
+    return [(r["epoch"], r["batch"], r["loss"]) for r in recs if "loss" in r]
+
+
+def torchrun_train(spec, dev, n_cards: int, root: str, card: str) -> dict:
+    """(f): ``cli train --distributed True`` in ``n_cards`` processes under
+    ``torch.distributed.run`` (NCCL, ``cuda:LOCAL_RANK``) against the
+    one-device ``Trainer`` on the same synthetic set and seed."""
+    import torch
+    from amyloid_yolo_tpu_torch.graphspec import emit_cfg
+    from amyloid_yolo_tpu_torch.training import TrainConfig, Trainer
+    work = tempfile.mkdtemp(prefix="phase13_torchrun_")
+    try:
+        data = write_train_set(work, SEED + 131, n_train=DP_TR_BATCHES * DP_TRAIN_B, n_valid=2,
+                               side=512)
+        model = os.path.join(work, "model.cfg")
+        with open(model, "w") as fh:
+            fh.write(emit_cfg(spec))
+        common = dict(epochs=1, batch_size=DP_TRAIN_B, gradient_accumulations=1, img_size=416,
+                      evaluation_interval=0, learning_rate=DP_LR)
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={n_cards}", "-m", "amyloid_yolo_tpu_torch.cli", "train",
+                "--distributed", "True", "--data_config", data, "--model_def", model,
+                "--multiscale_training", "False", "--no_augment",
+                "--checkpoint_dir", os.path.join(work, "mp_ckpt"),
+                "--logdir", os.path.join(work, "mp_logs"),
+                *(f"--{k}={v}" for k, v in common.items()),
+                *(["--device", "cpu"] if dev.type == "cpu" else [])]  # a CPU rehearsal: gloo
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, timeout=CHILD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun train returned {proc.returncode}:\n"
+                                 f"{proc.stdout[-4000:]}")
+        mp_losses = _event_losses(os.path.join(work, "mp_logs"))
+        got = torch.load(os.path.join(work, "mp_ckpt", "yolov3_ckpt_0.pt"), weights_only=False)
+
+        cfg = TrainConfig(data_config=data, multiscale=False, augment=False,
+                          checkpoint_dir=os.path.join(work, "one_ckpt"),
+                          logdir=os.path.join(work, "one_logs"), **common)
+        Trainer(cfg, spec=spec, device=dev).train()
+        one_losses = _event_losses(os.path.join(work, "one_logs"))
+        want = torch.load(os.path.join(work, "one_ckpt", "yolov3_ckpt_0.pt"), weights_only=False)
+        if not mp_losses or [l[:2] for l in mp_losses] != [l[:2] for l in one_losses]:
+            raise AssertionError(f"logged steps {mp_losses} against {one_losses}")
+        rel = abs(mp_losses[0][2] - one_losses[0][2]) / abs(one_losses[0][2])
+        applies = (got["step"], want["step"])
+        close = _params_close(got["params"], want["params"])
+        rec = {"ran": True, "processes": n_cards, "losses": mp_losses, "one_losses": one_losses,
+               "loss_rel": rel, "steps": list(applies), **close, "wall_s": wall,
+               "ranks_printing": proc.stdout.count("loss=")}
+        print(f"(f) torchrun --nproc_per_node={n_cards} cli train --distributed True "
+              f"({'NCCL' if dev.type == 'cuda' else 'gloo'}), one "
+              f"epoch of {DP_TR_BATCHES} batches of {DP_TRAIN_B} at 416, augment off: logged "
+              f"losses {mp_losses} against the one-device Trainer's {one_losses} (first rel "
+              f"{rel:.3g}, tolerance {DP_LOSS_RTOL}); steps {applies}; checkpoint parameters "
+              f"within rtol 1e-4 / atol 2.05 lr (worst excess "
+              f"{close['param_worst_excess']}), BN stats worst rel {close['stat_worst_rel']}; "
+              f"{wall:.1f} s with start-up [{card}]", flush=True)
+        if rel > DP_LOSS_RTOL or applies[0] != applies[1]:
+            raise AssertionError("the torchrun Trainer disagrees with the one-device Trainer")
+        return rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -2205,6 +2309,22 @@ SP_OBJ_SHARE = 0.005
 SP_PRED_RTOL, SP_PRED_ATOL = 1e-4, 1e-5  # decoded predictions (tests/test_spatial.py:26)
 SP_DET_TOL = 1e-4         # dets, rtol and atol (tests/test_spatial.py:58-61)
 SP_TRAIN_SET = dict(n_train=4, n_valid=2)  # (c)
+# (e), (f): the forms on the row shards.  Against the unsharded step of the
+# same form only the sums over the shards reassociate, and cuDNN picks its
+# algorithms for the shards' shapes: loss within the CPU tests' 1e-6
+# (tests/test_torch_spatial_s2d.py).  Through YOLOv3's 72 BN layers any
+# reordering moves the gradients by percents at the stem (phase 11), so the
+# whole gradient is held to the JAX suite's cosine (S2D_GRAD_COS,
+# tests/test_s2d_train.py:152) and each tensor's ||Δ|| / ||ref|| is printed
+# beside the unsharded step's with the batch swapped (the same sums in
+# another order); the new BN statistics within the larger of the stated
+# bound and STEP_GRAD_NOISE_FACTOR times that swap's worst (phase 16's
+# rule).  Against the other form on the shards, the form's own bounds
+# (phase 16 (c)): :func:`sp_form_checks`
+SP_LOSS_RTOL = 1e-6
+SP_STAT_RTOL = 1e-5
+SP_FORMS = {"plain": (False, "reduce"), "s2d": (True, "reduce"), "matmul": (False, "matmul")}
+ACCUMULATE_GRAD_WARNING = r".*AccumulateGrad node's stream does not match.*"
 
 
 def _reset_peaks(devices) -> None:
@@ -2238,11 +2358,12 @@ def _free(devices) -> None:
                 torch.cuda.empty_cache()
 
 
-def _step_run(spec, params, dev, batch, size: int, mesh=None, dtype=None) -> dict:
-    """One float32 (or ``dtype``) train step, one apply, augment off, on
-    ``dev`` or height-sharded over ``mesh``: its loss, launches, parameters
-    after, peak memory per card, then ``DP_TIMED_STEPS`` more on the host
-    clock."""
+def _step_run(spec, params, dev, batch, size: int, mesh=None, dtype=None,
+              form: str = "plain") -> dict:
+    """One float32 (or ``dtype``) train step of ``SP_FORMS[form]``, one
+    apply, augment off, on ``dev`` or height-sharded over ``mesh``: its
+    loss, launches, parameters after, peak memory per card, then
+    ``DP_TIMED_STEPS`` more on the host clock."""
     import torch
     from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
     from amyloid_yolo_tpu_torch.parallel import spatial, steps
@@ -2251,26 +2372,199 @@ def _step_run(spec, params, dev, batch, size: int, mesh=None, dtype=None) -> dic
     _reset_peaks(devices)
     opt = steps.make_optimizer(DP_LR)
     state = steps.init_train_state(params, opt, device=dev)
+    s2d, form_name = SP_FORMS[form]
     step = steps.make_train_step(spec, opt, augment=False,
-                                 compute_dtype=dtype or torch.float32)
+                                 compute_dtype=dtype or torch.float32, s2d_stem=s2d)
     if mesh is not None:
         step = spatial.shard_spatial_train_step(step, mesh)
-    reset_launch_counts()
-    state, metrics = step(state, *batch, None, size)
-    loss = float(metrics["loss"])
-    _sync(devices)
-    rec = {"loss": loss, "launches": launch_counts(), "peak_gib": _peak_gib(devices),
-           "after": {k: v.detach().clone() for k, v in state.params.items()}}
-    if dtype is None:
+    with bn_form(form_name):
+        reset_launch_counts()
+        state, metrics = step(state, *batch, None, size)
+        loss = float(metrics["loss"])
+        _sync(devices)
+        rec = {"loss": loss, "launches": launch_counts(), "peak_gib": _peak_gib(devices),
+               "after": {k: v.detach().clone() for k, v in state.params.items()}}
+        if dtype is None:
 
-        def again():
-            nonlocal state
-            state, m = step(state, *batch, None, size)
-            float(m["loss"])
+            def again():
+                nonlocal state
+                state, m = step(state, *batch, None, size)
+                float(m["loss"])
 
-        rec["step_ms"] = host_ms(again, DP_TIMED_STEPS, devices)
+            rec["step_ms"] = host_ms(again, DP_TIMED_STEPS, devices)
     del state, opt, step
     _free(devices)
+    return rec
+
+
+def sp_form_checks() -> tuple:
+    """(e), (f): (name, form, reference, loss rtol, stat rtol) of each
+    comparison (see ``SP_LOSS_RTOL``)."""
+    return (("s2d vs unsharded s2d", "s2d", "s2d_one", SP_LOSS_RTOL, SP_STAT_RTOL),
+            ("s2d vs sharded plain", "s2d", "plain", S2D_LOSS_RTOL, STEP_RTOL),
+            ("matmul vs unsharded matmul", "matmul", "matmul_one", SP_LOSS_RTOL, SP_STAT_RTOL),
+            ("matmul vs sharded reduce", "matmul", "plain", BN_FORM_LOSS_RTOL,
+             BN_FORM_STAT_RTOL))
+
+
+@contextlib.contextmanager
+def bn_form(form: str):
+    """``darknet.BN_FORM`` (what ``AMYOLO_BN_FORM`` sets) for the block."""
+    from amyloid_yolo_tpu_torch.models import darknet
+    old, darknet.BN_FORM = darknet.BN_FORM, form
+    try:
+        yield
+    finally:
+        darknet.BN_FORM = old
+
+
+def _grad_run(spec, params, dev, batch, size: int, form: str, mesh=None) -> dict:
+    """One float32 grad step (TF32 off) of ``SP_FORMS[form]``, height-sharded
+    over ``mesh`` or on ``dev``: loss, gradients, new BN statistics."""
+    from amyloid_yolo_tpu_torch.parallel import spatial, steps
+    s2d, form_name = SP_FORMS[form]
+    devices = list(mesh.devices) if mesh is not None else [dev]
+    _free(devices)
+    with bn_form(form_name):
+        loss, grads, stats = steps.make_grad_step(spec, s2d_stem=s2d)(
+            {k: v.to(dev) for k, v in params.items()}, *batch, size,
+            shards=None if mesh is None else spatial.SpatialShards(mesh))
+    _sync(devices)
+    return {"loss": float(loss), "grads": {k: v.detach() for k, v in grads.items()},
+            "stats": stats}
+
+
+def _swapped(batch):
+    """The batch with its images in the other order (targets renumbered)."""
+    imgs, t, m = batch
+    t = t.copy()
+    t[:, 0] = len(imgs) - 1 - t[:, 0]
+    return imgs[::-1].copy(), t, m
+
+
+def sharded_forms(spec, params, dev, mesh, batch, side: int, card: str) -> dict:
+    """(e), (f): the s2d stem and the matmul BN form on the row shards."""
+    import numpy as np
+    import torch
+    runs = {form: _grad_run(spec, params, dev, batch, side, form, mesh) for form in SP_FORMS}
+    for form in ("s2d", "matmul"):
+        runs[f"{form}_one"] = _grad_run(spec, params, dev, batch, side, form)
+        runs[f"{form}_swap"] = _grad_run(spec, params, dev, _swapped(batch), side, form)
+
+    def rel(grads, ref):
+        return {k: float(torch.linalg.vector_norm(g - ref[k])
+                         / torch.linalg.vector_norm(ref[k]).clamp(min=1e-30))
+                for k, g in grads.items()}
+
+    def cosine(grads, ref):
+        a, b = (torch.cat([g[k].double().flatten() for k in ref]) for g in (grads, ref))
+        return float(a @ b / (a.norm() * b.norm()))
+
+    out = {}
+    for name, form, ref_name, loss_tol, stat_tol in sp_form_checks():
+        got, ref = runs[form], runs[ref_name]
+        noise_ref = runs[f"{form}_one"]
+        loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        g_rel = rel(got["grads"], ref["grads"])
+        noise = rel(runs[f"{form}_swap"]["grads"], noise_ref["grads"])
+        s_worst = _stat_rel(got["stats"], ref["stats"])
+        s_noise = _stat_rel(runs[f"{form}_swap"]["stats"], noise_ref["stats"])
+        s_bound = max(stat_tol, STEP_GRAD_NOISE_FACTOR * s_noise[1])
+        cos = cosine(got["grads"], ref["grads"])
+        worst = max(g_rel, key=g_rel.get)
+        rec = {"loss": got["loss"], "loss_ref": ref["loss"], "loss_rel": loss_rel,
+               "grad_cosine": cos, "grad_rel_median": float(np.median(list(g_rel.values()))),
+               "grad_rel_worst": [worst, g_rel[worst]],
+               "swap_noise_median": float(np.median(list(noise.values()))),
+               "swap_noise_max": max(noise.values()), "stat_rel_worst": list(s_worst),
+               "stat_bound": s_bound, "tensors": len(g_rel)}
+        out[name] = rec
+        print(f"({'e' if form == 's2d' else 'f'}) {name}, B={len(batch[0])} at {side}, f32 "
+              f"(TF32 off) over {[str(d) for d in mesh.devices]}: loss {got['loss']} vs "
+              f"{ref['loss']} (rel {loss_rel:.3g}, tolerance {loss_tol}); gradients of "
+              f"{len(g_rel)} tensors, cosine {cos:.9f} (tolerance > {S2D_GRAD_COS}), "
+              f"||Δ||/||ref|| median {rec['grad_rel_median']:.3g}, worst "
+              f"{g_rel[worst]:.3g} ({worst}), beside the unsharded {form} step with the "
+              f"batch swapped: median {rec['swap_noise_median']:.3g}, worst "
+              f"{rec['swap_noise_max']:.3g} (not a check); new BN stats worst max|Δ|/max "
+              f"{s_worst[1]:.3g} ({s_worst[0]}; tolerance {s_bound:.3g}, the larger of "
+              f"{stat_tol} and {STEP_GRAD_NOISE_FACTOR}x the swap's {s_noise[1]:.3g}) [{card}]",
+              flush=True)
+        if loss_rel > loss_tol or cos <= S2D_GRAD_COS or s_worst[1] > s_bound:
+            raise AssertionError(f"phase 14, {name}: the sharded step disagrees")
+    del runs
+    return out
+
+
+GRAD_PROBES = ("parameter replica, a differentiable copy", "parameter replica, a leaf copy",
+               "halo copy", "BN sum")
+
+
+def grad_probe(name: str) -> int:
+    """(h)'s child: ``python3 chip_smoke.py --grad-probe <name>``.  Two
+    iterations of one gradient crossing from cuda:1 back to cuda:0 in the
+    way ``name`` says, with the AccumulateGrad stream-mismatch warning made
+    an error (PyTorch gives it once a process, hence a process a probe);
+    prints one JSON line."""
+    import warnings
+    import torch
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    w = torch.randn(64, 64, device=d0, requires_grad=True)
+
+    def once():
+        x = torch.randn(32, 64, device=d1)
+        if name == "parameter replica, a differentiable copy":
+            (x @ w.to(d1)).square().sum().backward()
+        elif name == "parameter replica, a leaf copy":  # the port's train step
+            w1 = w.detach().to(d1).requires_grad_(True)
+            (x @ w1).square().sum().backward()
+            w.grad = w1.grad.to(d0) if w.grad is None else w.grad + w1.grad.to(d0)
+        elif name == "halo copy":
+            (torch.randn(32, 64, device=d0) @ w).to(d1).square().sum().backward()
+        elif name == "BN sum":
+            v = torch.randn(64, device=d1, requires_grad=True)
+            (x * v).sum(0).to(d0).square().sum().backward()
+        else:
+            raise ValueError(f"unknown probe {name!r}")
+        torch.cuda.synchronize()
+
+    rec = {"grad_probe": name, "warned": False}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=ACCUMULATE_GRAD_WARNING)
+        for it in range(2):
+            try:
+                once()
+            except UserWarning as e:
+                rec.update(warned=True, iteration=it, message=str(e)[:200])
+                break
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def accumulate_grad_check(spec, params, dev, mesh, batch, side: int, n_cards: int,
+                          root: str) -> dict:
+    """(h): where there are two cards, each of ``GRAD_PROBES`` in a process
+    of its own (:func:`grad_probe`); then, here, the sharded s2d grad step
+    (the AccumulateGrad stream-mismatch warning is an error throughout
+    phase 14)."""
+    probes = {}
+    if n_cards >= 2:
+        for name in GRAD_PROBES:
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--grad-probe", name],
+                                 cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True, timeout=CHILD_TIMEOUT_S).stdout
+            recs = [json.loads(l) for l in out.splitlines() if l.startswith('{"grad_probe"')]
+            if len(recs) != 1:
+                raise AssertionError(f"grad probe {name!r} failed:\n{out[-3000:]}")
+            probes[name] = recs[0]
+    run = _grad_run(spec, params, dev, batch, side, "s2d", mesh)
+    rec = {"probes": probes, "sharded_backward_loss": run["loss"],
+           "mesh_devices": [str(d) for d in mesh.devices]}
+    print(f"(h) AccumulateGrad stream mismatch, one process a probe, two iterations each, "
+          f"the warning an error: "
+          f"{json.dumps({k: v['warned'] for k, v in probes.items()}) if probes else 'probes not run (one card)'}"
+          f"; the sharded s2d backward over {rec['mesh_devices']} with the warning an error: "
+          f"ran, loss {run['loss']}", flush=True)
     return rec
 
 
@@ -2300,10 +2594,18 @@ def raise_objectness(folded, spec, maps, share: float, conf: float):
 
 
 def spatial_phase(spec, params, card: str, dev, side: int = 1536) -> dict:
-    """Phase 14 (see the module docstring); returns its JSON record.  On the
+    """Phase 14 (see the module docstring); returns its JSON record.  The
+    AccumulateGrad stream-mismatch warning is an error throughout.  On the
     CPU (a rehearsal with a mini spec and a small ``side``) the meshes are
     CPU entries, memory is not read and (d) is left out;
     ``torch.cuda.synchronize`` and ``cuda_ms`` then need host stand-ins."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=ACCUMULATE_GRAD_WARNING)
+        return _spatial_phase(spec, params, card, dev, side)
+
+
+def _spatial_phase(spec, params, card: str, dev, side: int) -> dict:
     import numpy as np
     import torch
     from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -2471,6 +2773,35 @@ def spatial_phase(spec, params, card: str, dev, side: int = 1536) -> dict:
         del tr
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+    # (e), (f) the s2d stem and the matmul BN form on the row shards
+    form_counts = {}
+    reset_launch_counts()
+    record["forms"] = sharded_forms(spec, params, dev, mesh, batch, side, card)
+    form_counts.update(launch_counts())
+
+    # (g) step ms and peak GiB per card, plain, s2d and matmul, sharded
+    times = {"plain": {"step_ms": sp["step_ms"], "peak_gib": sp["peak_gib"]}}
+    for form in ("s2d", "matmul"):
+        run = _step_run(spec, params, dev, batch, side, mesh, form=form)
+        run.pop("after")
+        form_counts = {k: form_counts.get(k, 0) + v for k, v in run["launches"].items()}
+        times[form] = {"step_ms": run["step_ms"], "peak_gib": run["peak_gib"],
+                       "loss": run["loss"]}
+    record["form_times"] = times
+    print(f"(g) height-sharded f32 train step over {record['mesh_devices']}, B={SP_B} at "
+          f"{side}, one apply then {DP_TIMED_STEPS} timed (host clock, mean), peak GiB a "
+          f"card: " + "; ".join(f"{k} {v['step_ms']:.1f} ms, {v['peak_gib']}"
+                                for k, v in times.items()) + f" [{card}]", flush=True)
+
+    # (h) the AccumulateGrad stream mismatch
+    reset_launch_counts()
+    record["accumulate_grad"] = accumulate_grad_check(spec, params, dev, mesh, batch, side,
+                                                      n_cards, os.path.dirname(
+                                                          os.path.abspath(__file__)))
+    form_counts = {k: form_counts.get(k, 0) + v for k, v in launch_counts().items()}
+    add(form_counts)
+    record["forms_launches"] = form_counts
 
     # (d) four cards: sp=4 at the reference recipe's batch
     if n_cards >= 4:
@@ -3114,6 +3445,39 @@ def layout_phase(spec, params, card: str, dev, size: int = 416, side: int = 1536
     return record
 
 
+def division_flips(det, tiles) -> dict:
+    """The int8 levels of one ``det.head_maps`` call that ``quant`` (``y ·
+    f32(1/s)``) sets otherwise than ``clip(round(y / f32(s)))``, counted on
+    the same ``y`` at every quantization: ``{"differ", "levels", "calls"}``.
+    A record of what the quantization repair changes on the card."""
+    import torch
+    from amyloid_yolo_tpu_torch.ops import int8 as q8
+    scales, counts = {}, {"differ": 0, "levels": 0, "calls": 0}
+    inverse_scales, quant = q8.inverse_scales, q8.quant
+
+    def inverse_scales_kept(values, device):
+        inv = inverse_scales(values, device)
+        for k, t in inv.items():
+            scales[id(t)] = torch.tensor(values[k], dtype=torch.float32, device=device)
+        return inv
+
+    def quant_counted(y, inv):
+        q = quant(y, inv)
+        divided = torch.clamp(torch.round(y / scales[id(inv)]), -q8.QMAX, q8.QMAX).to(q.dtype)
+        counts["differ"] += int((q != divided).sum())
+        counts["levels"] += q.numel()
+        counts["calls"] += 1
+        return q
+
+    q8.inverse_scales, q8.quant = inverse_scales_kept, quant_counted
+    try:
+        with torch.inference_mode():
+            det.head_maps(torch.as_tensor(tiles).to(det.device))
+    finally:
+        q8.inverse_scales, q8.quant = inverse_scales, quant
+    return counts
+
+
 def drive(det, batches, want_counts: dict) -> None:
     """One Detector over the batches with the launch counters set to 0
     just before: the counts must be ``want_counts``, the outputs finite
@@ -3269,7 +3633,7 @@ def main() -> int:
             raise AssertionError("head maps through the kernels disagree with the plain path")
 
     # 7. the int8 Detectors
-    int8_dets = {}
+    int8_dets, int8_flips = {}, {}
     for precision in ("int8_full", "int8_early"):
         d8 = Detector(spec, params, conf_thres=0.3, precision=precision)
         t0 = time.perf_counter()
@@ -3279,6 +3643,11 @@ def main() -> int:
         drive(d8, batches, {"resize_normalize": 3, "fused_residual_block": 0,
                             "fused_residual_block_int8": 0})
         int8_dets[precision] = d8
+        flips = division_flips(d8, batches[1])
+        int8_flips[precision] = flips
+        print(f"{precision} B=8: {flips['differ']} of {flips['levels']} int8 levels over "
+              f"{flips['calls']} quantizations differ between y * f32(1/s) and y / s on the "
+              "same values (a record, not a gate)", flush=True)
     drive(Detector(spec, params, conf_thres=0.3, fold_bn=False), batches[:1],
           {"resize_normalize": 1, "fused_residual_block": 0, "fused_residual_block_int8": 0})
     full = int8_dets["int8_full"]
@@ -3491,6 +3860,7 @@ def main() -> int:
          "mesh_launches": mesh_rec["launches"]["resize_normalize"],
          "mesh_shards": mesh_rec["shards"],
          "spatial_launches": spatial["launches"].get("resize_normalize", 0),
+         "spatial_forms_launches": spatial["forms_launches"].get("resize_normalize", 0),
          "study_launches": study["launches"]["resize_normalize"],
          "s2d_bf16_launches": layout["bf16_launches"]["resize_normalize"],
          "s2d_int8_full_launches": int8_s2d["resize_normalize"],
@@ -3510,6 +3880,7 @@ def main() -> int:
          "mesh_launches": mesh_rec["launches"]["fused_residual_block"],
          "mesh_shards": mesh_rec["shards"],
          "spatial_launches": spatial["launches"].get("fused_residual_block", 0),
+         "spatial_forms_launches": spatial["forms_launches"].get("fused_residual_block", 0),
          "study_launches": study["launches"]["fused_residual_block"],
          "s2d_bf16_launches": layout["bf16_launches"]["fused_residual_block"],
          "s2d_int8_full_launches": int8_s2d["fused_residual_block"],
@@ -3527,12 +3898,14 @@ def main() -> int:
          "serving_launches": served["launches"]["fused_residual_block_int8"],
          "serving_dispatches": served["dispatches"],
          "spatial_launches": spatial["launches"].get("fused_residual_block_int8", 0),
+         "spatial_forms_launches": spatial["forms_launches"].get("fused_residual_block_int8", 0),
          "study_launches": study["launches"]["fused_residual_block_int8"],
          "s2d_bf16_launches": layout["bf16_launches"]["fused_residual_block_int8"],
          "s2d_int8_full_launches": int8_s2d["fused_residual_block_int8"],
          "layout_training_launches":
              layout["training"]["launches"]["fused_residual_block_int8"]},
     ]
+    detector["int8_division_flips"] = int8_flips
     print(json.dumps({"detector": detector, "card": card}))
     print(json.dumps({"folder": folder, "card": card}))
     print(json.dumps({"training": training, "card": card}))
@@ -3552,4 +3925,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:
         sys.exit(dp_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--grad-probe"]:
+        sys.exit(grad_probe(sys.argv[2]))
     sys.exit(main())

@@ -10,7 +10,11 @@ inputs and under shared activation scales.
   (``HEAD_RTOL`` × the map's largest value; measured: up to 3e-7, and 0 in
   bf16 for ``int8_early``).  One int8 level off anywhere upstream moves a
   head value by about ``s·ws·|w|``, some 1e-3 of the map, so the
-  tolerance catches any level that differs.
+  tolerance catches any level that differs.  The JAX executors run as the
+  JAX ``Detector`` compiles them: ``jax.jit``, the scales closed over as
+  Python floats, XLA's excess precision off
+  (``torch_port_helpers.jit_compiled``).  XLA then quantizes ``y / s`` as
+  ``y · f32(1/s)``, which ``test_quant_matches_compiled_jax`` holds.
 """
 
 import jax.numpy as jnp
@@ -26,7 +30,7 @@ from amyloid_yolo_tpu_torch.models import darknet as port_darknet
 from amyloid_yolo_tpu_torch.ops import int8 as q8
 
 from minispec import mini_spec
-from torch_port_helpers import jax_params_np, port_mini_spec
+from torch_port_helpers import jax_params_np, jit_compiled, port_mini_spec
 
 SCALE_RTOL = 1e-6
 HEAD_RTOL = 1e-5
@@ -105,9 +109,9 @@ def test_apply_folded_int8_matches_jax(model, dtype, int8_compute):
     upto = jax_darknet.int8_region(ref_spec)
     qp = jax_darknet.quantize_folded_int8(ref_folded, ref_spec, upto)
     scales = jax_darknet.calibrate_act_scales(ref_folded, ref_spec, jnp.asarray(x), upto)
-    want = jax_darknet.apply_folded_int8(ref_folded, qp, scales, ref_spec, jnp.asarray(x),
-                                         upto=upto, compute_dtype=getattr(jnp, dtype),
-                                         int8_compute=int8_compute)
+    want = jit_compiled(lambda f, v: jax_darknet.apply_folded_int8(
+        f, qp, scales, ref_spec, v, upto=upto, compute_dtype=getattr(jnp, dtype),
+        int8_compute=int8_compute), ref_folded, jnp.asarray(x))
     got = port_darknet.apply_folded_int8(
         folded, port_darknet.quantize_folded_int8(folded, spec, upto), scales, spec,
         torch.from_numpy(x), upto=upto, compute_dtype=getattr(torch, dtype),
@@ -121,9 +125,9 @@ def test_apply_folded_int8_full_matches_jax(model, dtype, int32_accum_max_hw):
     ref_spec, spec, ref_folded, folded, x = model
     qp = jax_darknet.quantize_folded_int8_full(ref_folded, ref_spec)
     scales = jax_darknet.calibrate_act_scales_full(ref_folded, ref_spec, jnp.asarray(x))
-    want = jax_darknet.apply_folded_int8_full(
-        ref_folded, qp, scales, ref_spec, jnp.asarray(x), compute_dtype=getattr(jnp, dtype),
-        int32_accum_max_hw=int32_accum_max_hw)
+    want = jit_compiled(lambda f, v: jax_darknet.apply_folded_int8_full(
+        f, qp, scales, ref_spec, v, compute_dtype=getattr(jnp, dtype),
+        int32_accum_max_hw=int32_accum_max_hw), ref_folded, jnp.asarray(x))
     got = port_darknet.apply_folded_int8_full(
         folded, port_darknet.quantize_folded_int8_full(folded, spec), scales, spec,
         torch.from_numpy(x), compute_dtype=getattr(torch, dtype),
@@ -143,6 +147,29 @@ def test_s2d_stems_not_ported(model):
             ref_folded, jax_darknet.quantize_folded_int8_full(ref_folded, ref_spec), ref_spec)
     with pytest.raises(ValueError, match="conv_1 is not quantized"):
         port_darknet.make_s2d_stem_int8(folded, qp, spec)
+
+
+def test_quant_matches_compiled_jax():
+    """``quant`` against the reference executors' ``quant`` compiled with
+    its scale a Python float, over 2**20 values at 16 scales: every level
+    equal.  True division, the rule before (and eager JAX's), flips some;
+    so does ``1/s`` folded in double (K3's ``requant``)."""
+    rng = np.random.RandomState(5)
+    flips = {"quant": 0, "divide": 0, "requant": 0}
+    for _ in range(16):
+        s = float(rng.rand()) * 0.5 / 127.0 + 1e-12
+        y = (rng.randn(1 << 20) * 40 * s).astype(np.float32)  # ~40 levels wide
+        yt = torch.from_numpy(y)
+        want = jit_compiled(lambda v: jnp.clip(jnp.round(v / s), -127, 127).astype(jnp.int8),
+                            y)
+        want = torch.from_numpy(np.array(want))
+        inv = q8.inverse_scales({"s": s}, torch.device("cpu"))["s"]
+        divided = torch.clamp(torch.round(yt / torch.tensor(s, dtype=torch.float32)), -127, 127)
+        flips["quant"] += int((q8.quant(yt, inv) != want).sum())
+        flips["divide"] += int((divided.to(torch.int8) != want).sum())
+        flips["requant"] += int((q8.requant(yt, s) != want).sum())
+    assert flips["quant"] == 0, flips
+    assert flips["divide"] > 0 and flips["requant"] > 0, flips
 
 
 @pytest.mark.parametrize("kernel,stride", [(2, 1), (2, 2), (3, 1)])

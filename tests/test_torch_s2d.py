@@ -10,9 +10,11 @@ package's (``models/darknet.py:492-765``, ``detectors.py:165-196``).
   maps within 0.02 of the map's largest value, and the int8 levels of the
   stem's two outputs counted against JAX's (a level flips where conv_a's
   float32 sum lands on a rounding boundary in another order).  The JAX int8
-  references run eagerly, as ``tests/test_torch_int8.py``'s do: compiled,
-  XLA multiplies by the reciprocal of each constant scale, where the port
-  (and eager JAX) divides.
+  references run as ``tests/test_torch_int8.py``'s do, as the JAX
+  ``Detector`` compiles them: ``jax.jit`` with the scales closed over as
+  Python floats, so XLA multiplies by the reciprocal of each constant
+  scale, as the port does, and XLA's excess precision off
+  (``torch_port_helpers.jit_compiled``).
 * The s2d downsample under int32 accumulation: bit-exact to the port's
   plain conv; against JAX within ``HEAD_RTOL`` (the head convs' float32
   order).
@@ -41,7 +43,7 @@ from amyloid_yolo_tpu_torch.models import darknet
 from amyloid_yolo_tpu_torch.parallel.mesh import make_mesh
 
 from minispec import mini_spec
-from torch_port_helpers import numpy_params, port_mini_spec
+from torch_port_helpers import jit_compiled, numpy_params, port_mini_spec
 
 F32_TOL = 1e-4
 INT8_TOL = 0.02
@@ -211,8 +213,8 @@ def test_bf16_s2d_runs_every_residual_unit_through_the_block(mini):
 
 def _jax_stem_levels(ref_folded, qp, scales, ref_spec, x):
     """The int8 levels of the JAX stem's conv-0 and conv-1 outputs,
-    computed eagerly with its primitives as ``apply_folded_int8_full``
-    does."""
+    computed with its primitives as ``apply_folded_int8_full`` does,
+    compiled with the scales closed over."""
     st = jax_darknet.make_s2d_stem_int8(ref_folded, qp, ref_spec)
 
     def quant(y, s):
@@ -226,16 +228,17 @@ def _jax_stem_levels(ref_folded, qp, scales, ref_spec, x):
             * (scales["0"] * st["wbs"]) + st["bb"]
         return aq, quant(jax_darknet._leaky(y), scales["1"])
 
-    return [np.asarray(v) for v in levels(jnp.asarray(x))]
+    return [np.asarray(v) for v in jit_compiled(levels, jnp.asarray(x))]
 
 
 def test_int8_full_s2d_matches_jax(stem8, monkeypatch):
     ref_spec, spec, _, ref_folded, folded, x = stem8
     qp = jax_darknet.quantize_folded_int8_full(ref_folded, ref_spec)
     scales = jax_darknet.calibrate_act_scales_full(ref_folded, ref_spec, jnp.asarray(x))
-    want = jax_darknet.apply_folded_int8_full(
-        ref_folded, qp, scales, ref_spec, jnp.asarray(x), compute_dtype=jnp.float32,
-        s2d_stem=jax_darknet.make_s2d_stem_int8(ref_folded, qp, ref_spec))
+    stem = jax_darknet.make_s2d_stem_int8(ref_folded, qp, ref_spec)
+    want = jit_compiled(lambda f, v: jax_darknet.apply_folded_int8_full(
+        f, qp, scales, ref_spec, v, compute_dtype=jnp.float32, s2d_stem=stem),
+        ref_folded, jnp.asarray(x))
     pqp = darknet.quantize_folded_int8_full(folded, spec)
     quantized = []
     quant = darknet.q8.quant
@@ -275,10 +278,10 @@ def test_s2d_down_against_plain_and_jax(down, int32_accum_max_hw):
     ref_spec, spec, _, ref_folded, folded, x = down
     ref_qp = jax_darknet.quantize_folded_int8_full(ref_folded, ref_spec)
     scales = jax_darknet.calibrate_act_scales_full(ref_folded, ref_spec, jnp.asarray(x))
-    want = jax_darknet.apply_folded_int8_full(
-        ref_folded, ref_qp, scales, ref_spec, jnp.asarray(x), compute_dtype=jnp.float32,
-        s2d_downs=jax_darknet.make_s2d_down_int8(ref_qp, ref_spec),
-        int32_accum_max_hw=int32_accum_max_hw)
+    downs = jax_darknet.make_s2d_down_int8(ref_qp, ref_spec)
+    want = jit_compiled(lambda f, v: jax_darknet.apply_folded_int8_full(
+        f, ref_qp, scales, ref_spec, v, compute_dtype=jnp.float32, s2d_downs=downs,
+        int32_accum_max_hw=int32_accum_max_hw), ref_folded, jnp.asarray(x))
     qp = darknet.quantize_folded_int8_full(folded, spec)
     xt = torch.from_numpy(x)
     kw = dict(compute_dtype=torch.float32, int32_accum_max_hw=int32_accum_max_hw)
@@ -324,10 +327,10 @@ def test_detector_int8_full_s2d_stem_and_downsample(down, tmp_path):
               compute_dtype=jnp.float32, **DET)
     ref = JaxDetector(ref_spec, params, **kw)
     ref.calibrate(tiles)
-    want = jax_darknet.apply_folded_int8_full(
-        ref.params, ref._qparams, ref._act_scales, ref_spec,
-        jnp.asarray(tiles, jnp.float32) * np.float32(1 / 255), compute_dtype=jnp.float32,
-        s2d_stem=ref._s2d_params, s2d_downs=ref._s2d_downs)
+    want = jit_compiled(lambda f, v: jax_darknet.apply_folded_int8_full(
+        f, ref._qparams, ref._act_scales, ref_spec, v, compute_dtype=jnp.float32,
+        s2d_stem=ref._s2d_params, s2d_downs=ref._s2d_downs),
+        ref.params, jnp.asarray(tiles, jnp.float32) * np.float32(1 / 255))
     det = Detector(spec, params_from_jax(params, spec), device="cpu",
                    **{**kw, "compute_dtype": torch.float32})
     det.load_calibration(ref.save_calibration(str(tmp_path / "scales.json")))

@@ -16,8 +16,9 @@ against the port's plain stem, on the mini spec at 64².
   (``tests/test_torch_train_forward.py``'s bound).
 * The steps and the ``Trainer``: ``s2d_stem`` reaches the forward (the
   step's loss is the s2d forward's), the in-process data-parallel step
-  takes it, ``Trainer(s2d_stem=None)`` resolves as JAX's does, and an
-  explicit ``True`` under ``spatial_shard > 1`` raises.
+  takes it, and ``Trainer(s2d_stem=None)`` resolves as JAX's does, under
+  ``spatial_shard > 1`` too, where an explicit ``True`` trains
+  (``tests/test_torch_spatial_s2d.py`` holds the height-sharded s2d step).
 """
 
 import sys
@@ -219,17 +220,24 @@ def data_config(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("s2d,spatial,want", [(None, None, True), (False, None, False),
-                                              (True, None, True), (None, 2, False),
-                                              (True, 2, "raises")])
+                                              (True, None, True), (None, 2, True),
+                                              (True, 2, "trains")])
 def test_trainer_resolves_s2d_stem(data_config, tmp_path, s2d, spatial, want):
+    """The reference's rule, whatever ``spatial_shard`` is; with ``True``
+    on two row shards the Trainer's step trains one finite step."""
     cfg = TrainConfig(data_config=data_config, s2d_stem=s2d, spatial_shard=spatial,
                       logdir=str(tmp_path / "logs"))
-    if want == "raises":
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
-            Trainer(cfg, spec=port_mini_spec(), device="cpu")
-        return
     tr = Trainer(cfg, spec=port_mini_spec(), device="cpu")
+    if want == "trains":
+        assert tr.s2d_stem is True
+        imgs = np.random.RandomState(0).randint(0, 255, (2, 64, 64, 3)).astype(np.uint8)
+        targets = np.array([[0, 1, 0.5, 0.5, 0.3, 0.2], [1, 0, 0.4, 0.6, 0.2, 0.2]],
+                           np.float32)
+        run = steps.init_accum_state(tr.state) if tr.accum > 1 else tr.state
+        _, m = tr.step_fn(run, imgs, targets, np.ones(2, bool),
+                          torch.Generator().manual_seed(0), 64)
+        assert tr.state.step == 1 and np.isfinite(float(m["loss"]))
+        return
     assert tr.s2d_stem is want
-    if spatial is None:  # the reference's rule on the same spec
-        assert want is (s2d if s2d is not None else
-                        jax_darknet._check_s2d_spec(MINI) is None)
+    # the reference's rule on the same spec
+    assert want is (s2d if s2d is not None else jax_darknet._check_s2d_spec(MINI) is None)

@@ -62,6 +62,23 @@ def port_mini_spec(num_classes: int = 2, img_size: int = 64):
     return _finish(b.net, b.layers, b.out_channels)
 
 
+#: XLA options under which a compiled JAX program rounds at every bf16 cast
+#: it makes.  With ``xla_allow_excess_precision`` on, the default, XLA's CPU
+#: backend keeps float32 where the program asks for bf16 (the int8
+#: executors' bf16 accumulators among them), which a backend with bf16
+#: arithmetic need not do.  Every other rewrite stays, XLA's fold of a
+#: division by a constant into a product with its reciprocal included.
+EXACT_BF16 = {"xla_allow_excess_precision": False}
+
+
+def jit_compiled(fn, *args):
+    """``fn(*args)`` through ``jax.jit``, compiled with :data:`EXACT_BF16`:
+    the JAX program as the reference's compiled ``Detector`` runs it, with
+    the constants ``fn`` closes over (activation scales as Python floats)
+    folded into it."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=EXACT_BF16)(*args)
+
+
 def jax_params_np(spec, seed: int, bn_noise: bool = False, jit: bool = False):
     """JAX ``init_params`` weights as numpy.  ``bn_noise`` randomises the BN
     shift and running stats (numpy seed ``seed``) so folding is exercised.
