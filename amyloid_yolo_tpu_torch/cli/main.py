@@ -14,8 +14,9 @@ script) with the reference package's commands, options and defaults:
 * ``crop``   — WSI tiling (``crop.py``);
 * ``export`` — weight conversion between ``.pth`` and darknet ``.weights``;
 * ``clear``  — output reset (``clear.py``);
-* ``bench``  — parses, then raises: the port bench is not written yet
-  (ROADMAP.md Queue 1 item 2).
+* ``bench``  — runs ``bench_torch.py`` at the repo root, the port's
+  counterpart of ``bench.py`` (its ``BENCH_*`` environment); it measures
+  the card and raises without one, ``--device`` or not.
 
 Where the port differs:
 
@@ -437,9 +438,14 @@ def cmd_clear(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError(
-        "the port has no bench yet (ROADMAP.md Queue 1 item 2); the reference "
-        "package's bench.py measures the TPU program, not this one")
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch", os.path.join(os.path.dirname(__file__), "../../bench_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main()
+    return 0
 
 
 CFG_HELP = ("darknet cfg to build the graph from (e.g. a re-anchored cfg; "

@@ -227,7 +227,27 @@ Phases (any failure exits non-zero; nothing is caught):
    alone at B=32 (plain and s2d, device time), and the bf16 B=8 micro-step
    plain or s2d, reduce or matmul, each with the host's enqueue and a
    ``torch.profiler`` breakdown;
-17. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
+17. the bench and the measurement tools, at the same width: (a)
+   ``python3 bench_torch.py`` in a process of its own with ``BENCH_ITERS``
+   10: exit 0, exactly two stdout lines with ``bench.py``'s keys, order and
+   metric names, the headline last, its stderr naming the card and giving
+   each repetition's time, and the launches per call it prints (K1 1 on
+   both lines, K2 23 on the bf16 parity line and 0 on the ``int8_full``
+   headline, K3 0; the host-resized variant's K1 recorded); (b) ``python
+   -m amyloid_yolo_tpu_torch.cli bench`` with ``BENCH_BATCH=8
+   BENCH_ITERS=3``: the same; (c) ``tools/bench_int8_block_torch.py`` at
+   its four unit shapes, B=16: K3 bit-exact to its plain version on the
+   first application, the three arms' times, K3's plan and bound; (d)
+   ``tools/bench_trainstep_torch.py``'s bf16 and f32 step at B=8, against
+   phase 11's range (a record: the tool applies Adam every step); (e)
+   ``tools/serve_bench_torch.py`` around a bf16 server, raw bodies, 8
+   clients for ``SERVE_TOOL_S``: no errors, ``queue_depth_max <=
+   max_queue``; (f) ``tools/trace_summary_torch.py`` over the Chrome trace
+   of one bf16 B=8 Detector call: K2 23 and K1 1 launches in its table,
+   its busy share within ``SHARE_TOL`` of :func:`profile_detector`'s; (g)
+   ``tools/mfu_torch.py`` over (a)'s and (d)'s times.  Every kernel of the
+   phase's path launches in (c), (e) and (f), counted from 0 before (c);
+18. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
    every path above), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -249,9 +269,14 @@ import sys
 import tempfile
 import time
 
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "tools"))  # the measurement tools of phase 17
+
+from bench_int8_block_torch import k3_bound  # noqa: E402
+from mfu_torch import H100_BF16_TFLOPS, H100_HBM_TBPS  # noqa: E402
+
+PEAK_BF16_FLOPS = H100_BF16_TFLOPS * 1e12
+PEAK_BYTES = H100_HBM_TBPS * 1e12
 STAGES = ((208, 64, 1), (104, 128, 2), (52, 256, 8), (26, 512, 8), (13, 1024, 4))
 DETECTOR_BATCHES = (8, 32)                   # phases 6 (the first) and 9
 CHECK_BATCHES = (1, 4) + DETECTOR_BATCHES  # K2's and K3's plans depend on B
@@ -292,22 +317,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = True) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def profile_detector(det, tiles, calls: int = 3) -> dict:
+def profile_detector(det, tiles, calls: int = 3, trace_path=None) -> dict:
     """Device time per call from a ``torch.profiler`` trace of ``calls``
     Detector calls: busy ms, the share of the traced span the device sat
     idle (the profiler's own host cost inflates it), and the launches and
-    device ms of each kernel group (:func:`kernel_group`)."""
+    device ms of each kernel group (:func:`kernel_group`).  ``trace_path``
+    also writes the trace there as Chrome JSON.  One call runs first in the
+    profiler's warm-up step, whose events it drops: tracing starts late on
+    the card, and without it the first kernels of a trace may be missing
+    (the first K1 and 8 K2 launches of one call were, once, in phase 17)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from trace_summary_torch import busy_and_span
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        det(tiles)
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(calls):
             det(tiles)
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     if not events:
         return {"device_busy_ms": "not measured"}
-    busy_us = sum(e.time_range.elapsed_us() for e in events)
-    span_us = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    busy_us, span_us = busy_and_span((e.time_range.start, e.time_range.end) for e in events)
     groups, names = {}, {}
     for e in events:
         for table, key in ((groups, kernel_group(e.name)), (names, e.name[:90])):
@@ -397,13 +433,6 @@ def detector_ms(det, b, dev, gen) -> float:
                           generator=gen)
     with torch.inference_mode():
         return cuda_ms(lambda: det(tiles), iters=5, warmup=2, hold=False)
-
-
-def k3_bound(b: int, h: int, c: int):
-    ops = b * 20 * h * h * c * (c // 2)
-    nbytes = b * 2 * h * h * c + 10 * c * (c // 2)
-    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def k3_stage_inputs(b, h, c, dev, gen):
@@ -1282,6 +1311,7 @@ def trace_device(start_s: float, seconds: float) -> dict:
     launches by group (:func:`kernel_group`; host-to-device copies apart)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from trace_summary_torch import busy_and_span
     time.sleep(start_s)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1291,12 +1321,7 @@ def trace_device(start_s: float, seconds: float) -> dict:
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy_us, end = 0.0, -math.inf
-    for a, b in spans:  # the union: kernels on several streams may overlap
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    busy_us, _ = busy_and_span((e.time_range.start, e.time_range.end) for e in events)
     groups = {}
     for e in events:
         name = ("host-to-device copies" if "HtoD" in e.name else "other copies and fills"
@@ -3445,6 +3470,189 @@ def layout_phase(spec, params, card: str, dev, size: int = 416, side: int = 1536
     return record
 
 
+# --------------------------------------------------------------------------
+# phase 17: the bench and the measurement tools
+# --------------------------------------------------------------------------
+
+BENCH_SMOKE_ENV = {"BENCH_ITERS": "10"}              # (a): bench_torch.py at B=32
+CLI_BENCH_ENV = {"BENCH_BATCH": "8", "BENCH_ITERS": "3"}  # (b)
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]   # bench.py's lines, in order
+INT8_TOOL = dict(batch=16, chain=24, iters=2)        # (c): the tool's four shapes
+TOOL_STEP = dict(B=8, S=416, iters=5)                # (d)
+SERVE_TOOL_S = 3.0                                   # (e): seconds a phase
+SHARE_TOL = 1e-4  # (f): busy share, the tool's (Chrome JSON) against profile_detector's
+
+
+def run_bench(argv, env: dict, root: str, card_name: str, batch: int) -> dict:
+    """(a), (b): a bench process; its two stdout lines checked against
+    ``bench.py``'s shape, its stderr against the card; the launches per
+    call and the repetitions it printed."""
+    proc = subprocess.run([sys.executable, *argv], cwd=root, capture_output=True, text=True,
+                          timeout=900, env=dict(os.environ, **env))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(argv)} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    sys.stderr.write(proc.stderr)
+    lines = [l for l in proc.stdout.splitlines() if l.strip()]
+    if len(lines) != 2:
+        raise AssertionError(f"{' '.join(argv)}: {len(lines)} stdout lines, want 2: {lines}")
+    recs = [json.loads(l, object_pairs_hook=list) for l in lines]
+    names = [f"wsi_tiles_per_sec_per_chip_1536px_b{batch}_bf16_parity",
+             f"wsi_tiles_per_sec_per_chip_1536px_b{batch}"]
+    for rec, name in zip(recs, names):
+        if [k for k, _ in rec] != BENCH_KEYS or dict(rec)["metric"] != name \
+                or dict(rec)["unit"] != "tiles/s":
+            raise AssertionError(f"bench line {rec} is not bench.py's {name} line")
+    if card_name not in proc.stderr:
+        raise AssertionError(f"the bench's stderr does not name the card {card_name}")
+    reps = [l for l in proc.stderr.splitlines() if "ms/batch over 2 reps" in l]
+    if not reps:
+        raise AssertionError("the bench printed no spread of its repetitions")
+    launches = {}
+    for l in proc.stderr.splitlines():
+        if l.startswith("# launches per call ("):
+            label, counts = l[len("# launches per call ("):].split("): ", 1)
+            launches[label] = json.loads(counts)
+    parity, head = (dict(r) for r in recs)
+    return {"parity": parity, "headline": head, "launches_per_call": launches,
+            "reps": reps}
+
+
+def bench_tools_phase(spec, params, card: str, dev, training: dict, size: int = 416,
+                      subprocesses: bool = True, int8_kw=None, step_kw=None,
+                      serve_argv=(), trace_batch: int = 8) -> dict:
+    """Phase 17: the bench and the measurement tools (see the module
+    docstring); returns its JSON record.  ``subprocesses=False`` leaves
+    (a) and (b) out and the other arguments cut the rest down for a
+    rehearsal on the CPU, where ``torch.cuda.synchronize`` and the
+    profiler's device events need host stand-ins and the launch counts
+    are 0."""
+    import contextlib as ctx
+
+    import numpy as np
+    import torch
+    import bench_int8_block_torch
+    import bench_trainstep_torch
+    import mfu_torch
+    import serve_bench_torch
+    import trace_summary_torch
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    from amyloid_yolo_tpu_torch.graphspec import emit_cfg
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cuda = dev.type == "cuda"
+    card_name = torch.cuda.get_device_name(0) if cuda else "cpu"
+    record = {"card": card}
+    print(f"phase 17, the bench and the measurement tools [{card}]", flush=True)
+
+    # (a), (b): the bench, and the CLI's bench, each a process of its own
+    if subprocesses:
+        bench = run_bench(["bench_torch.py"], BENCH_SMOKE_ENV, REPO, card_name, 32)
+        cli = run_bench(["-m", "amyloid_yolo_tpu_torch.cli", "bench"], CLI_BENCH_ENV, REPO,
+                        card_name, 8)
+        for label, per_call in (*bench["launches_per_call"].items(),
+                                *cli["launches_per_call"].items()):
+            want_k2 = 23.0 if label == "bf16 parity" else 0.0
+            if (per_call["fused_residual_block"] != want_k2
+                    or per_call["fused_residual_block_int8"] != 0
+                    or (label != "host-resized 416² input"
+                        and per_call["resize_normalize"] != 1.0)):
+                raise AssertionError(f"bench {label}: launches per call {per_call}")
+        record["bench"], record["cli_bench"] = bench, cli
+        print(f"(a) bench_torch.py B=32: {json.dumps(bench)} [{card}]", flush=True)
+        print(f"(b) cli bench B=8: {json.dumps(cli)} [{card}]", flush=True)
+
+    reset_launch_counts()
+    # (c): the int8-block tool, K3 against the executor's unit and its plain version
+    rows = bench_int8_block_torch.run(device=dev, **dict(INT8_TOOL, **(int8_kw or {})))
+    record["int8_block"] = rows
+    record["int8_block_launches"] = launch_counts()
+
+    # (d): the train-step tool, bf16 and f32 at B=8, against phase 11's step
+    sk = dict(TOOL_STEP, **(step_kw or {}))
+    steps_rec = {}
+    for dtype in ("bf16", "f32"):
+        rec = bench_trainstep_torch.bench_step(sk["B"], sk["S"], sk["iters"], dtype,
+                                               device=dev, spec=spec)
+        ref = training.get(f"step_{dtype}")
+        if ref:
+            lo, hi = ref["min_ms"], ref["max_ms"]
+            ms = rec["ms_per_step"]
+            rec["phase11_range_ms"] = [lo, hi]
+            rec["vs_phase11"] = ("within" if lo <= ms <= hi else
+                                 f"{ms - (lo if ms < lo else hi):+.3f} ms outside")
+            print(f"(d) train step tool {dtype} B={sk['B']}: {ms:.3f} ms a step (apply every "
+                  f"step) against phase 11's micro-step {lo:.3f}-{hi:.3f} ms (accumulation 2, "
+                  f"other weights and images): {rec['vs_phase11']} [{card}]", flush=True)
+        steps_rec[dtype] = rec
+    record["train_step"] = steps_rec
+
+    # (e): the load tool, raw bodies, the bf16 parity server in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "model.cfg")
+        with open(cfg, "w") as fh:
+            fh.write(emit_cfg(spec))
+        out = io.StringIO()
+        with ctx.redirect_stdout(out):
+            rc = serve_bench_torch.main(
+                ["--fast_path", "False", "--raw", "True", "--concurrency", "8",
+                 "--duration", str(SERVE_TOOL_S), "--model_def", cfg,
+                 "--device", str(dev), *serve_argv])
+    print(out.getvalue(), end="", flush=True)
+    served = [json.loads(l) for l in out.getvalue().splitlines() if l.startswith("{")]
+    if rc != 0 or not served:
+        raise AssertionError(f"serve_bench_torch exited {rc} with {served}")
+    for r in served:
+        if r["errors"] or r["queue_depth_max"] > r["max_queue"] or r["device"] != card_name:
+            raise AssertionError(f"serve_bench_torch phase {r}")
+    record["serve"] = served
+
+    # (f): the trace tool over one bf16 Detector call, against profile_detector
+    det = Detector(spec, params, conf_thres=0.3, model_size=size, device=dev)
+    tiles = torch.randint(0, 256, (trace_batch, 1536, 1536, 3), dtype=torch.uint8,
+                          device=dev)
+    with torch.inference_mode():
+        det(tiles)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "detector.json")
+        with torch.inference_mode():
+            prof = profile_detector(det, tiles, calls=1, trace_path=path)
+        summary = trace_summary_torch.summarize(path, top=1000)
+    launches = {k: sum(n for name, _, n in summary["rows"] if k in name and (
+        k != "fused_residual_block" or "int8" not in name))
+        for k in ("resize_normalize", "fused_residual_block")}
+    want = {"resize_normalize": 1, "fused_residual_block": 23} if cuda else \
+        {"resize_normalize": 0, "fused_residual_block": 0}
+    share = 1.0 - prof.get("idle_share_traced", float("nan"))
+    print(f"(f) trace_summary_torch on one bf16 B={trace_batch} call: launches {launches} "
+          f"(want {want}); busy share {summary['busy_share']} against profile_detector's "
+          f"{share} (tolerance {SHARE_TOL}) [{card}]", flush=True)
+    if launches != want or not abs(summary["busy_share"] - share) <= SHARE_TOL:
+        raise AssertionError("the trace tool disagrees with the trace")
+    record["trace"] = {"launches": launches, "busy_share": summary["busy_share"],
+                       "profile_detector_busy_share": share, "busy_ms": summary["busy_ms"],
+                       "top": summary["rows"][:8]}
+    del det, tiles
+    counts = launch_counts()
+    record["launches"] = counts
+    print(f"phase 17 launches in this process ((c), (e), (f)): {counts}", flush=True)
+    if cuda and not all(counts.values()):
+        raise AssertionError(f"phase 17 launched a kernel of its path no time: {counts}")
+
+    # (g): MFU of (a)'s lines and (d)'s steps
+    g_inf = mfu_torch.conv_gflops(spec, size)
+    g_train = mfu_torch.train_gflops(spec, sk["S"])
+    mfu = {f"train_{k}": mfu_torch.utilization(g_train, sk["B"], r["ms_per_step"])
+           for k, r in steps_rec.items()}
+    if subprocesses:
+        for key in ("parity", "headline"):
+            tps = record["bench"][key]["value"]
+            mfu[f"bench_{key}"] = mfu_torch.utilization(g_inf, 32, 32 / tps * 1e3)
+    record["mfu"] = mfu
+    print(f"(g) MFU (conv GFLOPs {g_inf:.2f} an image, train {g_train:.2f}): "
+          f"{json.dumps(mfu)} [{card}]", flush=True)
+    return record
+
+
 def division_flips(det, tiles) -> dict:
     """The int8 levels of one ``det.head_maps`` call that ``quant`` (``y ·
     f32(1/s)``) sets otherwise than ``clip(round(y / f32(s)))``, counted on
@@ -3839,6 +4047,20 @@ def main() -> int:
     layout = layout_phase(spec, params, card, dev)
     int8_s2d = layout["int8_launches"]["s2d"]
 
+    # 17. the bench and the measurement tools
+    tools = bench_tools_phase(spec, params, card, dev, training)
+    bench_calls = {**{f"bench {k}": v for k, v in tools["bench"]["launches_per_call"].items()},
+                   **{f"cli bench {k}": v
+                      for k, v in tools["cli_bench"]["launches_per_call"].items()}}
+    k3_tool = [{"shape": r["shape"], "ms": r["ms"]["k3"], "bound_ms": r["k3_bound_ms"],
+                "bound_by": r["k3_bound_by"], "plain_ms": r["ms"]["plain_int32"],
+                "executor_ms": r["ms"]["executor_int8 (bf16 sums)"], "plan": r["k3_plan"]}
+               for r in tools["int8_block"]]
+
+    def tool_launches(name):
+        return {"bench_tools_launches": tools["launches"][name],
+                "bench_launches_per_call": {k: v[name] for k, v in bench_calls.items()}}
+
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
 
@@ -3864,7 +4086,8 @@ def main() -> int:
          "study_launches": study["launches"]["resize_normalize"],
          "s2d_bf16_launches": layout["bf16_launches"]["resize_normalize"],
          "s2d_int8_full_launches": int8_s2d["resize_normalize"],
-         "layout_training_launches": layout["training"]["launches"]["resize_normalize"]},
+         "layout_training_launches": layout["training"]["launches"]["resize_normalize"],
+         **tool_launches("resize_normalize")},
         {"name": "fused_residual_block", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/conv_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/conv_block.py:107",
@@ -3884,7 +4107,8 @@ def main() -> int:
          "study_launches": study["launches"]["fused_residual_block"],
          "s2d_bf16_launches": layout["bf16_launches"]["fused_residual_block"],
          "s2d_int8_full_launches": int8_s2d["fused_residual_block"],
-         "layout_training_launches": layout["training"]["launches"]["fused_residual_block"]},
+         "layout_training_launches": layout["training"]["launches"]["fused_residual_block"],
+         **tool_launches("fused_residual_block")},
         {"name": "fused_residual_block_int8", "route": "cuda",
          "source": "amyloid_yolo_tpu_torch/csrc/int8_block.cu",
          "replaces": "amyloid_yolo_tpu/pallas/int8_block.py:150",
@@ -3903,7 +4127,8 @@ def main() -> int:
          "s2d_bf16_launches": layout["bf16_launches"]["fused_residual_block_int8"],
          "s2d_int8_full_launches": int8_s2d["fused_residual_block_int8"],
          "layout_training_launches":
-             layout["training"]["launches"]["fused_residual_block_int8"]},
+             layout["training"]["launches"]["fused_residual_block_int8"],
+         **tool_launches("fused_residual_block_int8"), "int8_block_tool": k3_tool},
     ]
     detector["int8_division_flips"] = int8_flips
     print(json.dumps({"detector": detector, "card": card}))
@@ -3914,6 +4139,7 @@ def main() -> int:
     print(json.dumps({"spatial": spatial, "card": card}))
     print(json.dumps({"study": study, "card": card}))
     print(json.dumps({"layout": layout, "card": card}))
+    print(json.dumps({"bench_tools": tools, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

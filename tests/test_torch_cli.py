@@ -371,9 +371,10 @@ def test_model_commands_need_cuda_or_an_explicit_cpu(mini, tiny_dataset, tiles, 
 
 
 def test_unported_commands_raise(mini, tiny_dataset, tmp_path, monkeypatch):
-    """``bench`` still raises; ``train --spatial_shard`` (ported) trains one
-    batch height-sharded over two CPU entries and refuses ``--distributed``."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    """``bench`` (ported: ``bench_torch.py``) raises without a card, since it
+    measures the card; ``train --spatial_shard`` (ported) trains one batch
+    height-sharded over two CPU entries and refuses ``--distributed``."""
+    with pytest.raises(RuntimeError, match="bench_torch.py measures the card"):
         cli.main(["bench"])
     runs = []
     real = spatial_mod.SpatialShards.run

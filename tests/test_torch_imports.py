@@ -22,13 +22,18 @@ PARALLEL_MODULES = ("parallel.mesh", "parallel.distributed", "parallel.spatial")
 # the study: the prospective validation, its figures, the data checks, the cfgs
 STUDY_MODULES = ("analysis.prospective", "analysis.plots", "analysis.data_checks",
                  "config.make_cfg")
-SCRIPTS = ("chip_smoke", "bench_k2")  # the port's scripts at the repo root
+SCRIPTS = ("chip_smoke", "bench_k2", "bench_torch")  # the port's scripts at the repo root
 EXAMPLES = ("run_study_torch", "native_res_training_torch")  # the port's scripts under examples/
+# the port's measurement and training tools under tools/
+TOOLS = ("mfu_torch", "trace_summary_torch", "bench_trainstep_torch", "serve_bench_torch",
+         "batch_sweep_torch", "bench_int8_block_torch", "estimate_anchors_torch",
+         "recipe_chain_torch")
 
 
 def _port_files():
     files = [os.path.join(REPO, f"{m}.py") for m in SCRIPTS]
     files += [os.path.join(REPO, "examples", f"{m}.py") for m in EXAMPLES]
+    files += [os.path.join(REPO, "tools", f"{m}.py") for m in TOOLS]
     for root, _, names in os.walk(os.path.join(REPO, PKG)):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return files
@@ -36,7 +41,7 @@ def _port_files():
 
 def _port_modules():
     mods = []
-    for path in _port_files()[len(SCRIPTS) + len(EXAMPLES):]:
+    for path in _port_files()[len(SCRIPTS) + len(EXAMPLES) + len(TOOLS):]:
         if path.endswith("__main__.py"):  # runs the CLI when imported
             continue
         mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
@@ -52,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {os.path.join(REPO, 'examples')!r})\n"
-        f"for m in {_port_modules() + list(SCRIPTS) + list(EXAMPLES)!r}: "
+        f"sys.path.insert(0, {os.path.join(REPO, 'tools')!r})\n"
+        f"for m in {_port_modules() + list(SCRIPTS) + list(EXAMPLES) + list(TOOLS)!r}: "
         "importlib.import_module(m)\n"
         f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
         "print(sorted(bad))\n"
@@ -87,6 +93,8 @@ def test_port_sources_name_no_jax_module():
             + STUDY_MODULES} <= mods
     for m in EXAMPLES:
         assert os.path.join(REPO, "examples", f"{m}.py") in _port_files()
+    assert {n[:-3] for n in os.listdir(os.path.join(REPO, "tools"))
+            if n.endswith("_torch.py")} == set(TOOLS)
     assert os.path.join(REPO, PKG, "cli", "__main__.py") in _port_files()
 
 
