@@ -17,6 +17,12 @@ Boxes follow the affine (four corners, re-boxed and clipped,
 ``_affine_boxes``) and the flip; a box clipped to nothing leaves the
 target mask (``alive``).
 
+The exact 2-D warp that the three shears approximate, bilinear with zeros
+outside (:func:`_affine_one` over :func:`_bilinear_sample`, reference
+``:81-121``), is kept beside them, off ``augment_batch``'s path as in the
+reference: the tests hold the shear warp against it (equal for pure
+translation), and ``tools/bench_trainstep_torch.py --warp-ab`` times it.
+
 ``jax.random``'s streams cannot be reproduced in PyTorch, so the port is in
 two parts: :func:`draw_augment_params` makes the eight draws of
 ``:373-381`` (same distributions) from a ``torch.Generator``, and
@@ -113,6 +119,65 @@ def _sharpen(img: torch.Tensor, alpha: torch.Tensor, planar: bool = False) -> to
             sharp = tap if sharp is None else sharp + tap
     a = alpha[:, None, None, None]
     return (1 - a) * img + a * sharp
+
+
+def _bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                     planar: bool = False) -> torch.Tensor:
+    """Sample each image of ``img`` (B, H, W, C), or (B, C, H, W) with
+    ``planar``, at the float coordinates ``ys``, ``xs`` (B, h, w): four
+    corner gathers weighted bilinearly, a corner outside the image counts
+    zero (reference ``_bilinear_sample``, batched)."""
+    bsz = img.shape[0]
+    (c, h, w) = img.shape[1:] if planar else (img.shape[3], *img.shape[1:3])
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    wy, wx = ys - y0, xs - x0
+    y0i, x0i = y0.long(), x0.long()
+    flat = img.reshape(bsz, c, h * w) if planar else img.reshape(bsz, h * w, c)
+
+    def gather(yi, xi):
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(bsz, -1)
+        if planar:
+            vals = torch.gather(flat, 2, idx[:, None, :].expand(-1, c, -1))
+            return torch.where(inb[:, None], vals.reshape(bsz, c, *ys.shape[1:]), 0.0)
+        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
+        return torch.where(inb[..., None], vals.reshape(*ys.shape, c), 0.0)
+
+    if planar:  # the weights broadcast over the channels
+        wy, wx = wy[:, None], wx[:, None]
+    else:
+        wy, wx = wy[..., None], wx[..., None]
+    top = gather(y0i, x0i) * (1 - wx) + gather(y0i, x0i + 1) * wx
+    bot = gather(y0i + 1, x0i) * (1 - wx) + gather(y0i + 1, x0i + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def _affine_coords(s: int, angle_deg: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse map of :func:`_affine_one`: for each output pixel of an
+    s² image, its source ``(ys, xs)``, each (B, s, s).  The cosine and sine
+    are taken in float64 and rounded to float32, so that the card and the
+    CPU map every pixel alike: their float32 ``cos``/``sin`` may differ by
+    an ulp, which moves a sample by up to ~2e-5 px and a pixel at the
+    zero-filled border by as much."""
+    c = (s - 1) / 2.0
+    th = torch.deg2rad(angle_deg)[:, None, None].to(torch.float64)
+    cos, sin = torch.cos(th).to(torch.float32), torch.sin(th).to(torch.float32)
+    r = torch.arange(s, dtype=torch.float32, device=angle_deg.device)
+    gy, gx = torch.meshgrid(r, r, indexing="ij")
+    ox = gx - c - tx[:, None, None] * s
+    oy = gy - c - ty[:, None, None] * s
+    return -sin * ox + cos * oy + c, cos * ox + sin * oy + c
+
+
+def _affine_one(img: torch.Tensor, angle_deg: torch.Tensor, tx: torch.Tensor,
+                ty: torch.Tensor, planar: bool = False) -> torch.Tensor:
+    """Rotate each image about its centre by ``angle_deg`` and translate by
+    (tx, ty)·size with the exact inverse map (:func:`_affine_coords`),
+    bilinear, zeros outside (reference ``_affine_one``, one image there, a
+    batch here: ``angle_deg``, ``tx``, ``ty`` are (B,))."""
+    s = img.shape[2] if planar else img.shape[1]
+    return _bilinear_sample(img, *_affine_coords(s, angle_deg, tx, ty), planar)
 
 
 def _shear_rows(img: torch.Tensor, shift: torch.Tensor, planar: bool = False) -> torch.Tensor:

@@ -13,6 +13,10 @@ overlaps it).
 Tie order: the reference's ``lax.top_k`` puts equal scores in index order;
 ``torch.topk`` promises no order, so the candidate pool is taken from a
 stable descending ``torch.sort``.
+
+:func:`non_max_suppression_np` is the host mirror (reference package
+``ops/nms.py:210-243``): the reference loop itself on ragged numpy arrays,
+for tests and host analysis.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .boxes import bbox_iou, xywh2xyxy
+from .boxes import bbox_iou, bbox_iou_np, xywh2xyxy, xywh2xyxy_np
 
 
 def topk_stable(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,6 +138,38 @@ def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.5,
     return dets, valid
 
 
+def non_max_suppression_np(prediction: np.ndarray, conf_thres: float = 0.5,
+                           nms_thres: float = 0.4) -> List[Optional[np.ndarray]]:
+    """The reference loop (``utils/utils.py:235-273``) on the host: rows
+    ``(B, N, 5+C)`` as :func:`non_max_suppression` takes them; returns a
+    list of length B holding ``(n_i, 7)`` arrays, or ``None`` for an image
+    without detections, the reference's own contract."""
+    prediction = np.array(prediction, copy=True)
+    prediction[..., :4] = xywh2xyxy_np(prediction[..., :4])
+    output: List[Optional[np.ndarray]] = [None] * len(prediction)
+    for i, image_pred in enumerate(prediction):
+        image_pred = image_pred[image_pred[:, 4] >= conf_thres]
+        if image_pred.shape[0] == 0:
+            continue
+        score = image_pred[:, 4] * image_pred[:, 5:].max(1)
+        image_pred = image_pred[(-score).argsort()]
+        cls_confs = image_pred[:, 5:].max(1, keepdims=True)
+        cls_preds = image_pred[:, 5:].argmax(1)[:, None].astype(image_pred.dtype)
+        detections = np.concatenate([image_pred[:, :5], cls_confs, cls_preds], 1)
+        keep = []
+        while detections.shape[0]:
+            ious = bbox_iou_np(detections[0:1, :4], detections[:, :4])
+            invalid = (ious > nms_thres) & (detections[0, -1] == detections[:, -1])
+            weights = detections[invalid, 4:5]
+            merged = detections[0].copy()
+            merged[:4] = (weights * detections[invalid, :4]).sum(0) / weights.sum()
+            keep.append(merged)
+            detections = detections[~invalid]
+        if keep:
+            output[i] = np.stack(keep)
+    return output
+
+
 def dense_to_ragged(dets, valid) -> List[Optional[np.ndarray]]:
     """Fixed-capacity output → the reference's ragged list (``None`` for an
     image without detections)."""
@@ -147,4 +183,4 @@ def dense_to_ragged(dets, valid) -> List[Optional[np.ndarray]]:
 
 
 __all__ = ["topk_stable", "non_max_suppression_pooled", "non_max_suppression",
-           "dense_to_ragged"]
+           "non_max_suppression_np", "dense_to_ragged"]

@@ -23,6 +23,14 @@ Targets are a padded ``(T, 6)`` array of rows ``(batch_idx, class, cx, cy,
 w, h)`` (normalized) with a validity mask; invalid rows write into one
 extra drop cell past the grid, which is cut off at the end, so nothing
 synchronises with the host.
+
+The reference's second form, ``"dense"`` (``AMYOLO_TARGETS_FORM``,
+``_assemble_dense``, ``:155-211``), compares each target's cell key with
+every cell instead of scattering, with bit-identical outputs; it spares the
+TPU its slow scatters, and on the card it is no faster than the scatter
+(ROADMAP.md, "Not ported, by rule").  The CPU tests hold a torch rendering
+of it against both forms by putting it in place of
+:func:`_assemble_scatter`.
 """
 
 from __future__ import annotations
@@ -78,38 +86,48 @@ def build_targets(pred_boxes: torch.Tensor, pred_cls: torch.Tensor,
     ncell = nB * nA * nG * nG                 # cell `ncell` is the drop bucket
     key = torch.where(valid, ((bc * nA + best_n) * nG + gj) * nG + gi, ncell)
 
-    # index_fill_ takes its value as a scalar argument: no host copy, no sync
-    obj = torch.zeros(ncell + 1, dtype=torch.bool, device=dev).index_fill_(0, key, True)
-    noobj = torch.ones(ncell + 1, dtype=torch.bool, device=dev).index_fill_(0, key, False)
     # every anchor whose wh-IoU beats ignore_thres (utils/utils.py:314-315)
     a_ids = torch.arange(nA, device=dev)[:, None]
     key_ign = ((bc[None, :] * nA + a_ids) * nG + gj[None, :]) * nG + gi[None, :]
-    noobj.index_fill_(0, torch.where((ious > ignore_thres) & valid[None, :], key_ign,
-                                     ncell).reshape(-1), False)
-
-    # last-writer-wins: the highest target row of each cell writes the values
+    key_ign = torch.where((ious > ignore_thres) & valid[None, :], key_ign, ncell).reshape(-1)
+    values = torch.stack([tx_v, ty_v, tw_v, th_v, iou_vals, cls_ok], dim=-1)   # (T, 6)
     order = torch.arange(nT, device=dev)
-    winner = torch.full((ncell + 1,), -1, dtype=torch.long, device=dev)
-    winner.scatter_reduce_(0, key, order, reduce="amax")
-    key_w = torch.where(valid & (winner[key] == order), key, ncell)
-    vals = torch.zeros(ncell + 1, 6, dtype=torch.float32, device=dev)
-    vals[key_w] = torch.stack([tx_v, ty_v, tw_v, th_v, iou_vals, cls_ok], dim=-1)
-    vals = vals[:ncell].reshape(*shape, 6)
+    obj, noobj, vals, tcls = _assemble_scatter(ncell, nC, key, key_ign, order, valid, labels_c,
+                                               values)
 
-    # every valid row writes its class: distinct classes in one cell coexist
-    tcls = torch.zeros((ncell + 1) * nC, dtype=torch.float32, device=dev).index_fill_(
-        0, torch.where(valid, key * nC + labels_c, ncell * nC), 1.0)
-
-    obj_mask = obj[:ncell].reshape(shape)
+    vals = vals.reshape(*shape, 6)
+    obj_mask = obj.reshape(shape)
     return {
         "iou_scores": vals[..., 4],
         "class_mask": vals[..., 5],
         "obj_mask": obj_mask,
-        "noobj_mask": noobj[:ncell].reshape(shape),
+        "noobj_mask": noobj.reshape(shape),
         "tx": vals[..., 0], "ty": vals[..., 1], "tw": vals[..., 2], "th": vals[..., 3],
-        "tcls": tcls[:ncell * nC].reshape(*shape, nC),
+        "tcls": tcls.reshape(*shape, nC),
         "tconf": obj_mask.to(torch.float32),
     }
+
+
+def _assemble_scatter(ncell, nC, key, key_ign, order, valid, labels_c, values):
+    """The scatter form: ``(obj, noobj, vals, tcls)`` over the ``ncell``
+    cells, flat (``vals`` (ncell, 6), ``tcls`` (ncell·C,))."""
+    dev = key.device
+    # index_fill_ takes its value as a scalar argument: no host copy, no sync
+    obj = torch.zeros(ncell + 1, dtype=torch.bool, device=dev).index_fill_(0, key, True)
+    noobj = torch.ones(ncell + 1, dtype=torch.bool, device=dev).index_fill_(0, key, False)
+    noobj.index_fill_(0, key_ign, False)
+
+    # last-writer-wins: the highest target row of each cell writes the values
+    winner = torch.full((ncell + 1,), -1, dtype=torch.long, device=dev)
+    winner.scatter_reduce_(0, key, order, reduce="amax")
+    key_w = torch.where(valid & (winner[key] == order), key, ncell)
+    vals = torch.zeros(ncell + 1, 6, dtype=torch.float32, device=dev)
+    vals[key_w] = values
+
+    # every valid row writes its class: distinct classes in one cell coexist
+    tcls = torch.zeros((ncell + 1) * nC, dtype=torch.float32, device=dev).index_fill_(
+        0, torch.where(valid, key * nC + labels_c, ncell * nC), 1.0)
+    return obj[:ncell], noobj[:ncell], vals[:ncell], tcls[:ncell * nC]
 
 
 __all__ = ["build_targets"]

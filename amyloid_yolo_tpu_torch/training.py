@@ -20,6 +20,15 @@ on, ``ema``; :func:`~amyloid_yolo_tpu_torch.io.weights.load_pretrained`
 reads its weights.  The reference package's checkpoints are orbax
 directories, which the port does not read.
 
+In one process the save overlaps the next epoch, as the reference's single
+host (``training.py:372-459``): :meth:`Trainer.save_checkpoint` copies the
+state on its device and returns, a worker thread moves the copy to the host
+and writes it, and :meth:`Trainer.join_pending_save` waits for the write
+and raises its failure.  Each save joins the one before, and ``train``
+joins the last before it returns.  ``epoch_walls``' ``save_s`` is the
+dispatch, and ``save_walls`` splits each save into its parts.
+Distributed, the save stays synchronous.
+
 Several devices (the reference's ``training.py:113-205``):
 
 * ``data_parallel=N``: one process over a mesh of N devices
@@ -52,9 +61,10 @@ where the shards run the s2d stem on their rows
 from __future__ import annotations
 
 import os
+import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Set
 
 import torch
 
@@ -206,7 +216,13 @@ class Trainer:
             self.best["map_ema"] = (-1.0, -1)
         #: wall seconds of each epoch's train loop, evaluation and save
         self.epoch_walls: list = []
+        #: wall seconds of each save's parts: the join of the save before,
+        #: the device copy, the worker's start; then, from the worker, its
+        #: copy to the host and the write (distributed: the write alone)
+        self.save_walls: list = []
         self._saved_epochs: list = []
+        self._save_thread: Optional[threading.Thread] = None
+        self._save_error: Optional[Exception] = None
         self._eval_dataset: Optional[ListDataset] = None
 
     def train(self, callback: Optional[Callable[[int, int, Dict], None]] = None
@@ -265,12 +281,15 @@ class Trainer:
                                      "train_s": epoch_time, "eval_s": t_save0 - t_eval0,
                                      "save_s": time.time() - t_save0})
             if cfg.verbose and self.is_main:
+                # the write itself overlaps the next epoch in one process
                 print(f"[epoch {epoch} wall] train {epoch_time:.1f}s "
-                      f"eval {t_save0 - t_eval0:.1f}s save {time.time() - t_save0:.1f}s")
+                      f"eval {t_save0 - t_eval0:.1f}s "
+                      f"save-dispatch {time.time() - t_save0:.1f}s")
         if cfg.epochs and (cfg.epochs - 1) % cfg.checkpoint_interval != 0 and self.is_main:
             # the reference's modulo rule (train.py:205) never saves the last
             # epoch unless it lands on the interval; always keep it
             self.save_checkpoint(cfg.epochs - 1)
+        self.join_pending_save()
         if self._dist is not None:
             self._dist.barrier()
         if self.is_main:
@@ -331,29 +350,95 @@ class Trainer:
         return os.path.join(self.cfg.checkpoint_dir, f"yolov3_ckpt_{epoch}.pt")
 
     def save_checkpoint(self, epoch: int) -> str:
-        """Write the epoch's checkpoint (synchronously) and apply the
-        retention rule; returns its path."""
-        st = self.state
-        tree = {"params": weights_io.params_to_torch_state_dict(self.spec, st.params),
-                "optimizer": st.optimizer.state_dict(), "step": st.step, "seen": st.seen}
-        if st.ema is not None:
-            tree["ema"] = weights_io.params_to_torch_state_dict(self.spec, st.ema)
+        """Save the epoch's checkpoint and apply the retention rule; returns
+        its path.  In one process it returns before the write lands: the
+        pending save is joined, then parameters, Adam's state and the EMA
+        are copied on their device, and a worker thread moves the copy to
+        the host and writes it (:meth:`join_pending_save` waits for it).
+        The copy holds a second state on the device until it reaches the
+        host.  Distributed, it writes synchronously (reference
+        ``training.py:421-433``)."""
         path = self.checkpoint_path(epoch)
+        best = self._best_epochs()  # as of the dispatch: the next epoch may change it
+        walls = {"epoch": epoch}
+        self.save_walls.append(walls)
+        t0 = time.perf_counter()
+        if self._dist is not None:
+            self._write_checkpoint(path, _state_tree(self.state), epoch, best)
+            walls["write_s"] = time.perf_counter() - t0
+            return path
+        self.join_pending_save()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            # copies, not x + 0, so that -0.0 survives; the optimizer's
+            # state_dict holds its live tensors
+            snap = _map_tensors(_state_tree(self.state), lambda t: t.detach().clone())
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        t2 = time.perf_counter()
+        self._save_thread = threading.Thread(
+            target=self._write_snapshot, args=(path, snap, epoch, best, ready, walls),
+            name=f"ckpt-save-{epoch}", daemon=False)
+        self._save_thread.start()
+        walls.update(join_s=t1 - t0, snapshot_s=t2 - t1, start_s=time.perf_counter() - t2)
+        return path
+
+    def _write_snapshot(self, path: str, snap: Dict[str, Any], epoch: int, best: Set[int],
+                        ready: Optional["torch.cuda.Event"], walls: Dict[str, Any]) -> None:
+        """The worker: the device copy to pinned host memory on a side
+        stream, ordered after the copy's ``ready`` event and beside the
+        training stream, then the write; a failure waits for the join."""
+        try:
+            t0 = time.perf_counter()
+            tree = snap
+            if ready is not None:
+                with torch.cuda.device(self.device):
+                    stream = torch.cuda.Stream()
+                    with torch.cuda.stream(stream):
+                        stream.wait_event(ready)
+                        tree = _map_tensors(snap, _to_pinned_host)
+                    stream.synchronize()
+                snap.clear()  # the device copy is free from here
+            t1 = time.perf_counter()
+            self._write_checkpoint(path, tree, epoch, best)
+            walls.update(host_copy_s=t1 - t0, write_s=time.perf_counter() - t1)
+        except Exception as e:  # re-raised by join_pending_save
+            self._save_error = e
+
+    def join_pending_save(self) -> None:
+        """Wait for the checkpoint write in flight, if any; a write that
+        failed raises ``RuntimeError`` here, from its cause."""
+        thread, self._save_thread = self._save_thread, None
+        if thread is not None:
+            thread.join()
+        err, self._save_error = self._save_error, None
+        if err is not None:
+            raise RuntimeError("async checkpoint write failed") from err
+
+    def _write_checkpoint(self, path: str, tree: Dict[str, Any], epoch: int,
+                          best: Set[int]) -> None:
+        out = dict(tree, params=weights_io.params_to_torch_state_dict(self.spec, tree["params"]))
+        if tree.get("ema") is not None:
+            out["ema"] = weights_io.params_to_torch_state_dict(self.spec, tree["ema"])
         tmp = path + ".tmp"
-        torch.save(tree, tmp)
+        torch.save(out, tmp)
         os.replace(tmp, path)  # a reader never sees half a file
         if epoch not in self._saved_epochs:
             self._saved_epochs.append(epoch)
-        self._prune_checkpoints()
-        return path
+        self._prune_checkpoints(best)
 
-    def _prune_checkpoints(self) -> None:
+    def _best_epochs(self) -> Set[int]:
+        return {ep for _, ep in self.best.values() if ep >= 0}
+
+    def _prune_checkpoints(self, best: Set[int]) -> None:
         """``keep_checkpoints``: drop saved epochs beyond the most recent N,
-        never a tracked best epoch."""
+        never one of the ``best`` epochs."""
         n = self.cfg.keep_checkpoints
         if not n:
             return
-        keep = set(self._saved_epochs[-n:]) | {ep for _, ep in self.best.values() if ep >= 0}
+        keep = set(self._saved_epochs[-n:]) | best
         for ep in list(self._saved_epochs):
             if ep not in keep:
                 path = self.checkpoint_path(ep)
@@ -364,7 +449,9 @@ class Trainer:
     def load_checkpoint(self, path: str) -> None:
         """Resume from a checkpoint: parameters, Adam's state, ``step`` and
         ``seen``; the EMA from the checkpoint when this run tracks one (a
-        copy of the parameters when the checkpoint has none)."""
+        copy of the parameters when the checkpoint has none).  A save in
+        flight is joined first."""
+        self.join_pending_save()
         tree = torch.load(path, map_location="cpu", weights_only=True)
         st = self.state
         with torch.no_grad():
@@ -387,6 +474,33 @@ class Trainer:
                       for k in st.ema}
         else:
             st.ema = None
+
+
+def _state_tree(st: steps_mod.TrainState) -> Dict[str, Any]:
+    """What a checkpoint holds, as live references to the state."""
+    tree = {"params": st.params, "optimizer": st.optimizer.state_dict(), "step": st.step,
+            "seen": st.seen}
+    if st.ema is not None:
+        tree["ema"] = st.ema
+    return tree
+
+
+def _map_tensors(obj, fn):
+    """``obj`` with ``fn`` applied to every tensor in its dicts, lists and
+    tuples (an optimizer's ``state_dict`` among them)."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(v, fn) for v in obj)
+    return obj
+
+
+def _to_pinned_host(t: torch.Tensor) -> torch.Tensor:
+    if not t.is_cuda:
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
 
 __all__ = ["Trainer", "TrainConfig"]

@@ -129,6 +129,15 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def print_card(device) -> None:
+    """The ``# card: <name>, <power limit>`` line on stderr that the
+    measurement tools print before their numbers (``# card: cpu`` on the
+    CPU, where no number is a device number)."""
+    from amyloid_yolo_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(device)
+    print(f"# card: {card_line() if dev.type == 'cuda' else 'cpu'}", file=sys.stderr, flush=True)
+
+
 def main():
     import torch
 

@@ -88,8 +88,10 @@ Phases (any failure exits non-zero; nothing is caught):
    for both epochs, one checkpoint per epoch, and the last checkpoint
    evaluating to the same AP in a fresh ``Trainer``; (e) the B=8 micro-step
    in float32 (TF32 off) and bf16 (median, min, max of 10 after 3) with a
-   ``torch.profiler`` breakdown by part, and one traced ``Trainer`` epoch's
-   wall time, device busy time and idle share;
+   ``torch.profiler`` breakdown by part from a trace that kept a device
+   record for each of the host's launch calls (taken again until one did),
+   and one traced ``Trainer`` epoch's wall time, device busy time and idle
+   share;
 12. the serving path and the CLI, at the same width with the weights of
    phase 6: (a) ``cli export`` of the weights to a ``.pth`` that reads back
    equal; (b) a ``DetectionServer`` at the serve CLI's defaults (batch 16,
@@ -247,7 +249,31 @@ Phases (any failure exits non-zero; nothing is caught):
    its busy share within ``SHARE_TOL`` of :func:`profile_detector`'s; (g)
    ``tools/mfu_torch.py`` over (a)'s and (d)'s times.  Every kernel of the
    phase's path launches in (c), (e) and (f), counted from 0 before (c);
-18. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
+18. the last modules of the JAX package, at the same width with the
+   weights of phase 6, counted from 0 ((a) is left out: the port has no
+   dense targets form, ROADMAP.md); (b) the exact bilinear warp
+   (``ops/augment.py:_affine_one``) at B=8, 416²: card against CPU and
+   planar against NHWC within ``WARP_TOL``, for pure translation against
+   the shear warp within ``WARP_TOL`` at the JAX test's 64² and shifts,
+   and inside the image at 416² (the border there recorded), both warps'
+   ms; (c) the overlapped checkpoint save: a 2-epoch ``Trainer`` at B=8
+   with EMA, its epoch walls, and in a second one each epoch's file bit
+   for bit the host copy taken right after its dispatch (epoch 1's steps
+   run before epoch 0's join), one more dispatch with a train step before
+   its join, a write into an unwritable directory raised at the join, no
+   save in flight after ``train()``; each dispatch (with
+   ``Trainer.save_walls``' parts, the collector's pauses and the
+   allocator's new segments in it), the join, a synchronous save and the
+   snapshot's peak extra device memory recorded; (d)
+   ``non_max_suppression_np`` on the host copy of phase 6's first batch's
+   decoded rows against the device NMS (every candidate in its pool) at
+   one threshold: the same boxes within ``NMS_TOL``, rows of equal score
+   paired by box (K1 once and K2 23 times, the phase's launches); (e)
+   ``tools/bench_trainstep_torch.py --warp-ab --forms-ab``,
+   ``bench_bn_stats_torch.py`` and ``bench_s2d_down_b32_torch.py``, each
+   in a process of its own: exit 0, their lines, the card named on
+   stderr;
+19. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
    every path above), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -274,6 +300,7 @@ sys.path.insert(0, os.path.join(REPO, "tools"))  # the measurement tools of phas
 
 from bench_int8_block_torch import k3_bound  # noqa: E402
 from mfu_torch import H100_BF16_TFLOPS, H100_HBM_TBPS  # noqa: E402
+from trace_summary_torch import warmed_profile  # noqa: E402
 
 PEAK_BF16_FLOPS = H100_BF16_TFLOPS * 1e12
 PEAK_BYTES = H100_HBM_TBPS * 1e12
@@ -327,10 +354,9 @@ def profile_detector(det, tiles, calls: int = 3, trace_path=None) -> dict:
     the card, and without it the first kernels of a trace may be missing
     (the first K1 and 8 K2 launches of one call were, once, in phase 17)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity
     from trace_summary_torch import busy_and_span
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+    with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         det(tiles)
         torch.cuda.synchronize()
         prof.step()
@@ -359,6 +385,14 @@ def profile_detector(det, tiles, calls: int = 3, trace_path=None) -> dict:
             "idle_share_traced": 1.0 - busy_us / span_us,
             "launches_per_call": len(events) / calls,
             "by_group": per_call(groups), "top_kernels": per_call(names, 6)}
+
+
+def warm_up_kernels(dev) -> None:
+    """A few small kernels and a synchronise: the warm-up step of a trace
+    whose own work cannot run twice."""
+    import torch
+    torch.ones(1 << 20, device=dev).mul_(2).sum()
+    torch.cuda.synchronize(dev)
 
 
 def kernel_group(name: str) -> str:
@@ -966,10 +1000,13 @@ def trainer_run(spec, data: str, root: str, dev, size: int) -> dict:
 
 
 def step_times(spec, params, dev, rng, size: int, side: int, dtype, s2d_stem: bool = False,
-               bn_form: str = "reduce") -> dict:
+               bn_form: str = "reduce", launch_check: bool = False) -> dict:
     """(e): ms per B=8 micro-step (accumulation 2, augment on, inputs on the
     card) between CUDA events, 3 warm-up steps then 10 timed one by one;
-    ``s2d_stem`` and the BN form as phase 16 (d) sets them."""
+    ``s2d_stem`` and the BN form as phase 16 (d) sets them.  With
+    ``launch_check`` the trace must be complete (:func:`trace_complete`); an
+    incomplete one is taken again, up to ``TRACE_TRIES`` traces, all
+    recorded."""
     import numpy as np
     import torch
     from amyloid_yolo_tpu_torch.models import darknet
@@ -1000,6 +1037,16 @@ def step_times(spec, params, dev, rng, size: int, side: int, dtype, s2d_stem: bo
         step(astate, *batch, gen, size)
         torch.cuda.synchronize()
         prof = profile_train_step(step, astate, batch, gen, size)
+        if launch_check and prof["device_busy_ms"] != "not measured":
+            tries = [prof]
+            while not trace_complete(prof) and len(tries) < TRACE_TRIES:
+                prof = profile_train_step(step, astate, batch, gen, size)
+                tries.append(prof)
+            prof["launches_and_calls_per_step_by_try"] = [
+                [p["launches_per_step"], p["launch_calls_per_step"]] for p in tries]
+            if not trace_complete(prof):
+                raise AssertionError(f"no trace of {TRACE_TRIES} kept a device record for every "
+                                     f"launch call: {prof['launches_and_calls_per_step_by_try']}")
     finally:
         darknet.BN_FORM = form
     return {"ms": ms, "median_ms": float(np.median(ms)), "min_ms": min(ms), "max_ms": max(ms),
@@ -1029,15 +1076,37 @@ def _train_group(scope: str, name: str) -> str:
     return "conv backward (other)" if conv else "BN and elementwise (backward)"
 
 
+# the host's calls that start device work, as the trace's CPU side records them
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemsetAsync", "cudaMemcpyAsync")
+# Even warmed, a trace can lose device records: of sixteen warmed 2- and
+# 4-step traces of the B=8 step, three 2-step ones kept 6.5-156 fewer
+# kernels a step than the host made launch calls, while those calls were
+# the same in every trace (7282.5 f32, 7033.5 bf16 a step).  One bf16
+# launch call a step leaves no device record in every trace.
+TRACE_TRIES = 8
+TRACE_UNRECORDED_PER_STEP = 1
+
+
+def trace_complete(prof: dict) -> bool:
+    """The trace kept a device record for every launch call of the host but
+    ``TRACE_UNRECORDED_PER_STEP`` a step."""
+    return (prof["launches_per_step"]
+            >= prof["launch_calls_per_step"] - TRACE_UNRECORDED_PER_STEP)
+
+
 def profile_train_step(step, astate, batch, gen, size: int, calls: int = 2) -> dict:
-    """Device time by group over ``calls`` micro-steps (an apply and one
-    without), from a ``torch.profiler`` trace: kernels launched inside the
-    step's ``train/*`` ranges go to that part, the rest (the backward) by
-    kernel name."""
+    """Device time by group over ``calls`` micro-steps (as many applies as
+    steps without), from a ``torch.profiler`` trace after one warm-up step
+    whose events are dropped: kernels launched inside the step's
+    ``train/*`` ranges go to that part, the rest (the backward) by kernel
+    name."""
     import collections
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity
+    with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(astate, *batch, gen, size)
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(calls):
             step(astate, *batch, gen, size)
         torch.cuda.synchronize()
@@ -1086,8 +1155,11 @@ def profile_train_step(step, astate, batch, gen, size: int, calls: int = 2) -> d
         by_name[e.name[:90]][0] += 1
         by_name[e.name[:90]][1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    launch_calls = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                       and e.name.startswith(LAUNCH_CALLS))
     return {"device_busy_ms": busy_us / calls / 1e3, "idle_share_traced": 1 - busy_us / span_us,
             "launches_per_step": len(device) / calls,
+            "launch_calls_per_step": launch_calls / calls,
             "by_group": {k: {"launches": c / calls, "ms": us / calls / 1e3}
                          for k, (c, us) in sorted(groups.items(), key=lambda kv: -kv[1][1])},
             "top_kernels": {k: {"launches": c / calls, "ms": us / calls / 1e3}
@@ -1097,17 +1169,20 @@ def profile_train_step(step, astate, batch, gen, size: int, calls: int = 2) -> d
 
 def traced_epoch(spec, data: str, root: str, dev, size: int) -> dict:
     """(e): one Trainer epoch (6 micro-batches, evaluation, checkpoint)
-    under ``torch.profiler``: its wall time, the device's busy time and the
-    idle share."""
+    under ``torch.profiler``, after a warm-up step whose events are dropped:
+    its wall time (``train()`` returns after joining the checkpoint's
+    write), the device's busy time and the idle share."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from amyloid_yolo_tpu_torch.training import TrainConfig, Trainer
     cfg = TrainConfig(data_config=data, epochs=1, batch_size=8, gradient_accumulations=2,
                       img_size=size, multiscale=True, augment=True, max_batches_per_epoch=6,
                       learning_rate=TRAIN_LR, checkpoint_dir=os.path.join(root, "ckpts_traced"),
                       logdir=os.path.join(root, "logs_traced"))
     tr = Trainer(cfg, spec=spec, device=dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warm_up_kernels(dev)
+        prof.step()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             tr.train()
@@ -1142,7 +1217,7 @@ def training_phase(spec, params, card: str, dev, size: int = TRAIN_SIZE,
               f"{record['decoder']}", flush=True)
         record["trainer"] = trainer_run(spec, data, root, dev, size)
         for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            rec = step_times(spec, params, dev, rng, size, side, dtype)
+            rec = step_times(spec, params, dev, rng, size, side, dtype, launch_check=True)
             record[f"step_{name}"] = rec
             print(f"train micro-step B=8 {size} {name} (accumulation 2, augment on, inputs on "
                   f"the card): median {rec['median_ms']:.3f} ms, min {rec['min_ms']:.3f}, max "
@@ -1305,15 +1380,18 @@ def run_load(port: int, bodies, seconds: float, root: str, during=None):
 
 
 def trace_device(start_s: float, seconds: float) -> dict:
-    """After ``start_s``, a ``torch.profiler`` trace (device activity only)
-    of ``seconds`` of whatever runs on the card: the union of its kernels'
-    and copies' intervals over the window's wall time, and device ms and
-    launches by group (:func:`kernel_group`; host-to-device copies apart)."""
+    """After ``start_s``, a ``torch.profiler`` trace (device activity only,
+    after a warm-up step whose events are dropped) of ``seconds`` of
+    whatever runs on the card: the union of its kernels' and copies'
+    intervals over the window's wall time, and device ms and launches by
+    group (:func:`kernel_group`; host-to-device copies apart)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from trace_summary_torch import busy_and_span
     time.sleep(start_s)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with warmed_profile([ProfilerActivity.CUDA]) as prof:
+        warm_up_kernels(torch.device("cuda"))
+        prof.step()
         t0 = time.perf_counter()
         time.sleep(seconds)
         torch.cuda.synchronize()
@@ -3653,6 +3731,524 @@ def bench_tools_phase(spec, params, card: str, dev, training: dict, size: int = 
     return record
 
 
+# --------------------------------------------------------------------------
+# phase 18: the last modules of the JAX package
+# --------------------------------------------------------------------------
+
+WARP_TOL = 1e-5                     # (b): card vs CPU, and the shear warp against the bilinear
+                                    # warp for pure translation (tests/test_augment.py:81-90)
+SAVE_SET = dict(n_train=16, n_valid=4)  # (c): 2 micro-batches of 8 an epoch, 4 to evaluate
+SAVE_EMA = 0.999                    # (c): the EMA on, so the checkpoint holds all four states
+NMS_SHARE = 0.005                   # (d): the share of phase 6's rows above the threshold
+NMS_THRES = 0.4
+NMS_TOL = dict(box=0.1, score=1e-3)  # (d): tests/test_torch_detector.py:163
+TOOL_ARGV = {                       # (e): each tool in a process of its own
+    "bench_trainstep_torch.py": ["--warp-ab", "--forms-ab", "--iters", "3"],
+    "bench_bn_stats_torch.py": ["--iters", "5"],
+    "bench_s2d_down_b32_torch.py": ["--iters", "10"],
+}
+
+
+def timed_calls(fn, n: int, dev) -> list:
+    """ms of each of ``n`` calls of ``fn``: CUDA events on the card, the
+    host clock on the CPU."""
+    import torch
+    if dev.type != "cuda":
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(n)]
+    for a, b in marks:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in marks]
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, values and signs of zero (tensors in nested dicts and
+    lists; anything else by ``==``)."""
+    import torch
+    if isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu())
+                and (not b.is_floating_point()
+                     or torch.equal(torch.signbit(a.cpu()), torch.signbit(b.cpu()))))
+    if isinstance(b, dict):
+        return isinstance(a, dict) and set(a) == set(b) and all(same_bits(a[k], b[k]) for k in b)
+    if isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def warp_input(dev, size: int, side: int):
+    """(b)'s images: the model input of a B=8 batch like phase 11's."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.parallel import steps
+    imgs, t, m = train_batch(np.random.RandomState(SEED), 8, side)
+    with torch.no_grad():
+        x, _, _ = steps.prepare_batch(*(torch.as_tensor(a).to(dev) for a in (imgs, t, m)),
+                                      size, dev)
+    return x
+
+
+def warp_checks(x, dev, card: str) -> dict:
+    """(b): the exact bilinear warp on the card against the CPU, in both
+    layouts; for pure translation against the shear warp, at the JAX
+    test's shape and shifts (``tests/test_augment.py:81-90``: 64², 0.15,
+    -0.1) over every pixel, and at ``x``'s size with the draws' shifts
+    over the pixels whose samples lie a pixel or more inside the image;
+    each warp's ms a batch."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.ops import augment as aug
+    r = np.random.RandomState(SEED + 18)
+    b, s = x.shape[0], x.shape[1]
+    ang, tx, ty = (torch.from_numpy(r.uniform(lo, hi, b).astype(np.float32))
+                   for lo, hi in ((-20, 20), (-0.2, 0.2), (-0.2, 0.2)))
+    on = [a.to(dev) for a in (ang, tx, ty)]
+    got = aug._affine_one(x, *on)
+    want = aug._affine_one(x.cpu(), ang, tx, ty)
+    planar = aug._affine_one(x.permute(0, 3, 1, 2).contiguous(), *on, planar=True)
+    zero = torch.zeros(b, device=dev)
+    small = x[:, :64, :64].contiguous()
+    jax_tx, jax_ty = torch.full((b,), 0.15, device=dev), torch.full((b,), -0.1, device=dev)
+    diff_64 = (aug._affine_one(small, zero, jax_tx, jax_ty)
+               - aug._affine_shear3(small, zero, jax_tx, jax_ty)).abs()
+    diff = (aug._affine_one(x, zero, on[1], on[2])
+            - aug._affine_shear3(x, zero, on[1], on[2])).abs().amax(dim=-1).cpu()
+    # a pure translation samples pixel (i, j) at (i - ty·s, j - tx·s)
+    idx = np.arange(s, dtype=np.float64)
+    inside = [(idx[None] - t.numpy().astype(np.float64)[:, None] * s >= 1)
+              & (idx[None] - t.numpy().astype(np.float64)[:, None] * s <= s - 2)
+              for t in (ty, tx)]
+    interior = torch.from_numpy(inside[0][:, :, None] & inside[1][:, None, :])
+    rec = {"card_vs_cpu": float((got.cpu() - want).abs().max()),
+           "planar_vs_nhwc": float((planar.permute(0, 2, 3, 1) - got).abs().max()),
+           "translation_shear3_vs_bilinear_64": float(diff_64.max()),
+           "translation_shear3_vs_bilinear_interior": float(diff[interior].max()),
+           "translation_shear3_vs_bilinear_all": float(diff.max()),
+           "zero_share": float((want == 0).float().mean())}
+
+    def ms(fn):
+        return cuda_ms(fn, iters=10) if dev.type == "cuda" else float(np.median(
+            timed_calls(fn, 3, dev)))
+
+    rec["bilinear_ms"] = ms(lambda: aug._affine_one(x, *on))
+    rec["shear3_ms"] = ms(lambda: aug._affine_shear3(x, *on))
+    print(f"(b) _affine_one B={b} {s}^2: card vs CPU max|diff| {rec['card_vs_cpu']} "
+          f"(tolerance {WARP_TOL}), planar vs NHWC {rec['planar_vs_nhwc']}; pure translation, "
+          f"shear3 vs bilinear: {rec['translation_shear3_vs_bilinear_64']} at 64^2 with the "
+          f"JAX test's shifts, {rec['translation_shear3_vs_bilinear_interior']} inside at "
+          f"{s}^2 (tolerance {WARP_TOL} each); {rec['translation_shear3_vs_bilinear_all']} "
+          f"over all pixels at {s}^2 (a record: at the zero-filled border a float32 "
+          f"coordinate's ulp, {float(np.spacing(np.float32(0.7 * s))):.1e} px near "
+          f"{0.7 * s:.0f}, meets a jump of ~0.9); "
+          f"{rec['zero_share']:.4f} of the outputs zero-filled; bilinear "
+          f"{rec['bilinear_ms']:.4f} ms, shear3 {rec['shear3_ms']:.4f} ms a batch [{card}]",
+          flush=True)
+    if max(rec["card_vs_cpu"], rec["planar_vs_nhwc"], rec["translation_shear3_vs_bilinear_64"],
+           rec["translation_shear3_vs_bilinear_interior"]) > WARP_TOL:
+        raise AssertionError("(b) the bilinear warp disagrees")
+    return rec
+
+
+def checkpoint_copy(tr) -> dict:
+    """What a checkpoint of ``tr`` holds, copied to the host synchronously."""
+    from amyloid_yolo_tpu_torch.io import weights
+    from amyloid_yolo_tpu_torch.training import _map_tensors
+    st = tr.state
+    opt = _map_tensors(st.optimizer.state_dict(), lambda t: t.detach().to("cpu", copy=True))
+    out = {"params": weights.params_to_torch_state_dict(tr.spec, st.params),
+           "optimizer": opt, "step": st.step, "seen": st.seen}
+    if st.ema is not None:
+        out["ema"] = weights.params_to_torch_state_dict(tr.spec, st.ema)
+    return out
+
+
+class GcPauses:
+    """Seconds the cyclic garbage collector ran, and its runs, by
+    generation, while registered (``with GcPauses() as gc_pauses:``); each
+    run of ``LONG_GC_MS`` or more in ``long``: its generation, ms, the
+    objects it collected and its start in seconds from the registration."""
+    LONG_GC_MS = 20.0
+
+    def __init__(self):
+        self.s, self.n, self.long, self._t0 = [0.0] * 3, [0] * 3, [], None
+        self._start = time.perf_counter()
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            dt = time.perf_counter() - self._t0
+            self.s[info["generation"]] += dt
+            self.n[info["generation"]] += 1
+            if dt * 1e3 >= self.LONG_GC_MS:
+                self.long.append({"generation": info["generation"], "ms": dt * 1e3,
+                                  "collected": info["collected"],
+                                  "at_s": self._t0 - self._start})
+            self._t0 = None
+
+    def __enter__(self):
+        import gc
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self)
+
+
+ALLOCATOR_COUNTS = {"new_segments": "num_device_alloc", "freed_segments": "num_device_free",
+                    "alloc_retries": "num_alloc_retries"}
+
+
+def observe_dispatches(tr, dev, gc_pauses: GcPauses) -> list:
+    """Wrap ``tr.save_checkpoint`` so that each call appends its wall ms,
+    the collector's pauses in it and the device allocator's counts in it
+    (``ALLOCATOR_COUNTS``: its ``cudaMalloc`` and ``cudaFree`` calls, and
+    the allocations it retried after freeing its cache) to the returned
+    list, with the memory the allocator held before the call."""
+    import torch
+    inner, log = tr.save_checkpoint, []
+
+    def counts():
+        stats = torch.cuda.memory_stats(dev) if dev.type == "cuda" else {}
+        return {k: stats.get(v, 0) for k, v in ALLOCATOR_COUNTS.items()}
+
+    def save(epoch):
+        gc0, c0 = (list(gc_pauses.s), list(gc_pauses.n)), counts()
+        reserved = torch.cuda.memory_reserved(dev) / 2 ** 30 if dev.type == "cuda" else 0.0
+        t0 = time.perf_counter()
+        path = inner(epoch)
+        log.append({"epoch": epoch, "ms": (time.perf_counter() - t0) * 1e3,
+                    "gc_ms": [(a - b) * 1e3 for a, b in zip(gc_pauses.s, gc0[0])],
+                    "gc_runs": [a - b for a, b in zip(gc_pauses.n, gc0[1])],
+                    **{k: v - c0[k] for k, v in counts().items()},
+                    "reserved_gib_before": reserved})
+        return path
+
+    tr.save_checkpoint = save
+    return log
+
+
+def overlapped_save(spec, dev, size: int, side: int, root: str, card: str,
+                    save_set: dict) -> dict:
+    with GcPauses() as gc_pauses:
+        return _overlapped_save(spec, dev, size, side, root, card, save_set, gc_pauses)
+
+
+def _overlapped_save(spec, dev, size: int, side: int, root: str, card: str,
+                     save_set: dict, gc_pauses: GcPauses) -> dict:
+    """(c): a 2-epoch ``Trainer`` at B=8 whose every dispatched checkpoint
+    is compared, after the join, with a synchronous host copy taken right
+    after the dispatch (the next epoch's steps run in between for epoch 0);
+    one more dispatch with a train step before its join; a failed write
+    raised at the join; the dispatch, the write and a synchronous save
+    timed; the snapshot's extra device memory."""
+    import threading
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch import training
+    from amyloid_yolo_tpu_torch.training import TrainConfig, Trainer
+    data = write_train_set(root, SEED, side=side, **save_set)
+
+    def trainer(name):
+        cfg = TrainConfig(data_config=data, epochs=2, batch_size=8, gradient_accumulations=1,
+                          img_size=size, multiscale=False, augment=True,
+                          learning_rate=TRAIN_LR, ema_decay=SAVE_EMA,
+                          checkpoint_dir=os.path.join(root, f"ckpts_{name}"),
+                          logdir=os.path.join(root, f"logs_{name}"))
+        return Trainer(cfg, spec=spec, device=dev)
+
+    def train(tr):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr.train()
+        live = [t.name for t in threading.enumerate() if t.name.startswith("ckpt-save-")]
+        if tr._save_thread is not None or live:
+            raise AssertionError(f"(c) train() returned with a save in flight: {live}")
+        return time.perf_counter() - t0
+
+    # the epoch walls as a user's run has them
+    clean = trainer("clean")
+    observed = {"clean": observe_dispatches(clean, dev, gc_pauses)}
+    wall = train(clean)
+    # the same run, each dispatch followed by a synchronous host copy of the state
+    tr = trainer("checked")
+    cfg = tr.cfg
+    copies, dispatch_ms = {}, {}
+    observed["checked"] = observe_dispatches(tr, dev, gc_pauses)
+    dispatch = tr.save_checkpoint
+
+    def save_and_copy(epoch):
+        t0 = time.perf_counter()
+        path = dispatch(epoch)
+        dispatch_ms[epoch] = (time.perf_counter() - t0) * 1e3
+        copies[epoch] = checkpoint_copy(tr)
+        return path
+
+    tr.save_checkpoint = save_and_copy
+    train(tr)
+    for epoch in (0, 1):
+        got = torch.load(tr.checkpoint_path(epoch), map_location="cpu", weights_only=True)
+        if not same_bits(got, copies[epoch]):
+            raise AssertionError(f"(c) checkpoint {epoch} is not the state at its dispatch")
+
+    # one more dispatch, a train step before its join
+    rng = np.random.RandomState(SEED + 18)
+    imgs, t, m = train_batch(rng, 8, side)
+    key = next(k for k in tr.state.params if k.endswith(".weight"))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    path = dispatch(2)
+    dispatch_ms[2] = (time.perf_counter() - t0) * 1e3
+    peak_gib = "not measured"
+    if cuda:  # the snapshot's copies, before the step below allocates its own
+        torch.cuda.synchronize(dev)
+        peak_gib = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    copies[2] = checkpoint_copy(tr)
+    tr.state, _ = tr.step_fn(tr.state, imgs, t, m, tr.rng, size)
+    moved = not torch.equal(tr.state.params[key].detach().cpu(), copies[2]["params"][key])
+    t0 = time.perf_counter()
+    tr.join_pending_save()
+    join_ms = (time.perf_counter() - t0) * 1e3
+    got = torch.load(path, map_location="cpu", weights_only=True)
+    if not moved or not same_bits(got, copies[2]):
+        raise AssertionError(f"(c) the dispatched checkpoint is not the state at its dispatch "
+                             f"(the step moved the live state: {moved})")
+
+    # the write alone, synchronous: the save as it stood on the epoch path
+    times, sync_gc_ms = [], []
+    for epoch in (3, 4):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        gc0 = sum(gc_pauses.s)
+        t0 = time.perf_counter()
+        tr._write_checkpoint(tr.checkpoint_path(epoch), training._state_tree(tr.state), epoch,
+                             tr._best_epochs())
+        times.append((time.perf_counter() - t0) * 1e3)
+        sync_gc_ms.append((sum(gc_pauses.s) - gc0) * 1e3)
+    nbytes = os.path.getsize(tr.checkpoint_path(4))
+
+    # a write that fails surfaces at the join
+    blocker = os.path.join(root, "a_file")
+    open(blocker, "w").close()
+    cfg.checkpoint_dir = os.path.join(blocker, "ckpts")
+    dispatch(5)
+    raised = None
+    try:
+        tr.join_pending_save()
+    except RuntimeError as e:
+        raised = f"{e} ({type(e.__cause__).__name__}: {e.__cause__})"
+    if raised is None or "async checkpoint write failed" not in raised:
+        raise AssertionError("(c) a write into an unwritable directory did not raise at the join")
+    import gc
+    rec = {"trainer_wall_s": wall, "epoch_walls": clean.epoch_walls,
+           "dispatch_ms": dispatch_ms, "join_after_step_ms": join_ms,
+           "sync_save_ms": times, "checkpoint_bytes": nbytes,
+           "snapshot_peak_extra_gib": peak_gib, "failed_write": raised,
+           "dispatches": observed,
+           "save_walls": {"clean": clean.save_walls, "checked": tr.save_walls},
+           "sync_save_gc_ms": sync_gc_ms,
+           "gc_pauses_ms": [t * 1e3 for t in gc_pauses.s], "gc_runs": gc_pauses.n,
+           "gc_long_runs": gc_pauses.long, "heap_objects": len(gc.get_objects())}
+    for name, log in observed.items():
+        for d, w in zip(log, rec["save_walls"][name]):
+            print(f"(c) {name} dispatch of epoch {d['epoch']}: {d['ms']:.2f} ms = join "
+                  f"{w.get('join_s', 0) * 1e3:.2f} + device copy "
+                  f"{w.get('snapshot_s', 0) * 1e3:.2f} + worker start "
+                  f"{w.get('start_s', 0) * 1e3:.2f} ms; collector "
+                  f"{[round(g, 2) for g in d['gc_ms']]} ms in {d['gc_runs']} runs (gen 0-2); "
+                  f"the allocator {d['new_segments']} cudaMalloc, {d['freed_segments']} "
+                  f"cudaFree, {d['alloc_retries']} retries, "
+                  f"{d['reserved_gib_before']:.2f} GiB held before; the worker's host copy "
+                  f"{w.get('host_copy_s', float('nan')) * 1e3:.1f} ms, write "
+                  f"{w.get('write_s', float('nan')) * 1e3:.1f} ms [{card}]", flush=True)
+    print(f"(c) the collector's runs of {GcPauses.LONG_GC_MS} ms or more in (c): "
+          f"{json.dumps(gc_pauses.long)}; in the synchronous saves {sync_gc_ms} ms; "
+          f"{rec['heap_objects']} objects tracked at the end [{card}]", flush=True)
+    ep = clean.epoch_walls[0]
+    print(f"(c) overlapped save, Trainer 2 epochs x 2 micro-batches of 8 with EMA: each "
+          f"checkpoint equals the host copy taken at its dispatch; dispatch "
+          f"{json.dumps({k: round(v, 3) for k, v in dispatch_ms.items()})} ms, the write after a "
+          f"train step joined in {join_ms:.1f} ms, a synchronous save {times[0]:.1f} and "
+          f"{times[1]:.1f} ms ({nbytes / 2 ** 30:.3f} GiB file); the snapshot's peak extra "
+          f"device memory {peak_gib} GiB; a run without the copies: epoch 0 train "
+          f"{ep['train_s']:.3f} s, eval {ep['eval_s']:.3f} s, save-dispatch {ep['save_s']:.4f} "
+          f"s, the 2 epochs {wall:.3f} s with the last join; the failed write raised "
+          f"{raised!r} [{card}]", flush=True)
+    return rec
+
+
+def gap_threshold(values, share: float) -> float:
+    """A threshold with about ``share`` of ``values`` above it, halfway
+    across the widest gap between two consecutive values near that rank, so
+    that no value sits near it (as :func:`raise_objectness` picks one)."""
+    import torch
+    v = torch.sort(values.flatten().double(), descending=True).values
+    k0 = max(4, int(share * v.numel()))
+    lo, hi = k0 - k0 // 4, k0 + k0 // 4 + 1
+    k = lo + int(torch.argmax(v[lo - 1:hi - 1] - v[lo:hi]))  # v[k - 1] passes, v[k] not
+    return float(v[k - 1] + v[k]) / 2
+
+
+def matched_box_diff(a, b) -> float:
+    """The largest box difference when each row of ``b`` is paired with the
+    nearest unpaired row of ``a`` of the same class and a score within
+    ``NMS_TOL``; infinite where a row has none.  The rows of one image are
+    in score order on both sides, but the reference leaves the order of
+    equal scores open (``amyloid_yolo_tpu/ops/nms.py:9-11``): a stable sort
+    on the card, numpy's quicksort on the host."""
+    import numpy as np
+    free = np.ones(len(a), bool)
+    worst = 0.0
+    for row in b:
+        cand = np.flatnonzero(free & (a[:, 6] == row[6])
+                              & (np.abs(a[:, 4:6] - row[4:6]).max(axis=1) <= NMS_TOL["score"]))
+        if not len(cand):
+            return float("inf")
+        d = np.abs(a[cand, :4] - row[:4]).max(axis=1)
+        free[cand[d.argmin()]] = False
+        worst = max(worst, float(d.min()))
+    return worst
+
+
+def host_nms_check(spec, params, dev, size: int, side: int, card: str) -> dict:
+    """(d): phase 6's bf16 ``Detector`` maps of its first batch, decoded,
+    through the device NMS (every candidate in its pool) and through
+    ``non_max_suppression_np`` on the host copy, at one threshold: the same
+    detections within ``NMS_TOL``."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    from amyloid_yolo_tpu_torch.models import heads
+    from amyloid_yolo_tpu_torch.ops import nms
+    det = Detector(spec, params, conf_thres=0.3, model_size=size, tile_size=side, device=dev)
+    tiles = np.random.RandomState(SEED).randint(0, 256, (8, side, side, 3)).astype(np.uint8)
+    with torch.inference_mode():
+        maps = det.head_maps(torch.from_numpy(tiles).to(dev))
+        pred = heads.decode_all([m.float() for m in maps], spec, size)
+    conf = gap_threshold(pred[..., 4], NMS_SHARE)
+    n_cand = (pred[..., 4] >= conf).sum(dim=1)
+    pool = int(n_cand.max())
+    with torch.inference_mode():
+        dets, valid = nms.non_max_suppression(pred, conf, NMS_THRES, capacity=pool, pool=pool)
+    t0 = time.perf_counter()
+    host = nms.non_max_suppression_np(pred.cpu().numpy(), conf, NMS_THRES)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    got = nms.dense_to_ragged(dets, valid)
+    box = score = 0.0
+    tied = 0
+    for i, (a, b) in enumerate(zip(got, host)):
+        if (a is None) != (b is None) or (a is not None and a.shape != b.shape):
+            raise AssertionError(f"(d) image {i}: the device NMS keeps other boxes than the "
+                                 f"host mirror ({None if a is None else a.shape} vs "
+                                 f"{None if b is None else b.shape})")
+        if a is not None:
+            score = max(score, float(np.abs(a[:, 4:6] - b[:, 4:6]).max()))
+            box = max(box, matched_box_diff(a, b))
+            tied += len(b) - len(np.unique(b[:, 4] * b[:, 5]))
+    kept = [0 if h is None else len(h) for h in host]
+    rec = {"conf_thres": conf, "nms_thres": NMS_THRES, "candidates": n_cand.tolist(),
+           "kept": kept, "tied_score_rows": tied, "max_box_diff_px": box,
+           "max_score_diff": score, "host_ms": host_ms}
+    print(f"(d) non_max_suppression_np against the device NMS on phase 6's first batch "
+          f"(conf {conf:.6f}, NMS {NMS_THRES}): candidates {rec['candidates']}, kept {kept}, "
+          f"{tied} kept rows tied in score with another (matched by box: the two sorts may "
+          f"order a tie otherwise); max|box diff| {box} px (tolerance {NMS_TOL['box']}), "
+          f"max|score diff| {score} "
+          f"(tolerance {NMS_TOL['score']}); the host loop {host_ms:.1f} ms [{card}]", flush=True)
+    if not sum(kept) or box > NMS_TOL["box"] or score > NMS_TOL["score"]:
+        raise AssertionError("(d) the host NMS mirror disagrees with the device NMS")
+    return rec
+
+
+def run_tool(name: str, argv, card_name: str) -> dict:
+    """(e): ``tools/<name>`` in a process of its own: exit 0, the card named
+    on its stderr; its stdout lines and the JSON ones among them."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join("tools", name), *argv], cwd=REPO,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(e) {name} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    if f"# card: {card_name}" not in proc.stderr:
+        raise AssertionError(f"(e) {name}'s stderr does not name the card {card_name}")
+    lines = proc.stdout.splitlines()
+    return {"wall_s": wall, "lines": lines,
+            "json": [json.loads(l) for l in lines if l.startswith("{")]}
+
+
+def tool_checks(card_name: str, tool_argv) -> dict:
+    """(e): the three tools, each line they must print."""
+    runs = {name: run_tool(name, argv, card_name) for name, argv in tool_argv.items()}
+    step = runs["bench_trainstep_torch.py"]
+    warps = [l.split()[1] for l in step["lines"] if l.startswith("  warp ")]
+    tags = [r["tag"] for r in step["json"]]
+    if warps != ["shear3_per_row", "bilinear"] or tags != ["bn=reduce", "bn=matmul"]:
+        raise AssertionError(f"(e) bench_trainstep_torch.py printed warps {warps}, arms {tags}")
+    bn = runs["bench_bn_stats_torch.py"]["json"]
+    if [r["form"] for r in bn] != ["reduce", "matmul"]:
+        raise AssertionError(f"(e) bench_bn_stats_torch.py: {bn}")
+    s2d = runs["bench_s2d_down_b32_torch.py"]["json"]
+    if [r["s2d_downsample"] for r in s2d] != [False, True]:
+        raise AssertionError(f"(e) bench_s2d_down_b32_torch.py: {s2d}")
+    cuda = card_name != "cpu"
+    for r in s2d:
+        want = {"resize_normalize": 1.0 * cuda, "fused_residual_block": 0.0,
+                "fused_residual_block_int8": 0.0}
+        if r["launches_per_call"] != want:
+            raise AssertionError(f"(e) bench_s2d_down_b32_torch.py launches {r}, want {want}")
+    rec = {"bench_trainstep_warps": [l.strip() for l in step["lines"] if "warp " in l],
+           "bench_trainstep_forms": step["json"], "bench_bn_stats": bn,
+           "bench_s2d_down_b32": s2d,
+           "wall_s": {k: v["wall_s"] for k, v in runs.items()}}
+    print(f"(e) the tools: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def last_slice_phase(spec, params, card: str, dev, size: int = 416, side: int = 1536,
+                     save_set=None, tool_argv=None) -> dict:
+    """Phase 18 (see the module docstring); returns its JSON record.  A CPU
+    rehearsal passes a mini spec, small ``size`` and ``side``, and tool
+    arguments with ``--device cpu``."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.kernels import launch_counts, reset_launch_counts
+    cuda = dev.type == "cuda"
+    card_name = torch.cuda.get_device_name(0) if cuda else "cpu"
+    print(f"phase 18, the last modules of the JAX package [{card}]", flush=True)
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    record = {}
+    record["warp"] = warp_checks(warp_input(dev, size, side), dev, card)
+    with tempfile.TemporaryDirectory() as root:
+        record["save"] = overlapped_save(spec, dev, size, side, root, card,
+                                         save_set or SAVE_SET)
+    record["nms"] = host_nms_check(spec, params, dev, size, side, card)
+    counts = launch_counts()
+    record["launches"] = counts
+    print(f"phase 18 launches in this process: {counts}", flush=True)
+    if cuda and not (counts["resize_normalize"] and counts["fused_residual_block"]):
+        raise AssertionError(f"phase 18 launched a kernel of its path no time: {counts}")
+    record["tools"] = tool_checks(card_name, tool_argv or TOOL_ARGV)
+    record["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 18 wall {record['wall_s']:.1f} s [{card}]", flush=True)
+    return record
+
+
 def division_flips(det, tiles) -> dict:
     """The int8 levels of one ``det.head_maps`` call that ``quant`` (``y ·
     f32(1/s)``) sets otherwise than ``clip(round(y / f32(s)))``, counted on
@@ -4057,9 +4653,16 @@ def main() -> int:
                 "executor_ms": r["ms"]["executor_int8 (bf16 sums)"], "plan": r["k3_plan"]}
                for r in tools["int8_block"]]
 
+    # 18. the last modules of the JAX package
+    last = last_slice_phase(spec, params, card, dev)
+    s2d_tool = {f"s2d_downsample={r['s2d_downsample']}": r["launches_per_call"]
+                for r in last["tools"]["bench_s2d_down_b32"]}
+
     def tool_launches(name):
         return {"bench_tools_launches": tools["launches"][name],
-                "bench_launches_per_call": {k: v[name] for k, v in bench_calls.items()}}
+                "bench_launches_per_call": {k: v[name] for k, v in bench_calls.items()},
+                "last_slice_launches": last["launches"][name],
+                "s2d_down_tool_launches_per_call": {k: v[name] for k, v in s2d_tool.items()}}
 
     def total(rows, key):
         return sum(s[key] * s["units"] for s in rows)
@@ -4140,6 +4743,7 @@ def main() -> int:
     print(json.dumps({"study": study, "card": card}))
     print(json.dumps({"layout": layout, "card": card}))
     print(json.dumps({"bench_tools": tools, "card": card}))
+    print(json.dumps({"last_slice": last, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -167,3 +167,81 @@ def test_draws_lie_in_the_policy_ranges():
     again = augment.draw_augment_params(torch.Generator().manual_seed(0), 512, 32, "cpu")
     for k in d:
         assert torch.equal(d[k], again[k]), k
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "planar"])
+def test_affine_one_matches_jax(layout):
+    """The exact 2-D warp (``_affine_one`` over ``_bilinear_sample``) against
+    the reference's, image by image, within 1e-5, in both layouts; and
+    ``_bilinear_sample`` alone at coordinates that leave the image."""
+    img, _, _ = _batch(6)
+    ang = np.array([0.0, 13.0, -19.0], np.float32)
+    tr = np.array([[0.15, -0.1], [0.0, 0.2], [-0.2, 0.05]], np.float32)
+    ref = _per_image(jax_augment._affine_one, jnp.asarray(img), jnp.asarray(ang),
+                     jnp.asarray(tr[:, 0]), jnp.asarray(tr[:, 1]))
+    planar = layout == "planar"
+    x = torch.from_numpy(img.transpose(0, 3, 1, 2).copy() if planar else img)
+    got = augment._affine_one(x, torch.from_numpy(ang), torch.from_numpy(tr[:, 0]),
+                              torch.from_numpy(tr[:, 1]), planar=planar).numpy()
+    if planar:
+        got = got.transpose(0, 2, 3, 1)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    assert (ref == 0).any()  # corners rotated in from outside
+
+    r = np.random.RandomState(7)
+    ys = (r.rand(B, 9, 11) * (S + 8) - 4).astype(np.float32)
+    xs = (r.rand(B, 9, 11) * (S + 8) - 4).astype(np.float32)
+    ref = _per_image(jax_augment._bilinear_sample, jnp.asarray(img), jnp.asarray(ys),
+                     jnp.asarray(xs))
+    got = augment._bilinear_sample(x, torch.from_numpy(ys), torch.from_numpy(xs),
+                                   planar=planar).numpy()
+    np.testing.assert_allclose(got.transpose(0, 2, 3, 1) if planar else got, ref, rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("angle,sin_rounded", [(-19.0, False), (13.0, False), (-20.0, True)])
+def test_affine_one_at_416(angle, sin_rounded):
+    """At the training size the two packages' maps part most.  The port
+    takes cos/sin in float64 and rounds them; JAX's float32 ``sin`` is not
+    the correctly rounded value for some of the policy's angles, -19 and 13
+    among them (``sin_rounded`` False).  On smooth, stain-like
+    content, inside the image (all four taps inside) the warps agree within
+    1e-5; where a tap falls in the zero fill a coordinate's float32 ulp
+    near 416 (3.05e-5 px) meets a step from the image to 0, so there they
+    agree within that ulp times the largest pixel value."""
+    s = 416
+    th = np.asarray(jnp.deg2rad(jnp.float32(angle)))
+    assert (np.asarray(jnp.sin(th)) == np.float32(np.sin(np.float64(th)))) == sin_rounded
+    yy, xx = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    img = (np.stack([np.sin(xx / 9.0) + 1, np.cos(yy / 7.0) + 1, (xx + yy) / (2.0 * s)], -1)
+           / 2).astype(np.float32)
+    for tx, ty in ((0.15, -0.1), (-0.2, 0.2)):
+        ref = np.asarray(jax_augment._affine_one(jnp.asarray(img), jnp.float32(angle),
+                                                 jnp.float32(tx), jnp.float32(ty)))
+        args = (torch.tensor([angle]), torch.tensor([tx]), torch.tensor([ty]))
+        got = augment._affine_one(torch.from_numpy(img[None]), *args)[0].numpy()
+        ys, xs = (c[0].numpy() for c in augment._affine_coords(s, *args))
+        inside = (ys >= 0) & (ys < s - 1) & (xs >= 0) & (xs < s - 1)
+        diff = np.abs(got - ref).max(axis=-1)
+        assert inside.any() and (~inside).any()
+        assert diff[inside].max() <= 1e-5
+        assert diff[~inside].max() <= np.spacing(np.float32(s)) * img.max()
+
+
+def test_shear3_equals_bilinear_for_translation():
+    """``tests/test_augment.py:81-102``'s check on the port: the shear warp
+    equals the bilinear warp for pure translation (1e-5) and stays within
+    5e-3 of it on smooth content rotated 9° (interior pixels)."""
+    img, _, _ = _batch(8)
+    zero = torch.zeros(B)
+    tx, ty = torch.full((B,), 0.15), torch.full((B,), -0.1)
+    x = torch.from_numpy(img)
+    np.testing.assert_allclose(augment._affine_shear3(x, zero, tx, ty).numpy(),
+                               augment._affine_one(x, zero, tx, ty).numpy(), rtol=0, atol=1e-5)
+    yy, xx = np.meshgrid(np.arange(S), np.arange(S), indexing="ij")
+    smooth = (np.stack([np.sin(xx / 9.0) + 1, np.cos(yy / 7.0) + 1, (xx + yy) / 126.0], -1)
+              .astype(np.float32) / 2)[None]
+    nine = torch.full((1,), 9.0)
+    a = augment._affine_one(torch.from_numpy(smooth), nine, zero[:1], zero[:1]).numpy()
+    b = augment._affine_shear3(torch.from_numpy(smooth), nine, zero[:1], zero[:1]).numpy()
+    assert np.abs(a - b)[0, 8:-8, 8:-8].max() < 5e-3

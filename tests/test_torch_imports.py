@@ -27,7 +27,7 @@ EXAMPLES = ("run_study_torch", "native_res_training_torch")  # the port's script
 # the port's measurement and training tools under tools/
 TOOLS = ("mfu_torch", "trace_summary_torch", "bench_trainstep_torch", "serve_bench_torch",
          "batch_sweep_torch", "bench_int8_block_torch", "estimate_anchors_torch",
-         "recipe_chain_torch")
+         "recipe_chain_torch", "bench_bn_stats_torch", "bench_s2d_down_b32_torch")
 
 
 def _port_files():

@@ -127,3 +127,25 @@ def test_dense_to_ragged():
     out = port_nms.dense_to_ragged(dets, valid)
     assert out[1] is None
     np.testing.assert_array_equal(out[0], dets[0, :2].numpy())
+
+
+@pytest.mark.parametrize("trial", range(4))
+def test_host_mirror_equals_jax_host_mirror(trial):
+    """``non_max_suppression_np`` against the JAX package's: the same arrays
+    bit for bit, ``None`` where it has ``None`` (an image where no row
+    passes), and the device NMS within the mirror's 1e-3."""
+    pred = _crowded(trial)
+    pred[trial % 4, :, 4] = 0.1  # no row of this image passes
+    for conf in (0.5, 0.8):
+        got = port_nms.non_max_suppression_np(pred, conf, 0.4)
+        want = jax_nms.non_max_suppression_np(pred, conf, 0.4)
+        assert len(got) == len(want) == 4 and got[trial % 4] is None
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == b.dtype and a.shape[1] == 7
+                np.testing.assert_array_equal(a, b)
+        dets, valid = port_nms.non_max_suppression(torch.from_numpy(pred), conf, 0.4,
+                                                   capacity=96)
+        _assert_ragged_close(port_nms.dense_to_ragged(dets, valid), got, 1e-3)
+    assert pred[trial % 4, 0, 4] == np.float32(0.1)  # the input is not written

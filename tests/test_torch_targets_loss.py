@@ -1,6 +1,9 @@
 """The port's target assignment, training decode and YOLO loss against the
 JAX package's (``ops/targets.py`` in its ``"scatter"`` form,
-``models/heads.py:head_grid_tensors``, ``ops/loss.py``).
+``models/heads.py:head_grid_tensors``, ``ops/loss.py``).  The reference's
+``"dense"`` form, which the port does not have, is rendered in torch here
+(:func:`_assemble_dense`) and held against the JAX dense form and against
+the port's scatter assembly, bit for bit.
 
 Tolerances: the masks and ``tcls`` are compared for equality; the float
 targets and decode tensors to 1e-6 (the same float32 operations, the
@@ -10,6 +13,7 @@ maps to a relative 1e-5 of its largest value.
 """
 
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +30,7 @@ from amyloid_yolo_tpu_torch.graphspec import YoloSpec
 from amyloid_yolo_tpu_torch.models.heads import head_grid_tensors
 from amyloid_yolo_tpu_torch.ops.boxes import bbox_wh_iou
 from amyloid_yolo_tpu_torch.ops.loss import yolo_head_loss, yolo_loss
+from amyloid_yolo_tpu_torch.ops import targets as targets_mod
 from amyloid_yolo_tpu_torch.ops.targets import build_targets
 
 from minispec import mini_spec
@@ -53,11 +58,11 @@ def _case(seed, b=2, g=8, n_t=8, n_pad=0):
     return raw, t, mask
 
 
-@functools.partial(jax.jit, static_argnames=("img",))
-def _jax_targets(raw, t, mask, img):
+@functools.partial(jax.jit, static_argnames=("img", "form"))
+def _jax_targets(raw, t, mask, img, form="scatter"):
     jt = jax_head_grid_tensors(raw, ANCHORS, img, 2)
     return jax_build_targets(jt["pred_boxes"], jt["cls"], t, mask, jt["scaled_anchors"],
-                             JYOLO.ignore_thres, form="scatter")
+                             JYOLO.ignore_thres, form=form)
 
 
 @jax.jit
@@ -65,11 +70,34 @@ def _jax_loss(maps, t, mask):
     return jax_yolo_loss(maps, MINI, 64, t, mask)
 
 
-def _targets_pair(raw, t, mask, img=64):
-    ref = _jax_targets(jnp.asarray(raw), jnp.asarray(t), jnp.asarray(mask), img)
+def _assemble_dense(ncell, nC, key, key_ign, order, valid, labels_c, values):
+    """The reference's dense assembly (``amyloid_yolo_tpu/ops/targets.py:
+    155-211``) in torch, with :func:`targets._assemble_scatter`'s arguments
+    and results: each write becomes a compare of the T target keys against
+    every cell, reduced over T.  The winner is the largest target row of a
+    cell (last writer wins) and its values are gathered, not summed;
+    ``tcls`` is a bf16 product of the (T, ncell) hits and the class one-hot,
+    accumulated in float32 (exact while T < 256)."""
+    cell = torch.arange(ncell)
+    hit = key[:, None] == cell[None, :]                                   # (T, ncell)
+    winner = torch.where(hit, order.to(torch.int32)[:, None], -1).amax(dim=0)
+    assigned = winner >= 0
+    vals = torch.where(assigned[:, None], values[winner.clamp(min=0).long()], 0.0)
+    ignored = (key_ign[:, None] == cell[None, :]).any(dim=0)
+    onehot = labels_c[:, None] == torch.arange(nC)[None, :]
+    counts = hit.to(torch.bfloat16).t().matmul(onehot.to(torch.bfloat16))  # (ncell, C)
+    return assigned, ~(assigned | ignored), vals, (counts > 0).to(torch.float32).reshape(-1)
+
+
+def _targets_pair(raw, t, mask, img=64, form="scatter"):
+    """The JAX package's targets in ``form`` and the port's, its assembly
+    replaced by :func:`_assemble_dense` for ``form="dense"``."""
+    ref = _jax_targets(jnp.asarray(raw), jnp.asarray(t), jnp.asarray(mask), img, form)
     pt = head_grid_tensors(torch.from_numpy(raw), ANCHORS, img, 2)
-    got = build_targets(pt["pred_boxes"], pt["cls"], torch.from_numpy(t),
-                        torch.from_numpy(mask), pt["scaled_anchors"], YOLO.ignore_thres)
+    assemble = _assemble_dense if form == "dense" else targets_mod._assemble_scatter
+    with mock.patch.object(targets_mod, "_assemble_scatter", assemble):
+        got = build_targets(pt["pred_boxes"], pt["cls"], torch.from_numpy(t),
+                            torch.from_numpy(mask), pt["scaled_anchors"], YOLO.ignore_thres)
     return ref, got
 
 
@@ -113,6 +141,81 @@ def test_same_cell_collision_last_writer_wins():
     assert int(got["obj_mask"].sum()) == 1
     np.testing.assert_allclose(float(got["tx"][cell]), 0.53 * 8 - 4, atol=1e-5)
     np.testing.assert_array_equal(got["tcls"][cell].numpy(), [1.0, 1.0])
+
+
+def _crowded_case(seed, n_pad):
+    """``_case`` with two rows in one cell of one anchor under distinct
+    classes, a duplicate row and a shared centre."""
+    raw, t, mask = _case(seed, b=3, g=13, n_t=24, n_pad=n_pad)
+    t[5] = t[0]
+    t[6, 2:4] = t[1, 2:4]
+    t[7] = t[2]
+    t[7, 1] = 1 - t[2, 1]
+    t[7, 2:4] += 0.001
+    return raw, t, mask
+
+
+@pytest.mark.parametrize("seed,n_pad", [(0, 0), (1, 5), (2, 17), (3, 3)])
+def test_dense_form_equals_scatter_and_jax_dense(seed, n_pad):
+    """The dense assembly in ``build_targets`` is bit-identical to the port's
+    scatter form, and holds against the JAX package's dense form as the
+    scatter form holds against its scatter form (``_assert_targets``)."""
+    raw, t, mask = _crowded_case(seed, n_pad)
+    ref, dense = _targets_pair(raw, t, mask, img=104, form="dense")
+    _, scatter = _targets_pair(raw, t, mask, img=104, form="scatter")
+    _assert_targets(ref, dense)
+    cell = np.argwhere(dense["tcls"].numpy().sum(-1) == 2)
+    assert len(cell) >= 1  # two classes set in one cell
+    for k in scatter:
+        assert dense[k].dtype == scatter[k].dtype, k
+        np.testing.assert_array_equal(dense[k].numpy(), scatter[k].numpy(), err_msg=k)
+        assert torch.equal(torch.signbit(dense[k].float()), torch.signbit(scatter[k].float()))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_dense_assembly_bit_identical_to_jax(seed):
+    """The dense assembly itself on the same per-target keys and values as
+    the JAX package's ``_assemble_dense``, and the port's scatter assembly
+    on them: every output equal bit for bit, winners of crowded cells,
+    distinct classes in one cell and padded rows included.  (Through
+    ``build_targets`` the float targets differ by the two libraries' ``log``
+    and ``exp``, within ``VAL_TOL``.)"""
+    from amyloid_yolo_tpu.ops.targets import _assemble_dense as jax_assemble
+
+    r = np.random.RandomState(50 + seed)
+    nB, nA, nG, nC, nT = 2, 3, 5, 2, 40
+    b = r.randint(0, nB, nT)
+    best_n, gj, gi = r.randint(0, nA, nT), r.randint(0, 2, nT), r.randint(0, 2, nT)
+    valid = r.rand(nT) > 0.2
+    labels = r.randint(0, nC, nT)
+    ign = r.rand(nA, nT) > 0.6
+    vals = r.randn(6, nT).astype(np.float32)
+    vals[0, :3] = -0.0
+    ncell = nB * nA * nG * nG
+    b_s = np.where(valid, b, nB)
+    key = np.where(valid, ((b_s * nA + best_n) * nG + gj) * nG + gi, ncell)
+    key_ign = ((b_s[None] * nA + np.arange(nA)[:, None]) * nG + gj[None]) * nG + gi[None]
+    key_ign = np.where(ign & valid[None], key_ign, ncell).reshape(-1)
+    j = lambda a: jnp.asarray(a.astype(np.int32) if a.dtype.kind == "i" else a)  # noqa: E731
+    ref = jax_assemble(nB, nA, nG, nC, ncell, j(key), j(np.arange(nT)), j(valid), j(labels),
+                       j(ign), j(b_s), j(gj), j(gi), *[j(v) for v in vals])
+    t = torch.from_numpy
+    args = (ncell, nC, t(key), t(key_ign), t(np.arange(nT)), t(valid), t(labels),
+            t(vals.T.copy()))
+    obj, noobj, got, tcls = _assemble_dense(*args)
+    for have, want in zip((obj, noobj, got, tcls), targets_mod._assemble_scatter(*args)):
+        assert torch.equal(have, want) and torch.equal(torch.signbit(have.float()),
+                                                       torch.signbit(want.float()))
+    shape = (nB, nA, nG, nG)
+    np.testing.assert_array_equal(obj.reshape(shape).numpy(), np.asarray(ref["obj_mask"]))
+    np.testing.assert_array_equal(noobj.reshape(shape).numpy(), np.asarray(ref["noobj_mask"]))
+    np.testing.assert_array_equal(tcls.reshape(*shape, nC).numpy(), np.asarray(ref["tcls"]))
+    for i, k in enumerate(("tx", "ty", "tw", "th", "iou_scores", "class_mask")):
+        want = np.asarray(ref[k])
+        have = got[:, i].reshape(shape).numpy()
+        np.testing.assert_array_equal(have, want, err_msg=k)
+        np.testing.assert_array_equal(np.signbit(have), np.signbit(want), err_msg=k)
+    assert (np.asarray(ref["tcls"]).sum(-1) == 2).any() and obj.sum() < valid.sum()
 
 
 def test_head_grid_tensors_and_wh_iou_match_jax():

@@ -279,8 +279,13 @@ def test_trainstep_line_and_json(mini_cfg, capsys):
     assert list(rec) == ["batch", "size", "dtype", "tag", "ms_per_step", "img_per_s",
                          "host_enqueue_ms", "device"]
     assert rec["device"] == "cpu" and rec["ms_per_step"] > 0 and np.isfinite(rec["img_per_s"])
-    with pytest.raises(NotImplementedError, match="gather formulations"):
-        tool.main(["--warp-ab", "--device", "cpu"])
+    # --warp-ab: the per-row shear and the bilinear warp, then the step as the reference
+    rec = tool.main(["--warp-ab", "--model_def", mini_cfg, "--device", "cpu", "--batch", "2",
+                     "--size", "32", "--iters", "1"])
+    out = capsys.readouterr()
+    warps = [l.split()[1] for l in out.out.splitlines() if l.startswith("  warp ")]
+    assert warps == ["shear3_per_row", "bilinear"] and rec["size"] == 32
+    assert "# card: cpu" in out.err and "shear3_grouped" in out.err
 
 
 def test_trainstep_arms(mini_cfg, capsys):
@@ -292,7 +297,10 @@ def test_trainstep_arms(mini_cfg, capsys):
     assert [r["tag"] for r in tool.main(common + ["--s2d-ab"])] == ["stem=standard",
                                                                      "stem=s2d"]
     assert tool.bench_warp(2, 32, 1, "cpu") > 0
-    assert "warp shear3" in capsys.readouterr().out
+    assert tool.bench_warp(2, 32, 1, "cpu", warp="bilinear") > 0
+    out = capsys.readouterr()
+    assert "warp shear3" in out.out and "warp bilinear" in out.out
+    assert "targets=dense arms are left out" in out.err
 
 
 # -- bench_int8_block -----------------------------------------------------
@@ -362,3 +370,49 @@ def test_int8_block_run_on_cpu(capsys):
     assert "0 of 8192 levels differ" in capsys.readouterr().out
     assert tool.k3_bound(16, 13, 1024)[1] == "operations"
     assert tool.k3_bound(16, 208, 64)[1] == "bytes"
+
+
+# -- bench_bn_stats -------------------------------------------------------
+
+@pytest.mark.parametrize("batch,size", [(8, 416), (2, 320)])
+def test_bn_shapes_equal_jax_tool(batch, size):
+    tool, ref = _tool("bench_bn_stats_torch"), _tool("bench_bn_stats")
+    got = tool.bn_shapes(graphspec.yolov3_spec(), batch, size)
+    assert [(b, h, w, c) for b, c, h, w in got] == ref.bn_shapes(batch, size)
+    assert len(got) == 72
+
+
+def test_bn_stats_forms_run(mini_cfg, capsys):
+    tool = _tool("bench_bn_stats_torch")
+    out = tool.main(["--model_def", mini_cfg, "--batch", "2", "--size", "32", "--iters", "1",
+                     "--device", "cpu"])
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines() if l.startswith("{")]
+    assert [r["form"] for r in lines] == ["reduce", "matmul"] == list(out)
+    assert all(r["device_ms"] == "not measured" and r["device"] == "cpu" for r in lines)
+    assert out["matmul"]["loss"] == pytest.approx(out["reduce"]["loss"], rel=1e-3)
+
+
+# -- bench_s2d_down_b32 ---------------------------------------------------
+
+def _jax_s2d_keys():
+    """The keys of the JSON line tools/bench_s2d_down_b32.py prints per arm."""
+    fn = _function("bench_s2d_down_b32.py", "main")
+    node = next(n for n in ast.walk(fn) if isinstance(n, ast.Dict)
+                and any(getattr(k, "value", None) == "s2d_downsample" for k in n.keys))
+    return [k.value for k in node.keys]
+
+
+def test_s2d_down_arms_keys_and_launches(capsys):
+    """Both arms at full width on small tiles: the reference's keys first,
+    then the launches per call (0 on the CPU) and the device."""
+    tool = _tool("bench_s2d_down_b32_torch")
+    assert tool.main(["--batch", "2", "--iters", "1", "--repeats", "1", "--side", "96",
+                      "--size", "64", "--device", "cpu"]) == 0
+    out = capsys.readouterr()
+    rows = [json.loads(l) for l in out.out.splitlines()]
+    assert [r["s2d_downsample"] for r in rows] == [False, True]
+    for r in rows:
+        assert list(r) == _jax_s2d_keys() + ["launches_per_call", "device"]
+        assert r["device"] == "cpu" and r["ms_per_batch"] > 0
+        assert set(r["launches_per_call"].values()) == {0.0}
+    assert "# card: cpu" in out.err

@@ -20,10 +20,15 @@ also writes a ``torch.profiler`` Chrome trace of 4 steps there
 Arms, as the reference tool's: ``--s2d-ab`` (standard against s2d stem),
 ``--layout-ab`` (NHWC against planar, both with the s2d stem),
 ``--forms-ab`` (``bn_form`` reduce against matmul), ``--batch-sweep`` (b8,
-b16, b32 of planar + s2d), and ``--warp`` (the port's three-shear warp
-alone).  Not ported: ``--warp-ab``'s grouped-shear and bilinear
-formulations (TPU gather forms; the port has one warp) and ``--forms-ab``'s
-dense ``TARGETS_FORM`` (the port has the scatter form only).
+b16, b32 of planar + s2d), ``--warp-ab`` (the affine warp alone: the
+three-shear warp against the exact bilinear warp,
+``ops/augment.py:_affine_one``) and ``--warp`` (the three-shear warp
+alone).  The reference's ``--warp-ab`` has a third arm, the 16-row grouped
+shear, bit-exact to its per-row shear (``tests/test_augment.py:104``); the
+port's shear gathers per row, so its one shear arm is that per-row form.
+The reference's ``--forms-ab`` also crosses ``bn_form`` with its dense
+``TARGETS_FORM``, a TPU form the port does not have (ROADMAP.md, "Not
+ported, by rule").
 
 Run on the card:  python tools/bench_trainstep_torch.py [--batch 8] [--size 416]
                   [--iters 30] [--dtype bf16|f32] [--s2d-ab | --layout-ab | ...]
@@ -73,26 +78,30 @@ def _timed(fn, iters: int, dev):
     return ms, host * 1e3 / iters
 
 
-def bench_warp(B, S, iters, device="cuda"):
-    """The port's affine warp alone (``ops/augment.py:_affine_shear3``, three
-    shear passes) on B random S² float images, chained."""
+WARPS = {"shear3": "_affine_shear3", "bilinear": "_affine_one"}
+
+
+def bench_warp(B, S, iters, device="cuda", warp="shear3", label=None):
+    """One affine warp alone (``WARPS``: the port's three-shear warp, or the
+    exact bilinear warp) on B random S² float images, chained; ms a batch."""
     import torch
     from amyloid_yolo_tpu_torch.ops import augment as aug
     from amyloid_yolo_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
+    fn = getattr(aug, WARPS[warp])
     rng = np.random.RandomState(0)
     img = torch.from_numpy(rng.rand(B, S, S, 3).astype(np.float32)).to(dev)
     ang, tx, ty = (torch.from_numpy(rng.uniform(lo, hi, B).astype(np.float32)).to(dev)
                    for lo, hi in ((-20, 20), (-0.2, 0.2), (-0.2, 0.2)))
-    x = [aug._affine_shear3(img, ang, tx, ty)]
+    x = [fn(img, ang, tx, ty)]
 
     def once():
-        x[0] = aug._affine_shear3(x[0], ang, tx, ty)
+        x[0] = fn(x[0], ang, tx, ty)
         return x[0]
 
     dt, _ = _timed(once, iters, dev)
-    print(f"  warp {'shear3':18s} {dt:7.2f} ms/batch (b{B}@{S}) [{_device_name(dev)}]")
+    print(f"  warp {label or warp:18s} {dt:7.2f} ms/batch (b{B}@{S}) [{_device_name(dev)}]")
     return dt
 
 
@@ -163,7 +172,7 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     ap.add_argument("--warp-ab", action="store_true",
-                    help="not ported: raises (the port has one warp; see --warp)")
+                    help="A/B the affine warp alone: three-shear (per row) vs bilinear")
     ap.add_argument("--warp", action="store_true",
                     help="time the port's three-shear warp alone")
     ap.add_argument("--s2d-ab", action="store_true",
@@ -178,13 +187,11 @@ def main(argv=None):
                     help="darknet cfg to build the graph from (default: YOLOv3)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.warp_ab:
-        raise NotImplementedError(
-            "--warp-ab compares the reference's grouped-shear, per-row-shear and "
-            "bilinear warps, TPU gather formulations the port does not have; "
-            "--warp times the port's one warp (ROADMAP.md)")
 
+    from bench_torch import print_card
     from amyloid_yolo_tpu_torch.graphspec import from_cfg
+
+    print_card(args.device)
 
     spec = from_cfg(args.model_def) if args.model_def else None
     kw = dict(device=args.device, spec=spec)
@@ -198,6 +205,12 @@ def main(argv=None):
         return res
     if args.warp:
         bench_warp(B, S, n, args.device)
+    if args.warp_ab:
+        print("# the reference's shear3_grouped arm is bit-exact to its per-row shear; the "
+              "port's shear gathers per row, so it is the one shear arm here",
+              file=sys.stderr)
+        bench_warp(B, S, n, args.device, label="shear3_per_row")
+        bench_warp(B, S, n, args.device, warp="bilinear")
     if args.layout_ab:
         base = bench_step(B, S, n, dt, tag=" layout=nhwc", s2d_stem=True, **kw)
         planar = bench_step(B, S, n, dt, tag=" layout=planar", s2d_stem=True,
@@ -212,8 +225,8 @@ def main(argv=None):
               f"({base['ms_per_step'] / s2d['ms_per_step']:.3f}x)")
         return [base, s2d]
     if args.forms_ab:
-        print("# the reference's targets=dense arm is left out: the port has the scatter "
-              "targets form only", file=sys.stderr)
+        print("# the reference's targets=dense arms are left out: the port has the scatter "
+              "targets form only (ROADMAP.md)", file=sys.stderr)
         results = {bn: bench_step(B, S, n, dt, bn_form=bn, tag=f" bn={bn}", **kw)
                    for bn in ("reduce", "matmul")}
         base = results["reduce"]["ms_per_step"]

@@ -69,6 +69,15 @@ def busy_and_span(intervals) -> tuple:
     return busy, max(b for _, b in spans) - spans[0][0]
 
 
+def warmed_profile(activities):
+    """A ``torch.profiler.profile`` whose first step is a warm-up: the
+    caller runs the warm-up work, synchronises and calls ``prof.step()``
+    once, and only what follows is kept.  Tracing starts late on the card,
+    and a trace started cold may miss its first kernels."""
+    from torch.profiler import profile, schedule
+    return profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1))
+
+
 def summarize(path: str, top: int = 20, out=sys.stdout) -> dict:
     """Print the top ``top`` device operations by total time and the busy
     and idle shares; return them."""
