@@ -39,7 +39,7 @@ from .io.tissue import prefilter_tile_paths
 from .kernels.preprocess_kernel import resize_normalize
 from .models import darknet, heads
 from .ops import nms as nms_ops
-from .ops.boxes import rescale_boxes, rescale_from_tile_frame
+from .ops.boxes import rescale_boxes_batched, rescale_from_tile_frame
 from .ops.merge import merge_detections
 from .ops.preprocess import f32_from_bf16_input, preprocess_tiles
 from .parallel.mesh import Mesh, normalize_device, replicate, split_batch, to_device
@@ -485,7 +485,7 @@ class Detector:
             dets, valid, n_cand = nms_ops.non_max_suppression(
                 pred, self.conf_thres, self.nms_thres, self.capacity, pool=pool,
                 return_count=True)
-        dets = rescale_boxes(dets, self.model_size, self.tile_size, self.tile_size)
+        dets = rescale_boxes_batched(dets, self.model_size, self.tile_size, self.tile_size)
         return dets, valid, n_cand
 
     def account_overflow(self, n_valid: Optional[int] = None, n_cand=None) -> int:

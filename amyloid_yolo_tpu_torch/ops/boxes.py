@@ -73,11 +73,32 @@ def bbox_wh_iou(wh1: torch.Tensor, wh2: torch.Tensor) -> torch.Tensor:
     return inter / union
 
 
-def rescale_boxes(boxes: torch.Tensor, current_dim: int, orig_h: int,
-                  orig_w: int) -> torch.Tensor:
-    """Undo the square letterbox for fixed-size outputs (B, K, ≥4); the
-    batched counterpart of the reference's ``rescale_boxes``
-    (``utils/utils.py:36-50``), including its ``// 2`` floor on the pad."""
+def rescale_boxes(boxes: np.ndarray, current_dim: int, original_shape) -> np.ndarray:
+    """Undo the square letterbox on the host, for ragged per-image rows
+    (N, ≥4): the reference's ``rescale_boxes`` (``utils/utils.py:36-50``)
+    with its ``// 2`` floor on the pad.  ``original_shape`` is ``(h, w)``.
+    It returns a float64 copy (the input is never written); columns from 4
+    on pass through.  :func:`rescale_boxes_batched` is the batched tensor
+    form."""
+    boxes = np.array(boxes, dtype=np.float64, copy=True)
+    orig_h, orig_w = original_shape
+    pad_x = max(orig_h - orig_w, 0) * (current_dim / max(original_shape))
+    pad_y = max(orig_w - orig_h, 0) * (current_dim / max(original_shape))
+    unpad_h = current_dim - pad_y
+    unpad_w = current_dim - pad_x
+    boxes[:, 0] = ((boxes[:, 0] - pad_x // 2) / unpad_w) * orig_w
+    boxes[:, 1] = ((boxes[:, 1] - pad_y // 2) / unpad_h) * orig_h
+    boxes[:, 2] = ((boxes[:, 2] - pad_x // 2) / unpad_w) * orig_w
+    boxes[:, 3] = ((boxes[:, 3] - pad_y // 2) / unpad_h) * orig_h
+    return boxes
+
+
+def rescale_boxes_batched(boxes: torch.Tensor, current_dim: int, orig_h: int,
+                          orig_w: int) -> torch.Tensor:
+    """Undo the square letterbox for fixed-size outputs (B, K, ≥4) on their
+    device: the counterpart of the reference package's
+    ``ops/boxes.py:rescale_boxes_jnp``, with :func:`rescale_boxes`' ``// 2``
+    floor on the pad."""
     pad_x = max(orig_h - orig_w, 0) * (current_dim / max(orig_h, orig_w))
     pad_y = max(orig_w - orig_h, 0) * (current_dim / max(orig_h, orig_w))
     unpad_h = current_dim - pad_y
@@ -119,4 +140,4 @@ def rescale_from_tile_frame(dets: np.ndarray, tile_size: int,
 
 
 __all__ = ["xywh2xyxy", "xywh2xyxy_np", "xyxy2xywh_np", "bbox_iou", "bbox_iou_np",
-           "bbox_wh_iou", "rescale_boxes", "rescale_from_tile_frame"]
+           "bbox_wh_iou", "rescale_boxes", "rescale_boxes_batched", "rescale_from_tile_frame"]

@@ -63,6 +63,24 @@ def f32_from_bf16_input(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x.to(torch.float32) * 255.0) * RECIP_255
 
 
+def pad_to_square(x: torch.Tensor, pad_value: float = 0.0
+                  ) -> Tuple[torch.Tensor, Tuple[int, int, int, int]]:
+    """Centre-pad an HWC (or NHWC) tensor to a square on its own device,
+    any dtype; returns ``(img, (top, bottom, left, right))``, the reference
+    package's order, with the odd pixel below or to the right.
+    :func:`pad_amounts` gives the reference's (left, right, top, bottom),
+    and :func:`~amyloid_yolo_tpu_torch.io.datasets.pad_to_square_np` (the
+    reader's uint8 host path) returns its pads in that order too."""
+    h, w = x.shape[-3], x.shape[-2]
+    diff = abs(h - w)
+    p1, p2 = diff // 2, diff - diff // 2
+    pads = (p1, p2, 0, 0) if h <= w else (0, 0, p1, p2)
+    side = max(h, w)
+    out = x.new_full((*x.shape[:-3], side, side, x.shape[-1]), pad_value)
+    out[..., pads[0]:pads[0] + h, pads[2]:pads[2] + w, :] = x
+    return out, pads
+
+
 def pad_amounts(h: int, w: int) -> Tuple[int, int, int, int]:
     """(left, right, top, bottom) padding of the reference's ``pad_to_square``
     (``utils/datasets.py:26-28``): the odd pixel goes right or below."""
@@ -114,5 +132,5 @@ def normalize_crops(crops_u8: torch.Tensor, mean: torch.Tensor,
 
 
 __all__ = ["nearest_indices", "resize_nearest", "preprocess_tiles",
-           "f32_from_bf16_input", "RECIP_255", "pad_amounts", "crop256_window",
+           "f32_from_bf16_input", "RECIP_255", "pad_to_square", "pad_amounts", "crop256_window",
            "crop256", "batched_crop256", "normalize_crops"]

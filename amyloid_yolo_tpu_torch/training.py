@@ -20,14 +20,15 @@ on, ``ema``; :func:`~amyloid_yolo_tpu_torch.io.weights.load_pretrained`
 reads its weights.  The reference package's checkpoints are orbax
 directories, which the port does not read.
 
-In one process the save overlaps the next epoch, as the reference's single
-host (``training.py:372-459``): :meth:`Trainer.save_checkpoint` copies the
-state on its device and returns, a worker thread moves the copy to the host
-and writes it, and :meth:`Trainer.join_pending_save` waits for the write
-and raises its failure.  Each save joins the one before, and ``train``
-joins the last before it returns.  ``epoch_walls``' ``save_s`` is the
+In one process (a process group of one included) the save overlaps the
+next epoch, as the reference's single host (``training.py:372-459``):
+:meth:`Trainer.save_checkpoint` copies the state on its device and returns,
+a worker thread moves the copy to the host and writes it, and
+:meth:`Trainer.join_pending_save` waits for the write and raises its
+failure.  Each save joins the one before, and ``train`` joins the last
+before it returns.  ``epoch_walls``' ``save_s`` is the
 dispatch, and ``save_walls`` splits each save into its parts.
-Distributed, the save stays synchronous.
+Across processes, the save stays synchronous.
 
 Several devices (the reference's ``training.py:113-205``):
 
@@ -218,7 +219,7 @@ class Trainer:
         self.epoch_walls: list = []
         #: wall seconds of each save's parts: the join of the save before,
         #: the device copy, the worker's start; then, from the worker, its
-        #: copy to the host and the write (distributed: the write alone)
+        #: copy to the host and the write (across processes: the write alone)
         self.save_walls: list = []
         self._saved_epochs: list = []
         self._save_thread: Optional[threading.Thread] = None
@@ -351,19 +352,20 @@ class Trainer:
 
     def save_checkpoint(self, epoch: int) -> str:
         """Save the epoch's checkpoint and apply the retention rule; returns
-        its path.  In one process it returns before the write lands: the
-        pending save is joined, then parameters, Adam's state and the EMA
-        are copied on their device, and a worker thread moves the copy to
-        the host and writes it (:meth:`join_pending_save` waits for it).
-        The copy holds a second state on the device until it reaches the
-        host.  Distributed, it writes synchronously (reference
-        ``training.py:421-433``)."""
+        its path.  In one process, a group of one included, it returns
+        before the write lands: the pending save is joined, then parameters,
+        Adam's state and the EMA are copied on their device, and a worker
+        thread moves the copy to the host and writes it
+        (:meth:`join_pending_save` waits for it).  The copy holds a second
+        state on the device until it reaches the host.  Across processes,
+        it writes synchronously (reference ``training.py:379``,
+        ``:421-433``)."""
         path = self.checkpoint_path(epoch)
         best = self._best_epochs()  # as of the dispatch: the next epoch may change it
         walls = {"epoch": epoch}
         self.save_walls.append(walls)
         t0 = time.perf_counter()
-        if self._dist is not None:
+        if self.nproc > 1:
             self._write_checkpoint(path, _state_tree(self.state), epoch, best)
             walls["write_s"] = time.perf_counter() - t0
             return path

@@ -49,7 +49,14 @@ Phases (any failure exits non-zero; nothing is caught):
    version, a PyTorch library yardstick where one exists, and its bound
    (H100 SXM peaks: 989 TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s); K2 and
    K3 per stage at B=8 and B=32 with their launch plans (grid, blocks per
-   SM, waves, executed-work ratio) and achieved TFLOP/s or TOP/s;
+   SM, waves, executed-work ratio) and achieved TFLOP/s or TOP/s.  Every
+   trace behind a printed device-busy, idle-share or launch figure (here
+   and in phases 10, 11, 16, 17 and the BN tool of 18 (e)) is warmed (a
+   dropped warm-up step) and checked complete: it must keep a device record
+   for each launch call of the host but ``TRACE_UNRECORDED_PER_CALL`` a
+   Detector call or step (``trace_summary_torch.checked_trace``, taken
+   again up to ``TRACE_TRIES`` times, each try's counts printed);
+   phase 12 (d)'s device-only trace cannot be checked and says so;
 10. the folder path (``Detector.detect_folder``, the path of ``detect``): a
    temporary folder that PIL writes (37 synthetic stain tiles of 1536², one
    1536×1000 border tile, two near-blank tiles, one corrupt ``.jpg``); the
@@ -69,7 +76,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``detect_folder`` at B=8 and B=32 from the JPEGs on disk to the filtered
    boxes, beside the reader alone and ``Detector.__call__`` on the same
    tiles already on the card, and a ``torch.profiler`` trace of one B=8
-   folder run for the device's busy time and idle share;
+   folder run (one batch of it in the dropped warm-up step) for the
+   device's busy time and idle share;
 11. the training path, at the full width of ``yolov3_spec(num_classes=2)``
    at 416 on 1536² tiles, with the weights of phase 6: (a) one float32
    micro-step at B=2 (augment off) on the card and on the CPU — loss and new
@@ -89,9 +97,9 @@ Phases (any failure exits non-zero; nothing is caught):
    evaluating to the same AP in a fresh ``Trainer``; (e) the B=8 micro-step
    in float32 (TF32 off) and bf16 (median, min, max of 10 after 3) with a
    ``torch.profiler`` breakdown by part from a trace that kept a device
-   record for each of the host's launch calls (taken again until one did),
-   and one traced ``Trainer`` epoch's wall time, device busy time and idle
-   share;
+   record for each of the host's launch calls but one a step (taken again
+   until one did), and one traced ``Trainer`` epoch's wall time, device
+   busy time and idle share, held to the same rule;
 12. the serving path and the CLI, at the same width with the weights of
    phase 6: (a) ``cli export`` of the weights to a ``.pth`` that reads back
    equal; (b) a ``DetectionServer`` at the serve CLI's defaults (batch 16,
@@ -272,7 +280,15 @@ Phases (any failure exits non-zero; nothing is caught):
    ``tools/bench_trainstep_torch.py --warp-ab --forms-ab``,
    ``bench_bn_stats_torch.py`` and ``bench_s2d_down_b32_torch.py``, each
    in a process of its own: exit 0, their lines, the card named on
-   stderr;
+   stderr; (f) the last helpers: ``ops/preprocess.py:pad_to_square`` on the
+   card against ``np.pad``, bit for bit, uint8 HWC and NHWC and float32
+   with ``pad_value`` 0.5, the result left on the card; (d)'s host NMS rows
+   mapped to tile pixels by the host ``ops/boxes.py:rescale_boxes`` and by
+   ``rescale_boxes_batched`` on the card, within ``RESCALE_TOL``; and a
+   ``Trainer(distributed=True)`` in a one-process NCCL group, in a process
+   of its own, for one epoch of (c)'s set: its save overlapped (the
+   dispatch's and the worker's parts in ``save_walls``) and its file equal
+   to the live state;
 19. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
    every path above), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
@@ -300,7 +316,7 @@ sys.path.insert(0, os.path.join(REPO, "tools"))  # the measurement tools of phas
 
 from bench_int8_block_torch import k3_bound  # noqa: E402
 from mfu_torch import H100_BF16_TFLOPS, H100_HBM_TBPS  # noqa: E402
-from trace_summary_torch import warmed_profile  # noqa: E402
+from trace_summary_torch import checked_trace, warmed_profile  # noqa: E402
 
 PEAK_BF16_FLOPS = H100_BF16_TFLOPS * 1e12
 PEAK_BYTES = H100_HBM_TBPS * 1e12
@@ -314,6 +330,14 @@ SEED = 0
 K3_SCALES = (0.011, 0.017, 0.023)            # sx, s1, s_out of the reference tool
 CAA_TOL = 1e-3                               # classifier probabilities, card vs CPU f32
 FOLDER = dict(n_tiles=37, side=1536, border=(1000, 1536), blank=2)
+# A trace is complete when it kept a device record for each of the host's
+# launch calls but this many a Detector call or train micro-step: the
+# cudaMemsetAsync that one cuDNN convolution of each bf16 Detector call
+# makes left no device record in every trace (3 of 54 memset calls over
+# 3 calls, 5 of 90 over a 5-batch folder run, in each of 8 tries), as did
+# one launch call of each bf16 train step; int8_full calls and f32 steps
+# left none.
+TRACE_UNRECORDED_PER_CALL = 1
 
 
 def nvidia_smi_line() -> str:
@@ -352,17 +376,26 @@ def profile_detector(det, tiles, calls: int = 3, trace_path=None) -> dict:
     also writes the trace there as Chrome JSON.  One call runs first in the
     profiler's warm-up step, whose events it drops: tracing starts late on
     the card, and without it the first kernels of a trace may be missing
-    (the first K1 and 8 K2 launches of one call were, once, in phase 17)."""
+    (the first K1 and 8 K2 launches of one call were, once, in phase 17).
+    The trace must keep a device record for each launch call of the host
+    but ``TRACE_UNRECORDED_PER_CALL`` a call
+    (:func:`~trace_summary_torch.checked_trace`: taken again until it does,
+    each try's counts in ``trace_tries``)."""
     import torch
     from torch.profiler import ProfilerActivity
     from trace_summary_torch import busy_and_span
-    with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        det(tiles)
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(calls):
+
+    def take():
+        with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             det(tiles)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                det(tiles)
+            torch.cuda.synchronize()
+        return prof
+
+    prof, tries = checked_trace(take, unrecorded=TRACE_UNRECORDED_PER_CALL * calls)
     if trace_path:
         prof.export_chrome_trace(trace_path)
     events = [e for e in prof.events()
@@ -383,7 +416,7 @@ def profile_detector(det, tiles, calls: int = 3, trace_path=None) -> dict:
 
     return {"device_busy_ms": busy_us / calls / 1e3,
             "idle_share_traced": 1.0 - busy_us / span_us,
-            "launches_per_call": len(events) / calls,
+            "launches_per_call": len(events) / calls, "trace_tries": tries,
             "by_group": per_call(groups), "top_kernels": per_call(names, 6)}
 
 
@@ -607,7 +640,7 @@ def folder_phase(det, spec, params, card: str) -> dict:
     """Phase 10 (see the module docstring); returns its JSON record."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from amyloid_yolo_tpu_torch.detectors import Detector
     from amyloid_yolo_tpu_torch.domain import CAAFilter, _crop
@@ -755,14 +788,34 @@ def folder_phase(det, spec, params, card: str) -> dict:
                   f"host share {record[f'b{bs}']['host_share']:.4f} [{card}]", flush=True)
             del on_card, batches
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with contextlib.redirect_stdout(io.StringIO()):
-                t0 = time.perf_counter()
-                det.detect_folder(folder, batch_size=8, merge_boxes=True,
-                                  caa_filter=caa.filter_path)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        # the trace: one batch of the same run in the profiler's dropped
+        # warm-up step, then the whole folder, taken again until complete
+        walls = []
+
+        def take(warm):
+            with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    det.detect_folder(warm, batch_size=8, merge_boxes=True,
+                                      caa_filter=caa.filter_path)
+                    torch.cuda.synchronize()
+                    prof.step()
+                    t0 = time.perf_counter()
+                    det.detect_folder(folder, batch_size=8, merge_boxes=True,
+                                      caa_filter=caa.filter_path)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            return prof
+
+        with tempfile.TemporaryDirectory() as warm:
+            for p in readable[:8]:
+                shutil.copy(p, warm)
+            prof, tries = checked_trace(lambda: take(warm),
+                                        unrecorded=TRACE_UNRECORDED_PER_CALL * n_batches)
+        wall_ms = walls[-1]
+        # the warmed profile draws its step as a range on the device's
+        # timeline too: not a kernel, left out
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
         busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
         groups = {}
         for e in events:
@@ -772,11 +825,12 @@ def folder_phase(det, spec, params, card: str) -> dict:
             g[1] += e.time_range.elapsed_us() / 1e3
         record["traced_b8"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                                "idle_share": 1.0 - busy_ms / wall_ms,
-                               "device_launches": len(events),
+                               "device_launches": len(events), "trace_tries": tries,
                                "by_group": {k: {"launches": c, "ms": ms}
                                             for k, (c, ms) in sorted(groups.items())}}
-        print(f"detect_folder B=8 traced: wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms "
-              f"in {len(events)} launches, idle share {1.0 - busy_ms / wall_ms:.4f}; by group "
+        print(f"detect_folder B=8 traced (warmed; [records, launch calls] of each try "
+              f"{tries}): wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms in {len(events)} "
+              f"launches, idle share {1.0 - busy_ms / wall_ms:.4f}; by group "
               f"{json.dumps(record['traced_b8']['by_group'])} [{card}]", flush=True)
     return record
 
@@ -1000,13 +1054,11 @@ def trainer_run(spec, data: str, root: str, dev, size: int) -> dict:
 
 
 def step_times(spec, params, dev, rng, size: int, side: int, dtype, s2d_stem: bool = False,
-               bn_form: str = "reduce", launch_check: bool = False) -> dict:
+               bn_form: str = "reduce") -> dict:
     """(e): ms per B=8 micro-step (accumulation 2, augment on, inputs on the
     card) between CUDA events, 3 warm-up steps then 10 timed one by one;
-    ``s2d_stem`` and the BN form as phase 16 (d) sets them.  With
-    ``launch_check`` the trace must be complete (:func:`trace_complete`); an
-    incomplete one is taken again, up to ``TRACE_TRIES`` traces, all
-    recorded."""
+    ``s2d_stem`` and the BN form as phase 16 (d) sets them; and the step's
+    profile (:func:`profile_train_step`)."""
     import numpy as np
     import torch
     from amyloid_yolo_tpu_torch.models import darknet
@@ -1037,16 +1089,6 @@ def step_times(spec, params, dev, rng, size: int, side: int, dtype, s2d_stem: bo
         step(astate, *batch, gen, size)
         torch.cuda.synchronize()
         prof = profile_train_step(step, astate, batch, gen, size)
-        if launch_check and prof["device_busy_ms"] != "not measured":
-            tries = [prof]
-            while not trace_complete(prof) and len(tries) < TRACE_TRIES:
-                prof = profile_train_step(step, astate, batch, gen, size)
-                tries.append(prof)
-            prof["launches_and_calls_per_step_by_try"] = [
-                [p["launches_per_step"], p["launch_calls_per_step"]] for p in tries]
-            if not trace_complete(prof):
-                raise AssertionError(f"no trace of {TRACE_TRIES} kept a device record for every "
-                                     f"launch call: {prof['launches_and_calls_per_step_by_try']}")
     finally:
         darknet.BN_FORM = form
     return {"ms": ms, "median_ms": float(np.median(ms)), "min_ms": min(ms), "max_ms": max(ms),
@@ -1076,40 +1118,30 @@ def _train_group(scope: str, name: str) -> str:
     return "conv backward (other)" if conv else "BN and elementwise (backward)"
 
 
-# the host's calls that start device work, as the trace's CPU side records them
-LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemsetAsync", "cudaMemcpyAsync")
-# Even warmed, a trace can lose device records: of sixteen warmed 2- and
-# 4-step traces of the B=8 step, three 2-step ones kept 6.5-156 fewer
-# kernels a step than the host made launch calls, while those calls were
-# the same in every trace (7282.5 f32, 7033.5 bf16 a step).  One bf16
-# launch call a step leaves no device record in every trace.
-TRACE_TRIES = 8
-TRACE_UNRECORDED_PER_STEP = 1
-
-
-def trace_complete(prof: dict) -> bool:
-    """The trace kept a device record for every launch call of the host but
-    ``TRACE_UNRECORDED_PER_STEP`` a step."""
-    return (prof["launches_per_step"]
-            >= prof["launch_calls_per_step"] - TRACE_UNRECORDED_PER_STEP)
-
-
 def profile_train_step(step, astate, batch, gen, size: int, calls: int = 2) -> dict:
     """Device time by group over ``calls`` micro-steps (as many applies as
     steps without), from a ``torch.profiler`` trace after one warm-up step
     whose events are dropped: kernels launched inside the step's
     ``train/*`` ranges go to that part, the rest (the backward) by kernel
-    name."""
+    name.  The trace must keep a device record for each launch call of the
+    host but ``TRACE_UNRECORDED_PER_CALL`` a step
+    (:func:`~trace_summary_torch.checked_trace`; each try's counts in
+    ``trace_tries``)."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity
-    with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(astate, *batch, gen, size)
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(calls):
+
+    def take():
+        with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step(astate, *batch, gen, size)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                step(astate, *batch, gen, size)
+            torch.cuda.synchronize()
+        return prof
+
+    prof, tries = checked_trace(take, unrecorded=TRACE_UNRECORDED_PER_CALL * calls)
     events = prof.events()
     on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     # the profiler also draws each record_function range on the device's
@@ -1155,11 +1187,9 @@ def profile_train_step(step, astate, batch, gen, size: int, calls: int = 2) -> d
         by_name[e.name[:90]][0] += 1
         by_name[e.name[:90]][1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    launch_calls = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
-                       and e.name.startswith(LAUNCH_CALLS))
     return {"device_busy_ms": busy_us / calls / 1e3, "idle_share_traced": 1 - busy_us / span_us,
             "launches_per_step": len(device) / calls,
-            "launch_calls_per_step": launch_calls / calls,
+            "launch_calls_per_step": tries[-1][1] / calls, "trace_tries": tries,
             "by_group": {k: {"launches": c / calls, "ms": us / calls / 1e3}
                          for k, (c, us) in sorted(groups.items(), key=lambda kv: -kv[1][1])},
             "top_kernels": {k: {"launches": c / calls, "ms": us / calls / 1e3}
@@ -1171,7 +1201,10 @@ def traced_epoch(spec, data: str, root: str, dev, size: int) -> dict:
     """(e): one Trainer epoch (6 micro-batches, evaluation, checkpoint)
     under ``torch.profiler``, after a warm-up step whose events are dropped:
     its wall time (``train()`` returns after joining the checkpoint's
-    write), the device's busy time and the idle share."""
+    write), the device's busy time and the idle share.  The trace must keep
+    a device record for each launch call of the host but
+    ``TRACE_UNRECORDED_PER_CALL`` a micro-step; each try is a new
+    ``Trainer`` from the same seed (``trace_tries``: each try's counts)."""
     import torch
     from torch.profiler import ProfilerActivity
     from amyloid_yolo_tpu_torch.training import TrainConfig, Trainer
@@ -1179,20 +1212,28 @@ def traced_epoch(spec, data: str, root: str, dev, size: int) -> dict:
                       img_size=size, multiscale=True, augment=True, max_batches_per_epoch=6,
                       learning_rate=TRAIN_LR, checkpoint_dir=os.path.join(root, "ckpts_traced"),
                       logdir=os.path.join(root, "logs_traced"))
-    tr = Trainer(cfg, spec=spec, device=dev)
-    with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        warm_up_kernels(dev)
-        prof.step()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            tr.train()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    runs = []
+
+    def take():
+        tr = Trainer(cfg, spec=spec, device=dev)
+        with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm_up_kernels(dev)
+            prof.step()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                tr.train()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, tr.epoch_walls))
+        return prof
+
+    prof, tries = checked_trace(take, unrecorded=TRACE_UNRECORDED_PER_CALL
+                                * cfg.max_batches_per_epoch)
+    wall, epoch_walls = runs[-1]
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.is_user_annotation]
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e6
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
-            "launches": len(device), "epoch_walls": tr.epoch_walls}
+            "launches": len(device), "trace_tries": tries, "epoch_walls": epoch_walls}
 
 
 def training_phase(spec, params, card: str, dev, size: int = TRAIN_SIZE,
@@ -1217,7 +1258,7 @@ def training_phase(spec, params, card: str, dev, size: int = TRAIN_SIZE,
               f"{record['decoder']}", flush=True)
         record["trainer"] = trainer_run(spec, data, root, dev, size)
         for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            rec = step_times(spec, params, dev, rng, size, side, dtype, launch_check=True)
+            rec = step_times(spec, params, dev, rng, size, side, dtype)
             record[f"step_{name}"] = rec
             print(f"train micro-step B=8 {size} {name} (accumulation 2, augment on, inputs on "
                   f"the card): median {rec['median_ms']:.3f} ms, min {rec['min_ms']:.3f}, max "
@@ -1234,7 +1275,8 @@ def training_phase(spec, params, card: str, dev, size: int = TRAIN_SIZE,
               f"{steps_ms / 1e3:.3f} s (host share {1 - steps_ms / 1e3 / train_s:.3f}); traced "
               f"epoch (train + evaluation + checkpoint) wall {ep['wall_s']:.3f} s, device busy "
               f"{ep['device_busy_s']:.3f} s in {ep['launches']} launches, idle share "
-              f"{ep['idle_share']:.4f} [{card}]", flush=True)
+              f"{ep['idle_share']:.4f} ([records, launch calls] of each try "
+              f"{ep['trace_tries']}) [{card}]", flush=True)
         record["host_share_train_loop"] = 1 - steps_ms / 1e3 / train_s
     counts = launch_counts()
     print(f"training phase launches of K1/K2/K3: {counts}", flush=True)
@@ -1384,7 +1426,10 @@ def trace_device(start_s: float, seconds: float) -> dict:
     after a warm-up step whose events are dropped) of ``seconds`` of
     whatever runs on the card: the union of its kernels' and copies'
     intervals over the window's wall time, and device ms and launches by
-    group (:func:`kernel_group`; host-to-device copies apart)."""
+    group (:func:`kernel_group`; host-to-device copies apart).  The trace
+    records the device's activity alone, so it holds no launch calls of the
+    host to check it against: its record says ``"trace_complete":
+    "unchecked"``."""
     import torch
     from torch.profiler import ProfilerActivity
     from trace_summary_torch import busy_and_span
@@ -1396,9 +1441,11 @@ def trace_device(start_s: float, seconds: float) -> dict:
         time.sleep(seconds)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
     if not events:
-        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured",
+                "trace_complete": "unchecked"}
     busy_us, _ = busy_and_span((e.time_range.start, e.time_range.end) for e in events)
     groups = {}
     for e in events:
@@ -1409,6 +1456,7 @@ def trace_device(start_s: float, seconds: float) -> dict:
         g[1] += e.time_range.elapsed_us() / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
             "busy_share": busy_us / 1e3 / wall_ms, "device_launches": len(events),
+            "trace_complete": "unchecked",
             "by_group": {k: {"launches": c, "ms": ms} for k, (c, ms) in
                          sorted(groups.items(), key=lambda kv: -kv[1][1])}}
 
@@ -1701,7 +1749,8 @@ def serving_phase(spec, params, card: str, dev, size: int = 416,
                   f"{rec['batched_ratio']:.2f} [{card}]", flush=True)
             if trace is not None:
                 print(f"(d) trace of {trace['wall_ms']:.0f} ms of the raw load: device busy "
-                      f"{trace['device_busy_ms']} ms, share {trace.get('busy_share')}; by group "
+                      f"{trace['device_busy_ms']} ms, share {trace.get('busy_share')} "
+                      f"(\"trace_complete\": \"{trace['trace_complete']}\"); by group "
                       f"{json.dumps(trace.get('by_group'))} [{card}]", flush=True)
 
         # where a request's time goes, each part alone
@@ -3742,6 +3791,11 @@ SAVE_EMA = 0.999                    # (c): the EMA on, so the checkpoint holds a
 NMS_SHARE = 0.005                   # (d): the share of phase 6's rows above the threshold
 NMS_THRES = 0.4
 NMS_TOL = dict(box=0.1, score=1e-3)  # (d): tests/test_torch_detector.py:163
+PAD_CASES = (((1000, 1536, 3), "uint8", 0.0), ((2, 1536, 1000, 3), "uint8", 0.0),
+             ((1000, 1536, 3), "float32", 0.5))  # (f): pad_to_square, shape, dtype, value
+RESCALE_TOL = 1e-3                  # (f): px at 1536, float32 on the card against float64
+SAVE_CHILD_TIMEOUT_S = 120          # (f): the one-process group's Trainer
+OVERLAPPED_SAVE_KEYS = ["epoch", "host_copy_s", "join_s", "snapshot_s", "start_s", "write_s"]
 TOOL_ARGV = {                       # (e): each tool in a process of its own
     "bench_trainstep_torch.py": ["--warp-ab", "--forms-ab", "--iters", "3"],
     "bench_bn_stats_torch.py": ["--iters", "5"],
@@ -4125,11 +4179,11 @@ def matched_box_diff(a, b) -> float:
     return worst
 
 
-def host_nms_check(spec, params, dev, size: int, side: int, card: str) -> dict:
+def host_nms_check(spec, params, dev, size: int, side: int, card: str) -> tuple:
     """(d): phase 6's bf16 ``Detector`` maps of its first batch, decoded,
     through the device NMS (every candidate in its pool) and through
     ``non_max_suppression_np`` on the host copy, at one threshold: the same
-    detections within ``NMS_TOL``."""
+    detections within ``NMS_TOL``.  Returns the record and the host rows."""
     import numpy as np
     import torch
     from amyloid_yolo_tpu_torch.detectors import Detector
@@ -4172,6 +4226,143 @@ def host_nms_check(spec, params, dev, size: int, side: int, card: str) -> dict:
           f"(tolerance {NMS_TOL['score']}); the host loop {host_ms:.1f} ms [{card}]", flush=True)
     if not sum(kept) or box > NMS_TOL["box"] or score > NMS_TOL["score"]:
         raise AssertionError("(d) the host NMS mirror disagrees with the device NMS")
+    return rec, host
+
+
+def pad_checks(dev, card: str) -> dict:
+    """(f): ``ops/preprocess.py:pad_to_square`` on ``dev`` against ``np.pad``
+    of the same array, bit for bit, for each of ``PAD_CASES``; the result
+    stays on ``dev``."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.ops.preprocess import pad_to_square
+    rng = np.random.RandomState(SEED)
+    out = []
+    for shape, dtype, value in PAD_CASES:
+        x = (rng.randint(0, 256, shape) if dtype == "uint8" else rng.rand(*shape)).astype(dtype)
+        got, pads = pad_to_square(torch.from_numpy(x).to(dev), pad_value=value)
+        top, bottom, left, right = pads
+        want = np.pad(x, [(0, 0)] * (x.ndim - 3) + [(top, bottom), (left, right), (0, 0)],
+                      constant_values=value)
+        host = got.cpu().numpy()
+        same = (got.device.type == dev.type and host.dtype == want.dtype
+                and host.shape == want.shape and host.tobytes() == want.tobytes())
+        out.append({"shape": list(shape), "dtype": dtype, "pad_value": value,
+                    "pads": list(pads), "device": str(got.device), "bit_equal": same})
+    print(f"(f) pad_to_square on {dev.type} against np.pad, bit for bit: "
+          f"{json.dumps(out)} [{card}]", flush=True)
+    if not all(r["bit_equal"] for r in out):
+        raise AssertionError("(f) pad_to_square differs from np.pad or left the device")
+    return {"cases": out}
+
+
+def rescale_checks(rows, dev, size: int, side: int, card: str) -> dict:
+    """(f): (d)'s host NMS rows in the ``size`` frame mapped to tile pixels
+    by the host ``rescale_boxes`` (float64) and by ``rescale_boxes_batched``
+    on ``dev`` (float32, the rows padded to one length): the largest
+    difference in px, within ``RESCALE_TOL``, for the square tile and a
+    1000-row border tile."""
+    import numpy as np
+    import torch
+    from amyloid_yolo_tpu_torch.ops.boxes import rescale_boxes, rescale_boxes_batched
+    rows = [r for r in rows if r is not None]
+    k = max(len(r) for r in rows)
+    padded = np.zeros((len(rows), k, 7), np.float32)
+    for i, r in enumerate(rows):
+        padded[i, :len(r)] = r
+    on_dev = torch.from_numpy(padded).to(dev)
+    out = {}
+    for orig in ((side, side), (side * 1000 // 1536, side)):
+        got = rescale_boxes_batched(on_dev, size, *orig)
+        if got.device.type != dev.type:
+            raise AssertionError(f"(f) rescale_boxes_batched left {dev}")
+        got = got.cpu().numpy()
+        diff = max(float(np.abs(got[i, :len(r)] - rescale_boxes(r, size, orig)).max())
+                   for i, r in enumerate(rows))
+        out[f"{orig[0]}x{orig[1]}"] = diff
+    print(f"(f) rescale_boxes (host, float64) against rescale_boxes_batched ({dev.type}, "
+          f"float32) on (d)'s {sum(len(r) for r in rows)} host NMS rows, {size} -> tile "
+          f"pixels: max|diff| px {json.dumps(out)} (tolerance {RESCALE_TOL}) [{card}]",
+          flush=True)
+    if not all(d <= RESCALE_TOL for d in out.values()):
+        raise AssertionError("(f) the host and the batched rescale disagree")
+    return {"max_diff_px": out, "rows": sum(len(r) for r in rows)}
+
+
+SAVE_CHILD = ("import json, sys, chip_smoke; "
+              "print(json.dumps(chip_smoke.one_process_group_save(**json.loads(sys.argv[1]))))")
+
+
+def one_process_group_save(data: str, root: str, model_def: str, size: int,
+                           device: str) -> dict:
+    """(f)'s child process: a ``Trainer(distributed=True)`` in a process
+    group of one (NCCL on the card, gloo on the CPU) trains one epoch of
+    ``SAVE_SET`` with EMA and saves; returns its save's parts, and whether
+    the file equals the live state after ``train()`` joined the write."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from amyloid_yolo_tpu_torch.graphspec import from_cfg
+    from amyloid_yolo_tpu_torch.training import TrainConfig, Trainer
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = TrainConfig(data_config=data, epochs=1, batch_size=8, gradient_accumulations=1,
+                      img_size=size, multiscale=False, augment=True, learning_rate=TRAIN_LR,
+                      ema_decay=SAVE_EMA, checkpoint_dir=os.path.join(root, "ckpts"),
+                      logdir=os.path.join(root, "logs"), distributed=True,
+                      coordinator_address=f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, spec=from_cfg(model_def), device=device)
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr.train()
+    wall = time.perf_counter() - t0
+    got = torch.load(tr.checkpoint_path(0), map_location="cpu", weights_only=True)
+    rec = {"backend": dist.get_backend(), "world": dist.get_world_size(), "nproc": tr.nproc,
+           "device": str(tr.device), "trainer_wall_s": wall, "save_walls": tr.save_walls,
+           "epoch_walls": tr.epoch_walls,
+           "file_equals_state": same_bits(got, checkpoint_copy(tr))}
+    dist.destroy_process_group()
+    return rec
+
+
+def one_process_save_check(spec, dev, size: int, side: int, card: str, save_set: dict) -> dict:
+    """(f): :func:`one_process_group_save` in a process of its own: the
+    save overlapped (``OVERLAPPED_SAVE_KEYS`` in its ``save_walls``), its
+    file equal to the live state, in a group of one process."""
+    from amyloid_yolo_tpu_torch.graphspec import emit_cfg
+    with tempfile.TemporaryDirectory() as root:
+        data = write_train_set(root, SEED, side=side, **save_set)
+        model_def = os.path.join(root, "model.cfg")
+        with open(model_def, "w") as fh:
+            fh.write(emit_cfg(spec))
+        args = json.dumps({"data": data, "root": root, "model_def": model_def, "size": size,
+                           "device": "cuda" if dev.type == "cuda" else "cpu"})
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", SAVE_CHILD, args], cwd=REPO,
+                              capture_output=True, text=True, timeout=SAVE_CHILD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"(f) the one-process save exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    rec = json.loads(lines[-1])
+    rec["process_wall_s"] = wall
+    last = rec["save_walls"][-1]
+    dispatch_ms = (last.get("join_s", 0) + last.get("snapshot_s", 0)
+                   + last.get("start_s", 0)) * 1e3
+    rec["dispatch_ms"] = dispatch_ms
+    rec["write_ms"] = last["write_s"] * 1e3
+    print(f"(f) Trainer(distributed=True) in a {rec['backend']} group of {rec['world']} on "
+          f"{rec['device']}, one epoch, in a process of its own ({wall:.1f} s): save parts "
+          f"{sorted(last)}; dispatch {dispatch_ms:.2f} ms, the worker's host copy "
+          f"{last.get('host_copy_s', float('nan')) * 1e3:.1f} ms and write "
+          f"{rec['write_ms']:.1f} ms; the file equals the live state: "
+          f"{rec['file_equals_state']} [{card}]", flush=True)
+    if (rec["world"] != 1 or sorted(last) != OVERLAPPED_SAVE_KEYS
+            or not rec["file_equals_state"]):
+        raise AssertionError(f"(f) the one-process group did not overlap its save, or its "
+                             f"file is not the state: {rec}")
     return rec
 
 
@@ -4199,13 +4390,14 @@ def tool_checks(card_name: str, tool_argv) -> dict:
     tags = [r["tag"] for r in step["json"]]
     if warps != ["shear3_per_row", "bilinear"] or tags != ["bn=reduce", "bn=matmul"]:
         raise AssertionError(f"(e) bench_trainstep_torch.py printed warps {warps}, arms {tags}")
+    cuda = card_name != "cpu"
     bn = runs["bench_bn_stats_torch.py"]["json"]
-    if [r["form"] for r in bn] != ["reduce", "matmul"]:
+    if [r["form"] for r in bn] != ["reduce", "matmul"] or (
+            cuda and not all(isinstance(r["trace_tries"], list) for r in bn)):
         raise AssertionError(f"(e) bench_bn_stats_torch.py: {bn}")
     s2d = runs["bench_s2d_down_b32_torch.py"]["json"]
     if [r["s2d_downsample"] for r in s2d] != [False, True]:
         raise AssertionError(f"(e) bench_s2d_down_b32_torch.py: {s2d}")
-    cuda = card_name != "cpu"
     for r in s2d:
         want = {"resize_normalize": 1.0 * cuda, "fused_residual_block": 0.0,
                 "fused_residual_block_int8": 0.0}
@@ -4237,13 +4429,17 @@ def last_slice_phase(spec, params, card: str, dev, size: int = 416, side: int = 
     with tempfile.TemporaryDirectory() as root:
         record["save"] = overlapped_save(spec, dev, size, side, root, card,
                                          save_set or SAVE_SET)
-    record["nms"] = host_nms_check(spec, params, dev, size, side, card)
+    record["nms"], nms_rows = host_nms_check(spec, params, dev, size, side, card)
+    record["tools"] = tool_checks(card_name, tool_argv or TOOL_ARGV)
+    record["pad"] = pad_checks(dev, card)
+    record["rescale"] = rescale_checks(nms_rows, dev, size, side, card)
+    record["one_process_save"] = one_process_save_check(spec, dev, size, side, card,
+                                                        save_set or SAVE_SET)
     counts = launch_counts()
     record["launches"] = counts
     print(f"phase 18 launches in this process: {counts}", flush=True)
     if cuda and not (counts["resize_normalize"] and counts["fused_residual_block"]):
         raise AssertionError(f"phase 18 launched a kernel of its path no time: {counts}")
-    record["tools"] = tool_checks(card_name, tool_argv or TOOL_ARGV)
     record["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 18 wall {record['wall_s']:.1f} s [{card}]", flush=True)
     return record
@@ -4334,6 +4530,7 @@ def main() -> int:
     from amyloid_yolo_tpu_torch.models import darknet
 
     # 1. versions and card
+    starts = {"1-9": time.perf_counter()}  # each phase's start, for its wall
     card = nvidia_smi_line()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     print(f"card: {card}", flush=True)
@@ -4619,31 +4816,39 @@ def main() -> int:
               f"B=32 {sum(s['ms'] * s['units'] for s in k3_rows[32]):.4f} ms [{card}]")
 
     # 10. the folder path
+    starts["10"] = time.perf_counter()
     folder = folder_phase(det, spec, params, card)
     del det, full, int8_dets, units
 
     # 11. the training path
+    starts["11"] = time.perf_counter()
     training = training_phase(spec, params, card, dev)
 
     # 12. the serving path and the CLI
+    starts["12"] = time.perf_counter()
     serving = serving_phase(spec, params, card, dev)
     served = serving["correctness"]
 
     # 13. data parallelism
+    starts["13"] = time.perf_counter()
     parallel = parallel_phase(spec, params, card, dev)
     mesh_rec = parallel["mesh_detector"]
 
     # 14. spatial sharding
+    starts["14"] = time.perf_counter()
     spatial = spatial_phase(spec, params, card, dev)
 
     # 15. the study path
+    starts["15"] = time.perf_counter()
     study = study_phase(spec, params, card, dev)
 
     # 16. the layout options
+    starts["16"] = time.perf_counter()
     layout = layout_phase(spec, params, card, dev)
     int8_s2d = layout["int8_launches"]["s2d"]
 
     # 17. the bench and the measurement tools
+    starts["17"] = time.perf_counter()
     tools = bench_tools_phase(spec, params, card, dev, training)
     bench_calls = {**{f"bench {k}": v for k, v in tools["bench"]["launches_per_call"].items()},
                    **{f"cli bench {k}": v
@@ -4654,6 +4859,7 @@ def main() -> int:
                for r in tools["int8_block"]]
 
     # 18. the last modules of the JAX package
+    starts["18"] = time.perf_counter()
     last = last_slice_phase(spec, params, card, dev)
     s2d_tool = {f"s2d_downsample={r['s2d_downsample']}": r["launches_per_call"]
                 for r in last["tools"]["bench_s2d_down_b32"]}
@@ -4734,6 +4940,10 @@ def main() -> int:
          **tool_launches("fused_residual_block_int8"), "int8_block_tool": k3_tool},
     ]
     detector["int8_division_flips"] = int8_flips
+    ends = [*list(starts.values())[1:], time.perf_counter()]
+    walls = {k: round(e - t, 1) for (k, t), e in zip(starts.items(), ends)}
+    print(f"phase walls s {json.dumps(walls)}; the script "
+          f"{ends[-1] - starts['1-9']:.1f} s [{card}]", flush=True)
     print(json.dumps({"detector": detector, "card": card}))
     print(json.dumps({"folder": folder, "card": card}))
     print(json.dumps({"training": training, "card": card}))

@@ -8,7 +8,8 @@ the reference package's ``training.py:372-459``) on the CPU:
 * ``train()`` returns with no save in flight; retention
   (``keep_checkpoints``) and the files read back through
   ``io/weights.py:load_pretrained`` and ``path#ema``;
-* a distributed Trainer saves synchronously;
+* a Trainer across processes saves synchronously, and one in a process
+  group of one overlaps its save, as the reference (``training.py:379``);
 * ``save_walls`` times each save's parts.
 """
 
@@ -179,10 +180,25 @@ def test_train_joins_retains_and_files_read_back(dataset, tmp_path):
 
 def test_distributed_save_is_synchronous(dataset, tmp_path, monkeypatch):
     tr = _trainer(dataset, tmp_path)
-    tr._dist = object()  # a process group's Trainer
+    tr._dist, tr.nproc = object(), 2  # one rank of a two-process group
     started = []
     monkeypatch.setattr(threading.Thread, "start", lambda self: started.append(self))
     path = tr.save_checkpoint(4)
     assert not started and tr._save_thread is None
     assert list(tr.save_walls[-1]) == ["epoch", "write_s"]
+    _assert_same(torch.load(path, weights_only=True), _host_copy(tr))
+
+
+def test_one_process_group_save_is_overlapped(dataset, tmp_path, monkeypatch):
+    tr = _trainer(dataset, tmp_path)
+    tr._dist, tr.nproc = object(), 1  # a Trainer in a process group of one
+    gate = _gate_writes(tr, monkeypatch)
+    path = tr.save_checkpoint(4)
+    thread = tr._save_thread
+    assert thread is not None and thread.is_alive() and not os.path.exists(path)
+    gate.set()
+    tr.join_pending_save()
+    assert not thread.is_alive() and tr._save_thread is None
+    assert sorted(tr.save_walls[-1]) == ["epoch", "host_copy_s", "join_s", "snapshot_s",
+                                         "start_s", "write_s"]
     _assert_same(torch.load(path, weights_only=True), _host_copy(tr))

@@ -58,3 +58,25 @@ def test_k1_division_rule_is_exact_in_bf16():
 def test_k1_rejects_bad_input(bad):
     with pytest.raises(ValueError):
         resize_normalize(bad, 4)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("h,w", [(100, 160), (160, 100), (50, 50), (99, 100)])
+def test_pad_to_square_matches_jax(h, w, batch, dtype):
+    shape = (h, w, 3) if batch is None else (batch, h, w, 3)
+    x = np.random.RandomState(h * w).randint(1, 256, shape).astype(dtype)
+    want, want_pads = jax_pre.pad_to_square(jnp.asarray(x))
+    got, pads = port_pre.pad_to_square(torch.from_numpy(x))
+    assert got.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert pads == want_pads
+
+
+def test_pad_to_square_pad_value_matches_jax():
+    x = np.random.RandomState(5).rand(2, 99, 160, 3).astype(np.float32)
+    want, want_pads = jax_pre.pad_to_square(jnp.asarray(x), pad_value=0.5)
+    got, pads = port_pre.pad_to_square(torch.from_numpy(x), pad_value=0.5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert pads == want_pads == (30, 31, 0, 0)
+    assert (got[:, :30] == 0.5).all() and (got[:, 129:] == 0.5).all()

@@ -227,6 +227,66 @@ def test_trace_summary_exact_sums_and_busy_share(tmp_path, capsys, gz):
     assert tool.busy_and_span([(0, 4), (1, 2), (6, 7)]) == (5, 7)
 
 
+def _events(kernels: int, calls: int, annotations: int = 1):
+    """A profiler's events: ``kernels`` device records (a copy among them),
+    ``calls`` host launch calls, user ranges on the device and other host
+    events, none of which count."""
+    from types import SimpleNamespace as Ev
+    from torch.autograd import DeviceType
+    dev = [Ev(device_type=DeviceType.CUDA, is_user_annotation=False,
+              name="Memcpy HtoD (Pageable -> Device)" if i == 0 else f"k{i}")
+           for i in range(kernels)]
+    dev += [Ev(device_type=DeviceType.CUDA, is_user_annotation=True, name="train/forward")
+            for _ in range(annotations)]
+    names = ("cudaLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+    host = [Ev(device_type=DeviceType.CPU, is_user_annotation=False, name=names[i % 4])
+            for i in range(calls)]
+    host += [Ev(device_type=DeviceType.CPU, is_user_annotation=False, name=n)
+             for n in ("aten::conv2d", "cudaStreamSynchronize", "cudaMemcpy")]
+    return dev + host
+
+
+@pytest.mark.parametrize("traces,unrecorded,tries", [
+    ([(10, 10)], 0, 1),                    # complete at once
+    ([(7, 10), (10, 10)], 0, 2),           # lost three records, then whole
+    ([(8, 10), (7, 10), (9, 10)], 1, 3),   # one call may go unrecorded
+    ([(9, 10)], 1, 1),
+])
+def test_checked_trace_retakes_until_complete(traces, unrecorded, tries):
+    tool = _tool("trace_summary_torch")
+    taken = iter(traces)
+
+    class Prof:
+        def __init__(self, kernels, calls):
+            self._events = _events(kernels, calls)
+
+        def events(self):
+            return self._events
+
+    prof, counts = tool.checked_trace(lambda: Prof(*next(taken)), unrecorded=unrecorded)
+    assert counts == [list(t) for t in traces[:tries]]
+    assert tool.record_counts(prof.events()) == traces[tries - 1]
+
+
+def test_checked_trace_fails_after_its_tries():
+    tool = _tool("trace_summary_torch")
+    taken = []
+
+    class Prof:
+        def events(self):
+            return _events(5, 8)
+
+    def take():
+        taken.append(1)
+        return Prof()
+
+    with pytest.raises(AssertionError, match=r"no trace of 3 .* \[\[5, 8\], \[5, 8\], "
+                       r"\[5, 8\]\].*'call: cudaLaunchKernel': 2"):
+        tool.checked_trace(take, unrecorded=2, tries=3)
+    assert len(taken) == 3
+    assert tool.TRACE_TRIES == 8 and tool.trace_complete(5, 8, 3)
+
+
 # -- serve_bench ----------------------------------------------------------
 
 def _jax_out_keys():

@@ -14,9 +14,12 @@ whole shape set:
 
 Per form: the wall time a fwd+bwd iteration between CUDA events, and the
 device time from a ``torch.profiler`` trace of one iteration (a warm-up
-iteration first, its events dropped) with the six largest kernels.  Then
+iteration first, its events dropped) with the six largest kernels; the
+trace must keep a device record for each launch call of the host, and is
+taken again until it does (``trace_summary_torch.checked_trace``).  Then
 the two forms' losses side by side.  One JSON line per form (``form``,
-``wall_ms``, ``device_ms``, ``layers``, ``loss``, ``device``).  ``--device
+``wall_ms``, ``device_ms``, ``trace_tries``: ``[records, launch calls]``
+of each trace, ``layers``, ``loss``, ``device``).  ``--device
 cpu`` runs on the CPU: host clock, no device time ("not measured").
 
 The end-to-end A/B is ``tools/bench_trainstep_torch.py --forms-ab``.
@@ -91,24 +94,31 @@ def make_loss(form: str, gammas, betas):
 
 def device_time(fn, dev, top: int = 6):
     """Device ms of one ``fn()`` from a ``torch.profiler`` trace (a warm-up
-    call first, its events dropped: tracing starts late on the card), and
-    its ``top`` kernels by device ms."""
+    call first, its events dropped: tracing starts late on the card) that
+    kept a device record for each launch call, its ``top`` kernels by
+    device ms, and ``[records, launch calls]`` of each trace taken."""
     import torch
     from torch.profiler import ProfilerActivity
     if dev.type != "cuda":
-        return "not measured", []
-    from trace_summary_torch import warmed_profile
-    with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        fn()
-        torch.cuda.synchronize()
+        return "not measured", [], "not measured"
+    from trace_summary_torch import checked_trace, warmed_profile
+
+    def take():
+        with warmed_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+        return prof
+
+    prof, tries = checked_trace(take)
     tot = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
             tot[e.name[:90]] += e.time_range.elapsed_us()
-    return sum(tot.values()) / 1e3, [(k, us / 1e3) for k, us in tot.most_common(top)]
+    return (sum(tot.values()) / 1e3, [(k, us / 1e3) for k, us in tot.most_common(top)],
+            tries)
 
 
 def run(batch: int, size: int, iters: int, dtype: str = "bfloat16", device="cuda",
@@ -144,14 +154,15 @@ def run(batch: int, size: int, iters: int, dtype: str = "bfloat16", device="cuda
 
             fwd_bwd()
             wall = _wall_ms(fwd_bwd, iters, dev)
-            dev_ms, top = device_time(fwd_bwd, dev)
+            dev_ms, top, tries = device_time(fwd_bwd, dev)
             with torch.no_grad():
                 value = float(loss(xs))
-            rec = {"form": form, "wall_ms": wall, "device_ms": dev_ms, "layers": len(shapes),
-                   "loss": value, "device": name}
+            rec = {"form": form, "wall_ms": wall, "device_ms": dev_ms, "trace_tries": tries,
+                   "layers": len(shapes), "loss": value, "device": name}
             shown = f"{dev_ms:7.2f}" if isinstance(dev_ms, float) else dev_ms
             print(f"{form:8s} wall {wall:7.2f} ms/iter   device {shown} ms  (fwd stats + "
-                  f"normalize + full bwd, {len(shapes)} layers)", flush=True)
+                  f"normalize + full bwd, {len(shapes)} layers; [records, launch calls] of "
+                  f"each trace {tries})", flush=True)
             for kname, ms in top:
                 print(f"          {ms:8.3f} ms  {kname}")
             print(json.dumps(rec), flush=True)

@@ -9,6 +9,11 @@ The device's operations are the events of category ``kernel``,
 intervals (operations on several streams may overlap) and its window runs
 from the first one's start to the last one's end.
 
+Taking a trace: :func:`warmed_profile` drops a warm-up step (tracing
+starts late on the card), and :func:`checked_trace` takes a trace again
+until it kept a device record for each of the host's launch calls
+(:data:`LAUNCH_CALLS`), at most :data:`TRACE_TRIES` times.
+
 Usage:
     python tools/trace_summary_torch.py <trace.json[.gz] or directory> [N]
 
@@ -76,6 +81,65 @@ def warmed_profile(activities):
     and a trace started cold may miss its first kernels."""
     from torch.profiler import profile, schedule
     return profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1))
+
+
+# the host's calls that start device work, as a trace's CPU side records them
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemsetAsync", "cudaMemcpyAsync")
+# Even warmed, a trace can lose device records: of sixteen warmed 2- and
+# 4-step traces of the B=8 train step on an H100, three 2-step ones kept
+# 6.5-156 fewer kernels a step than the host made launch calls, while those
+# calls were the same in every trace.
+TRACE_TRIES = 8
+
+
+def record_counts(events) -> tuple:
+    """``(device records, launch calls)`` among a profiler's events: the
+    kernels, copies and fills on the device (the user ranges the profiler
+    also draws there left out), and the host's calls of ``LAUNCH_CALLS``."""
+    from torch.autograd import DeviceType
+    records = calls = 0
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            records += not e.is_user_annotation
+        elif e.device_type == DeviceType.CPU and e.name.startswith(LAUNCH_CALLS):
+            calls += 1
+    return records, calls
+
+
+def trace_complete(records: int, calls: int, unrecorded: int = 0) -> bool:
+    """The trace kept a device record for every launch call of the host but
+    ``unrecorded``."""
+    return records >= calls - unrecorded
+
+
+def checked_trace(take, unrecorded: int = 0, tries: int = TRACE_TRIES):
+    """Call ``take()``, which takes one trace and returns the finished
+    profiler, until the trace is complete (:func:`trace_complete`), at most
+    ``tries`` times.  Returns that profiler and ``[records, calls]`` of
+    every try; raises ``AssertionError`` when no try was complete."""
+    counts = []
+    for _ in range(tries):
+        prof = take()
+        counts.append(list(record_counts(prof.events())))
+        if trace_complete(*counts[-1], unrecorded):
+            return prof, counts
+    raise AssertionError(f"no trace of {tries} kept a device record for every launch call "
+                         f"but {unrecorded}: [records, calls] {counts}; the last by kind "
+                         f"{record_kinds(prof.events())}")
+
+
+def record_kinds(events) -> dict:
+    """The device records by kind (kernel, or the copy's or fill's name) and
+    the host's launch calls by name: where a trace lost records."""
+    import collections
+    from torch.autograd import DeviceType
+    kinds = collections.Counter()
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            kinds["record: " + (e.name[:40] if e.name.startswith("Mem") else "kernel")] += 1
+        elif e.device_type == DeviceType.CPU and e.name.startswith(LAUNCH_CALLS):
+            kinds["call: " + e.name] += 1
+    return dict(kinds)
 
 
 def summarize(path: str, top: int = 20, out=sys.stdout) -> dict:
