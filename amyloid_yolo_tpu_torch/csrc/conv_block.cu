@@ -19,38 +19,60 @@
 //      shifted row addresses per pixel), then the f32 epilogue adds b2,
 //      applies leaky, adds the residual x in f32 and rounds to bf16.
 //
-// Both convs are implicit GEMMs on the tensor cores through
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate).  Eight warps each own a
-// 64-pixel tile 32 or 64 channels wide (8*NT) of a block tile BM x BN.  K
-// advances in slices through a ring of shared-memory stages fed by
-// cp.async.cg (16-byte copies by all 256 threads, commit_group /
-// wait_group, one __syncthreads per slice): each weight slice is copied
-// once per block and read by every warp, and in the 1x1 the x pixels go
-// through the same ring (zero-filled past the tile's last pixel).  The 1x1
-// ring holds 3 stages of A + B in 32-channel slices (4 with 64-channel
-// warps); the 3x3 reuses its
-// bytes for 3 to 8 stages of B alone, in 64-channel slices (32 when C/2 is
-// 32).  Ring rows carry 8 bf16 of padding and hidden pixels C/2 + 8 bf16, so
-// the ldmatrix.x4 loads of both operands are free of bank conflicts.  m16
-// tiles past the tile's pixels and warps whose channels lie past the 1x1's
-// C/2 issue no MMA.  Where shared memory leaves room for two blocks an SM,
-// the kernel is built for two (128 registers a thread); otherwise for one,
-// which double-buffers its fragments across 16-deep steps or takes the
+// Both convs are implicit GEMMs on the tensor cores, bf16 in, f32
+// accumulate, with K advancing in slices through a ring of shared-memory
+// stages fed by cp.async.cg (16-byte copies by all 256 threads,
+// commit_group / wait_group, one __syncthreads per slice): each weight
+// slice is copied once per block and read by every warp.  The ring sits at
+// offset 0 of dynamic shared memory (1024-byte aligned), the hidden tile
+// after it.  A block is 8 warps over a block tile BM x BN (kernels/
+// conv_block.py:Plan); which warp owns what differs by phase.
+//
+//   The 1x1 (phase 1) runs mma.sync.m16n8k16 fed by ldmatrix: each warp
+//   owns a 64-pixel tile 32 or 64 channels wide (8*NT), and the x pixels go
+//   through the ring beside the weights (3 stages of A + B in 32-channel
+//   slices, 4 with 64-channel warps; rows of 40 bf16, 8 of them padding, so
+//   ldmatrix is free of bank conflicts; zero-filled past the tile's last
+//   pixel).  m16 tiles past the tile's pixels and warps whose channels lie
+//   past C/2 issue no MMA.
+//
+//   The 3x3 (phase 2) of every unit whose C/2 is a multiple of 64 (22 of
+//   YOLOv3-416's 23 units) runs wgmma.mma_async (sm_90a).  The two
+//   warpgroups each own half the block tile's rows and all BN channels, as
+//   BM/128 products m64nBNk16 per 16-deep step; warp w of a warpgroup holds
+//   rows 16*(w%4)..+15 of each m64 block, as many f32 accumulators a thread
+//   as the 1x1's warp tile.  A comes from registers: one ldmatrix.x4 from
+//   the hidden tile per m64 block and step, through the nine shifted row
+//   addresses (rows past the tile's pixels read the zero pixel, compute
+//   throw-away rows and are stored nowhere; every m64 block issues, even
+//   one wholly past them).  B comes from the ring through a descriptor:
+//   64-channel slices of BN rows of 128 bytes, K-major, in the 128-byte
+//   swizzle (16-byte chunk q of row n at chunk q ^ (n % 8)), 3 to 8
+//   stages; each 16-deep step advances the descriptor 32 bytes inside the
+//   swizzle atom.  Per slice: wgmma.fence, the wgmmas, commit_group and
+//   wait_group 0 before the ring's barrier (each thread fences its landed
+//   copies to the async proxy first).  The 208^2 x 64 unit (C/2 = 32,
+//   32-channel slices) keeps the mma.sync 3x3 of the 1x1's warp tiles,
+//   with rows padded by 8 bf16.  Which 3x3 runs is fixed by C/2 alone
+//   (dispatch); nothing falls back at run time.
+//
+// Where shared memory leaves room for two blocks an SM, the kernel is built
+// for two (128 registers a thread); otherwise for one, which
+// double-buffers the mma.sync fragments across 16-deep steps or takes the
 // 64-channel warp tile (fewer ldmatrix per MMA).
 //
 // Bound on an H100: compute for the units of 128 channels and more
 // (20*H*W*C*C/2 FLOPs per image, 1.77 GFLOP at every stage of YOLOv3-416:
 // ~1.8 us at 989 TFLOP/s); the 208^2 x 64 unit is memory-bound (4*H*W*C
-// bytes per image, ~3.3 us).  mma.sync reaches only part of the tensor
-// cores' rate on Hopper; the full rate needs wgmma, with B in a 128-byte-
-// swizzled ring fed by TMA and A from registers (these ldmatrix fragments).
-// On this version the MMAs are not the limit: a build without them takes
-// most of the time of a launch (the warps' instruction stream of ldmatrix,
-// addressing, barriers and copies; PERF.md).  wgmma moves the fragment
-// loads off that stream.  That, and a thread-block cluster that shares
-// the 1x1 of the 512- and 1024-channel units through distributed shared
-// memory instead of each output-channel tile recomputing it, is the next
-// step (ROADMAP.md).
+// bytes per image, ~3.3 us).  On the mma.sync version of the 3x3 the MMAs
+// were not the limit: a build without them took most of the time of a
+// launch (the warps' instruction stream of ldmatrix, addressing, barriers
+// and copies; PERF.md).  wgmma takes the B fragments and most MMA issue off
+// that stream: per 64-deep slice a warp issues 4 ldmatrix.x4 per m64 block
+// and its warpgroup 4 wgmma per block.  Still to come (ROADMAP.md): a
+// wgmma group in flight across slices, TMA with mbarriers and a producer
+// warp, wgmma in the 1x1, and a thread-block cluster that shares the 1x1 of
+// the 512- and 1024-channel units through distributed shared memory.
 #include <cuda_bf16.h>
 
 #include "mma_ring.cuh"
@@ -75,11 +97,12 @@ struct Tile {
   static_assert(kWN * kWM == kWarps, "tile");
 };
 
-// 3x3 ring: slices of KS channels in rows of KS + 8, as many stages as the
-// ring holds (at most 8)
+// 3x3 ring: slices of KS channels, as many stages as the ring holds (at
+// most 8).  64-channel slices feed wgmma: rows of 128 bytes, unpadded, in
+// the 128-byte swizzle; 32-channel slices feed ldmatrix, in rows of KS + 8.
 template <int BN, int S1, int KS, int NT>
 struct Ring2 {
-  static constexpr int kRow = KS + 8;
+  static constexpr int kRow = KS == 64 ? KS : KS + 8;
   static constexpr int n = Tile<BN, S1, NT>::kRing / (BN * kRow);
   static constexpr int kStages = n < 8 ? n : 8;
   static_assert(kStages >= 3, "ring");
@@ -111,6 +134,106 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// ---- wgmma (sm_90a), for the 3x3
+
+// Shared-memory descriptor of a K-major operand in the 128-byte swizzle:
+// rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO), the atom 1024-byte
+// aligned; LBO is unused for this layout (1).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma (no instruction).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define D4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
+#define D16(i) D4(i), D4((i) + 4), D4((i) + 8), D4((i) + 12)
+#define D32(i) D16(i), D16((i) + 16)
+#define D64(i) D32(i), D32((i) + 32)
+#define D128(i) D64(i), D64((i) + 64)
+
+// d += A (64 x 16, this warp's 16 rows in a: the m16n8k16 A fragment) x B
+// (16 x N from the descriptor b, K-major), f32 accumulate.  d[4j + e] is
+// element e of n8 tile j in mma.sync's accumulator layout: row g (e < 2) or
+// g + 8 of the warp's 16, column 8j + 2*(lane % 4) + e % 2.
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : D64(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : D128(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+#undef D4
+#undef D16
+#undef D32
+#undef D64
+#undef D128
 
 template <int NT>
 using Acc = float[kMT][NT][4];
@@ -190,11 +313,12 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_residual_block_kernel(co
   constexpr bool DB = MINB == 1 && NT == 4;  // registers to spare: double-buffer fragments
   using T = Tile<BN, S1, NT>;
   constexpr int BM = T::kBM;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* hid = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  // the ring at offset 0 (its 3x3 slots 1024-byte aligned for the swizzle),
+  // then the hidden tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* hid = ring + T::kRing;
   const int cs = p.C2 + kPad;  // hidden pixel stride
-  __nv_bfloat16* ring =
-      hid + (min(p.strip + 2, p.H) * min(p.col_tile + 2, p.W) + 1) * cs;
 
   int t = blockIdx.x;
   const int oc0 = (t % p.n_oc) * p.oc_tile;
@@ -302,7 +426,126 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_residual_block_kernel(co
   }
 
   // ---- phase 2: y = x + leaky(conv3x3(hidden) + b2) over the tile
-  {
+  if constexpr (KS2 == 64) {  // on wgmma
+    using R = Ring2<BN, S1, KS2, NT>;
+    constexpr int MB = BM / 128;               // m64 blocks of a warpgroup
+    constexpr int kSlot = BN * KS2, kB = BN * (KS2 / 8) / kThreads;
+    constexpr int kEp = 8;                     // n8 tiles per epilogue chunk
+    const int kpt = p.C2 / KS2;                // k-slices per tap
+    const int ncn = p.oc_tile / BN;
+    const int steps = (m2 + BM - 1) / BM * ncn * 9 * kpt;
+    const int wg = warp >> 2, wr = warp & 3;   // warpgroup, warp in it
+    Cursor lc, cc;
+    auto load = [&](int slot) {
+      const __nv_bfloat16* src =
+          p.w2t + ((long long)lc.tap * p.C + oc0 + lc.nc * BN) * p.C2 + lc.k * KS2;
+      __nv_bfloat16* sb = ring + slot * kSlot;
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        const int row = i >> 3, q = i & 7;  // 16-byte chunk q of weight row `row`
+        cp_async16(smem_u32(sb + row * KS2 + ((q ^ (row & 7)) << 3)),
+                   src + (long long)row * p.C2 + q * 8, true);
+      }
+      lc.next(kpt, 9, ncn);
+    };
+    float acc2[MB][BN / 2];
+    int prow[MB], pcol[MB];  // image pixel of this lane's A row, per m64 block
+    uint32_t a[MB];
+    auto compute = [&](int slot) {
+      const int mrow = cc.mc * BM + wg * (BM / 2);  // the warpgroup's first row
+      const int nbase = oc0 + cc.nc * BN;
+      if (cc.k == 0 && cc.tap == 0) {
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc2[mb][i] = 0.f;
+          const int q = mrow + mb * 64 + wr * 16 + (lane & 15);
+          const int r = q / cols;
+          prow[mb] = q < m2 ? r0 + r : -8;  // -8: every tap reads the zero pixel
+          pcol[mb] = c0 + q - r * cols;
+        }
+      }
+      if (cc.k == 0) {
+        const int di = cc.tap / 3 - 1, dj = cc.tap % 3 - 1;
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          const int hr = prow[mb] + di, hc = pcol[mb] + dj;
+          const bool in = hr >= 0 && hr < p.H && hc >= 0 && hc < p.W;
+          const int idx = in ? (hr - hr0) * nhc + hc - hc0 : m1;
+          a[mb] = smem_u32(hid + idx * cs + (lane >> 4) * 8);
+        }
+      }
+      // Every m64 block issues, those wholly past the tile's pixels too (on
+      // the zero pixel, stored nowhere): ptxas serializes a wgmma under a
+      // branch that it cannot prove the same for the whole warpgroup.
+      uint32_t af[MB][KS2 / 16][4];
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int kk = 0; kk < KS2 / 16; ++kk)
+          ldmatrix_x4(af[mb][kk], a[mb] + (cc.k * KS2 + kk * 16) * 2);
+      const uint64_t desc = sw128_desc(smem_u32(ring + slot * kSlot));
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) fence_acc(acc2[mb]);
+      wgmma_fence();
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int kk = 0; kk < KS2 / 16; ++kk)
+          Wgmma<BN>::mma(acc2[mb], af[mb][kk], desc + 2 * kk);  // +32 bytes a step
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) fence_acc(acc2[mb]);
+      if (cc.k == kpt - 1 && cc.tap == 8) {
+        // per m64 block and 64 channels, every load of the residual first,
+        // then the stores (y may alias x as far as the compiler knows)
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          if (mrow + mb * 64 >= m2) continue;
+          long long off[2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int q = mrow + mb * 64 + wr * 16 + hh * 8 + g;
+            const int r = q / cols;
+            off[hh] = q < m2 ? ((img * p.H + r0 + r) * p.W + c0 + q - r * cols) * (long long)p.C
+                                 + nbase + 2 * tq
+                             : -1;
+          }
+#pragma unroll
+          for (int n0 = 0; n0 < BN / 8; n0 += kEp) {
+            float2 bias[kEp];
+            __nv_bfloat162 xv[2][kEp];
+#pragma unroll
+            for (int ni = 0; ni < kEp; ++ni)
+              bias[ni] = *reinterpret_cast<const float2*>(p.b2 + nbase + (n0 + ni) * 8 + 2 * tq);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int ni = 0; ni < kEp; ++ni)
+                if (off[hh] >= 0)
+                  xv[hh][ni] =
+                      *reinterpret_cast<const __nv_bfloat162*>(p.x + off[hh] + (n0 + ni) * 8);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              if (off[hh] < 0) continue;
+#pragma unroll
+              for (int ni = 0; ni < kEp; ++ni) {
+                const float v0 = leaky(acc2[mb][(n0 + ni) * 4 + hh * 2 + 0] + bias[ni].x);
+                const float v1 = leaky(acc2[mb][(n0 + ni) * 4 + hh * 2 + 1] + bias[ni].y);
+                *reinterpret_cast<__nv_bfloat162*>(p.y + off[hh] + (n0 + ni) * 8) =
+                    __floats2bfloat162_rn(__bfloat162float(xv[hh][ni].x) + v0,
+                                          __bfloat162float(xv[hh][ni].y) + v1);
+              }
+            }
+          }
+        }
+      }
+      cc.next(kpt, 9, ncn);
+    };
+    pipeline<R::kStages, true>(steps, load, compute);
+  } else {  // C/2 = 32 mod 64: the mma.sync 3x3 on the 1x1's warp tiles
     using R = Ring2<BN, S1, KS2, NT>;
     constexpr int kRow = R::kRow, kSlot = BN * kRow, kB = BN * (KS2 / 8) / kThreads;
     const int kpt = p.C2 / KS2;  // k-slices per tap
@@ -436,7 +679,9 @@ int run32(const Args& a, int blocks, int smem, cudaStream_t stream) {
 
 // The kernel for (warp_n, bn, C/2, smem).  64-channel warps (C/2 a multiple
 // of 64, bn 128 or 256) run one block an SM; 32-channel warps take bn 64 or
-// 128.
+// 128.  The 3x3 follows C/2 alone: a multiple of 64 takes 64-channel slices
+// and wgmma, any other 32-channel slices and mma.sync
+// (kernels/conv_block.py:conv3x3_path).
 int dispatch(const Args& a, int warp_n, int bn, int blocks, int smem, cudaStream_t stream) {
   constexpr int S64 = ring_stages(64);
   const bool k64 = a.C2 % 64 == 0;

@@ -65,8 +65,10 @@ struct Cursor {
 // next slice's copies into a slot, compute(slot) consumes the next slice.
 // One barrier per slice: after it, slice s has landed for every thread and
 // every warp is done with slice s - 1, whose slot the load of slice
-// s + S - 1 reuses.
-template <int S, class Load, class Compute>
+// s + S - 1 reuses.  With kAsyncRead the slices are read through the async
+// proxy (wgmma's shared-memory operands): each thread fences its landed
+// copies to that proxy before the barrier.
+template <int S, bool kAsyncRead = false, class Load, class Compute>
 __device__ __forceinline__ void pipeline(int steps, Load&& load, Compute&& compute) {
 #pragma unroll 1
   for (int s = 0; s < S - 1; ++s) {
@@ -77,6 +79,7 @@ __device__ __forceinline__ void pipeline(int steps, Load&& load, Compute&& compu
 #pragma unroll 1
   for (int s = 0; s < steps; ++s) {
     cp_async_wait<S - 2>();
+    if constexpr (kAsyncRead) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     if (s + S - 1 < steps) load(ls);
     cp_async_commit();

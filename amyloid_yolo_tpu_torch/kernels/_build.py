@@ -55,6 +55,11 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    return _target(name)
+
+
 def _start(name: str):
     """Start ``nvcc`` for ``name`` unless its library exists; returns
     ``(process, tmp_path, target)`` or ``None``."""
@@ -108,4 +113,4 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-__all__ = ["build_all", "load", "check", "BUILD_DIR", "CSRC", "SOURCES"]
+__all__ = ["build_all", "load", "check", "library_path", "BUILD_DIR", "CSRC", "SOURCES"]

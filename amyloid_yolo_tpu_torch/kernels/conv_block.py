@@ -14,10 +14,13 @@ strip of output rows, range of output columns, range of output channels):
 it computes the 1×1 of the tile's pixels plus their one-pixel halo into
 shared memory (halo pixels outside the image are not stored; one zero
 pixel stands for them), then the 3×3 from there, both as implicit GEMMs on
-the tensor cores (``mma.sync`` bf16 → f32, fragments loaded with
-``ldmatrix``).  Weight k-slices, and in the 1×1 the ``x`` pixels, stream
-through a ring of 3–8 shared-memory stages fed by ``cp.async``, each slice
-loaded once per block and read by all eight warps.
+the tensor cores, bf16 → f32.  Weight k-slices, and in the 1×1 the ``x``
+pixels, stream through a ring of 3–8 shared-memory stages fed by
+``cp.async``, each slice loaded once per block and read by all eight warps.
+The 1×1 runs ``mma.sync`` on ``ldmatrix`` fragments.  The 3×3 runs
+``wgmma`` (A from ``ldmatrix`` fragments in registers, B from the ring in
+the 128-byte swizzle) where C/2 is a multiple of 64, and ``mma.sync``
+otherwise (the 208² × 64 unit): :func:`conv3x3_path`, by shape alone.
 
 :func:`plan_launch` picks the tiling from (B, H, W, C): strip, column
 range, output-channel tile, warp width (32 or 64 channels), block tile
@@ -38,9 +41,11 @@ table of measured tilings.
 Bound on an H100, per launch: ``max(B·20·H·W·C·C/2 / 989 TFLOP/s,
 (B·4·H·W·C + 20·C·C/2) B / 3.35 TB/s)`` — compute for the units of 128
 channels and more, memory for the 208² × 64 unit.  ``mma.sync`` with
-``ldmatrix`` fragments stays far from it: the warps' instruction stream
-(fragment loads, addressing, barriers), not the MMAs, takes most of a
-launch.  ``wgmma`` with B in a TMA-fed ring is the next step (ROADMAP.md).
+``ldmatrix`` fragments stayed far from it: the warps' instruction stream
+(fragment loads, addressing, barriers), not the MMAs, took most of a
+launch; ``wgmma`` in the 3×3 takes the B fragments and most MMA issue off
+that stream.  TMA, a producer warp and ``wgmma`` in the 1×1 are the next
+steps (ROADMAP.md).
 
 :func:`fused_residual_block` launches the kernel for a CUDA tensor (bf16,
 C a multiple of 64, 16-byte aligned) and counts the launch in
@@ -69,8 +74,9 @@ MAX_STRIP = 8
 # The kernels' geometry (csrc/conv_block.cu, csrc/int8_block.cu): 8 warps,
 # each owning a 64-pixel tile 32 or 64 channels wide; a ring of 64-byte
 # k-slices in rows of 80 bytes (so ldmatrix is free of bank conflicts) for
-# the 1x1, whose bytes the 3x3 reuses for deeper slices; hidden pixels
-# padded by 16 bytes.  32-channel warps run two blocks an SM where shared
+# the 1x1, whose bytes the 3x3 reuses for deeper slices (K2's wgmma 3x3:
+# unpadded 128-byte rows in the 128-byte swizzle); hidden pixels padded by
+# 16 bytes.  32-channel warps run two blocks an SM where shared
 # memory allows (128 registers a thread); 64-channel warps one, in block
 # tiles 128 or 256 channels wide, with a 4-stage ring.
 WARPS = 8
@@ -91,7 +97,7 @@ MAX_COL_TILES = 8
 # :func:`fit_cost_model` to the H100 times in ``PLAN_TIMES`` of every tiling
 # that :func:`plan_launch` weighs at the five stages of YOLOv3-416, B=8 and
 # 32 (``bench_k2.py --plans`` measures them).
-COST_MODEL = (2.343e12, 2.343e12, 0.5373e-6, 0.7590e-6)
+COST_MODEL = (6.918e12, 4.892e12, 0.7244e-6, 2.570e-6)
 PLAN_TIMES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "conv_block_plan_times.json")
 
@@ -163,6 +169,13 @@ def fused_residual_block_plain(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Ten
     w2 = w2t.to(f32).reshape(3, 3, c, c2).permute(2, 3, 0, 1)
     acc = F.conv2d(h.permute(0, 3, 1, 2), w2, padding=1).permute(0, 2, 3, 1)
     return (xf + _leaky(acc + b2.to(f32))).to(x.dtype)
+
+
+def conv3x3_path(c: int) -> str:
+    """Which 3×3 the kernel runs for a C-channel unit, by C/2 alone (the C
+    side's ``dispatch``): ``"wgmma"`` in 64-channel slices where C/2 is a
+    multiple of 64, else ``"mma.sync"`` in 32-channel slices."""
+    return "wgmma" if K2.k_slice2(c // 2) == 64 else "mma.sync"
 
 
 def pick_strip(h: int, fits) -> int:
@@ -509,5 +522,6 @@ __all__ = ["fused_residual_block", "fused_residual_block_plain", "pack_block_wei
            "Plan", "PlanStats", "KernelDesc", "K2", "plan_launch", "plan_stats",
            "smem_bytes", "blocks_per_sm", "fits_in_smem", "tiles", "feasible_plans",
            "modelled_seconds", "fit_cost_model", "load_plan_times", "strip_work_ratio",
-           "unit_flops", "pick_strip", "sm_count", "c_smem_bytes", "c_blocks_per_sm",
+           "unit_flops", "pick_strip", "conv3x3_path", "sm_count", "c_smem_bytes",
+           "c_blocks_per_sm",
            "COST_MODEL", "PLAN_TIMES", "LEAKY_SLOPE", "MAX_SMEM_BYTES"]

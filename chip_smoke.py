@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. versions, and the card's name and power limit from ``nvidia-smi``;
 2. build every kernel from ``amyloid_yolo_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel);
+   per source, in parallel); count the ``HGMMA`` (``wgmma``) and ``HMMA``
+   (``mma.sync``) instructions in K2's library (``cuobjdump -sass``): none
+   of the first fails the run;
 3. K1 (``resize_normalize``) against its plain version at B=4, 1536² → 416²:
    bit-exact;
 4. K2 (``fused_residual_block``) against its plain version in bf16 at the
@@ -16,7 +18,12 @@ Phases (any failure exits non-zero; nothing is caught):
    at B=1, 4, 8 and 32 (the tiling depends on B: 8 and 32 are the batches
    phases 6 and 9 run), within one bf16 ulp; each launch plan's shared memory
    from Python (``smem_bytes``) must equal the C side's, and its blocks per
-   SM the ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` count;
+   SM the ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` count; then
+   the same on units whose tiles leave partial m64 blocks in the ``wgmma``
+   3×3, one at each C/2 it takes (``K2_RAGGED``: 20²×128, 7²×256,
+   11²×512, 13²×1024 at B=1), each through ``plan_launch``'s tiling and
+   the best-modelled feasible tiling of every other kernel variant (warp
+   width, block tile width): all four ``wgmma`` variants must be checked;
 5. K3 (``fused_residual_block_int8``) against its plain version at the five
    stage shapes and the ragged unit, at B=1, 4, 8 and 32 (its tiling, too,
    depends on B), random int8 inputs with the reference tool's weight and
@@ -49,7 +56,8 @@ Phases (any failure exits non-zero; nothing is caught):
    version, a PyTorch library yardstick where one exists, and its bound
    (H100 SXM peaks: 989 TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s); K2 and
    K3 per stage at B=8 and B=32 with their launch plans (grid, blocks per
-   SM, waves, executed-work ratio) and achieved TFLOP/s or TOP/s.  Every
+   SM, waves, executed-work ratio), achieved TFLOP/s or TOP/s, and which
+   3×3 each K2 stage ran (``conv3x3_path``: ``wgmma`` or ``mma.sync``).  Every
    trace behind a printed device-busy, idle-share or launch figure (here
    and in phases 10, 11, 16, 17 and the BN tool of 18 (e)) is warmed (a
    dropped warm-up step) and checked complete: it must keep a device record
@@ -324,6 +332,9 @@ STAGES = ((208, 64, 1), (104, 128, 2), (52, 256, 8), (26, 512, 8), (13, 1024, 4)
 DETECTOR_BATCHES = (8, 32)                   # phases 6 (the first) and 9
 CHECK_BATCHES = (1, 4) + DETECTOR_BATCHES  # K2's and K3's plans depend on B
 RAGGED_UNIT = (20, 128)                    # H = W = 20: no tile size divides it
+# (B, H, C) of units whose tiles leave partial m64 blocks, one at each C/2
+# that K2's wgmma 3x3 takes, run through every (warp_n, block_n) variant
+K2_RAGGED = ((1, 20, 128), (1, 7, 256), (1, 11, 512), (1, 13, 1024))
 K2_RTOL, K2_ATOL = 2.0 ** -7, 2.0 ** -6      # one bf16 ulp, relative
 HEAD_TOL = 5e-2                              # max |Δ| / max |plain| per head
 SEED = 0
@@ -490,6 +501,77 @@ def k2_stage_inputs(b, h, c, dev, gen):
     b1 = 0.1 * torch.randn(c2, device=dev, generator=gen)
     b2 = 0.1 * torch.randn(c, device=dev, generator=gen)
     return x, w1t, b1, w2t, b2
+
+
+def sass_counts(name: str, opcodes=("HGMMA", "HMMA")) -> dict:
+    """Instructions of each opcode in the built library of ``csrc/<name>.cu``
+    (``cuobjdump -sass``, from the toolkit beside ``nvcc``)."""
+    from amyloid_yolo_tpu_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True,
+                          text=True, check=True).stdout
+    words = [line.split() for line in sass.splitlines()]
+    return {op: sum(1 for w in words for t in w if t.split(".")[0] == op) for op in opcodes}
+
+
+def checked_plan(b, h, c, kernel, sms, plan=None):
+    """The launch plan of K2 or K3 (``plan_launch``'s unless given), its
+    statistics, and the C side's blocks per SM; Python's and C's shared
+    memory and blocks per SM must agree."""
+    from amyloid_yolo_tpu_torch.kernels import conv_block, int8_block
+    from amyloid_yolo_tpu_torch.kernels.conv_block import blocks_per_sm, plan_launch, plan_stats
+    lib = int8_block if kernel is int8_block.K3 else conv_block
+    plan = plan or plan_launch(b, h, h, c, sms, kernel)
+    stats = plan_stats(b, h, h, c, plan, sms, kernel)
+    c_smem = lib.c_smem_bytes(h, h, c, plan)
+    c_bps = lib.c_blocks_per_sm(c, plan, stats.smem)
+    if c_smem != stats.smem or c_bps != blocks_per_sm(stats.smem, plan):
+        raise AssertionError(f"{kernel.name} plan {plan} at B={b} {h}x{h}x{c}: shared "
+                             f"memory {stats.smem} (Python) vs {c_smem} (C), blocks "
+                             f"per SM {blocks_per_sm(stats.smem, plan)} vs {c_bps}")
+    return plan, stats, c_bps
+
+
+def k2_variant_plans(b, h, c, sms) -> list:
+    """``plan_launch``'s plan for (b, h, h, c), then for each other kernel
+    variant (warp_n, block_n) the feasible plan of least modelled time."""
+    from amyloid_yolo_tpu_torch.kernels.conv_block import (
+        feasible_plans, modelled_seconds, plan_launch)
+    pick = plan_launch(b, h, h, c, sms)
+    best = {}
+    for plan in feasible_plans(h, h, c):
+        key = (plan.warp_n, plan.block_n)
+        if key != (pick.warp_n, pick.block_n) and (
+                key not in best or modelled_seconds(b, h, h, c, plan, sms)
+                < modelled_seconds(b, h, h, c, best[key], sms)):
+            best[key] = plan
+    return [pick, *best.values()]
+
+
+def partial_m64(b, h, c, plan) -> bool:
+    """Whether some tile of ``plan`` leaves a partial m64 block in the 3x3."""
+    from amyloid_yolo_tpu_torch.kernels.conv_block import tiles
+    return any((rows * cols) % 64 for _, _, rows, _, cols, _ in tiles(b, h, h, c, plan))
+
+
+def k2_check(b, h, c, dev, gen, sms, plan=None) -> float:
+    """K2 against its plain version at (b, h, h, c) within one bf16 ulp, on
+    ``plan`` (``plan_launch``'s unless given); returns max |diff|."""
+    import torch
+    from amyloid_yolo_tpu_torch.kernels.conv_block import (
+        K2, conv3x3_path, fused_residual_block, fused_residual_block_plain)
+    plan, stats, _ = checked_plan(b, h, c, K2, sms, plan)
+    args = k2_stage_inputs(b, h, c, dev, gen)
+    y, r = fused_residual_block(*args, plan=plan), fused_residual_block_plain(*args)
+    torch.cuda.synchronize()
+    err = (y.float() - r.float()).abs().max().item()
+    print(f"K2 fused_residual_block B={b} {h}x{h}x{c}: max|diff| {err} "
+          f"(tolerance: rtol {K2_RTOL} atol {K2_ATOL}; max|plain| "
+          f"{r.float().abs().max().item()}); plan {tuple(plan)}, 3x3 {conv3x3_path(c)}, "
+          f"partial m64 blocks {partial_m64(b, h, c, plan)}, shared memory {stats.smem} B "
+          "(Python = C)")
+    torch.testing.assert_close(y.float(), r.float(), rtol=K2_RTOL, atol=K2_ATOL)
+    return err
 
 
 def detector_ms(det, b, dev, gen) -> float:
@@ -4520,8 +4602,7 @@ def main() -> int:
     from amyloid_yolo_tpu_torch.kernels import _build, launch_counts, reset_launch_counts
     from amyloid_yolo_tpu_torch.kernels import conv_block
     from amyloid_yolo_tpu_torch.kernels.conv_block import (
-        K2, blocks_per_sm, fused_residual_block, fused_residual_block_plain, plan_launch,
-        plan_stats, unit_flops)
+        K2, conv3x3_path, fused_residual_block, fused_residual_block_plain, unit_flops)
     from amyloid_yolo_tpu_torch.kernels import int8_block
     from amyloid_yolo_tpu_torch.kernels.int8_block import (
         K3, fused_residual_block_int8, fused_residual_block_int8_plain, pack_model_int8_units)
@@ -4544,6 +4625,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    k2_sass = sass_counts("conv_block")
+    print(f"K2 library: {k2_sass['HGMMA']} HGMMA (wgmma), {k2_sass['HMMA']} HMMA (mma.sync) "
+          "instructions (cuobjdump -sass)", flush=True)
+    if k2_sass["HGMMA"] == 0:
+        raise AssertionError("K2's library has no HGMMA instruction: its 3x3 is not on wgmma")
 
     # 3. K1 against its plain version: bit-exact
     tiles4 = torch.randint(0, 256, (4, 1536, 1536, 3), dtype=torch.uint8, device=dev,
@@ -4555,44 +4641,31 @@ def main() -> int:
     if not torch.equal(k1, k1_plain):
         raise AssertionError("K1 is not bit-exact to its plain version")
 
-    # 4. K2 against its plain version at the five stage shapes
-    def checked_plan(b, h, c, kernel):
-        """The launch plan of K2 or K3, its statistics, and the C side's
-        blocks per SM; Python's and C's shared memory and blocks per SM must
-        agree."""
-        lib = int8_block if kernel is K3 else conv_block
-        plan = plan_launch(b, h, h, c, sms, kernel)
-        stats = plan_stats(b, h, h, c, plan, sms, kernel)
-        c_smem = lib.c_smem_bytes(h, h, c, plan)
-        c_bps = lib.c_blocks_per_sm(c, plan, stats.smem)
-        if c_smem != stats.smem or c_bps != blocks_per_sm(stats.smem, plan):
-            raise AssertionError(f"{kernel.name} plan {plan} at B={b} {h}x{h}x{c}: shared "
-                                 f"memory {stats.smem} (Python) vs {c_smem} (C), blocks "
-                                 f"per SM {blocks_per_sm(stats.smem, plan)} vs {c_bps}")
-        return plan, stats, c_bps
-
+    # 4. K2 against its plain version at the five stage shapes, then on units
+    # with partial m64 blocks through every kernel variant
     k2_err = 0.0
     for b in CHECK_BATCHES:
         for h, c in [s[:2] for s in STAGES] + [RAGGED_UNIT]:
-            plan, stats, _ = checked_plan(b, h, c, K2)
-            args = k2_stage_inputs(b, h, c, dev, gen)
-            y, r = fused_residual_block(*args), fused_residual_block_plain(*args)
-            torch.cuda.synchronize()
-            err = (y.float() - r.float()).abs().max().item()
-            k2_err = max(k2_err, err)
-            print(f"K2 fused_residual_block B={b} {h}x{h}x{c}: max|diff| {err} "
-                  f"(tolerance: rtol {K2_RTOL} atol {K2_ATOL}; max|plain| "
-                  f"{r.float().abs().max().item()}); plan {tuple(plan)}, shared memory "
-                  f"{stats.smem} B (Python = C)")
-            torch.testing.assert_close(y.float(), r.float(), rtol=K2_RTOL, atol=K2_ATOL)
-            del args, y, r
+            k2_err = max(k2_err, k2_check(b, h, c, dev, gen, sms))
+    variants = set()
+    for b, h, c in K2_RAGGED:
+        plans = k2_variant_plans(b, h, c, sms)
+        if not any(partial_m64(b, h, c, p) for p in plans):
+            raise AssertionError(f"no plan of {b}x{h}x{h}x{c} leaves a partial m64 block")
+        for plan in plans:
+            k2_err = max(k2_err, k2_check(b, h, c, dev, gen, sms, plan))
+            variants.add((plan.warp_n, plan.block_n))
+    print(f"K2 ragged units {K2_RAGGED}: kernel variants (warp_n, block_n) "
+          f"{sorted(variants)} within tolerance", flush=True)
+    if variants != {(32, 64), (32, 128), (64, 128), (64, 256)}:
+        raise AssertionError(f"K2's ragged units missed a wgmma variant: {sorted(variants)}")
 
     # 5. K3 against its plain version at the five stage shapes: bit-exact
     sx, s1, s_out = K3_SCALES
     k3_err = 0
     for b in CHECK_BATCHES:
         for h, c in [s[:2] for s in STAGES] + [RAGGED_UNIT]:
-            plan, stats, _ = checked_plan(b, h, c, K3)
+            plan, stats, _ = checked_plan(b, h, c, K3, sms)
             xq, pack = k3_stage_inputs(b, h, c, dev, gen)
             y = fused_residual_block_int8(xq, *pack, sx=sx, s1=s1, s_out=s_out)
             r = fused_residual_block_int8_plain(xq, *pack, sx=sx, s1=s1, s_out=s_out)
@@ -4742,7 +4815,7 @@ def main() -> int:
         for b in DETECTOR_BATCHES:
             k2_rows[b] = []
             for h, c, n in STAGES:
-                plan, stats, c_bps = checked_plan(b, h, c, K2)
+                plan, stats, c_bps = checked_plan(b, h, c, K2, sms)
                 x, w1t, b1, w2t, b2 = k2_stage_inputs(b, h, c, dev, gen)
                 ms = cuda_ms(lambda: fused_residual_block(x, w1t, b1, w2t, b2))
                 plain_ms = (cuda_ms(lambda: fused_residual_block_plain(x, w1t, b1, w2t, b2))
@@ -4762,9 +4835,10 @@ def main() -> int:
                     "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
                     "plan": list(plan), "grid": stats.grid, "blocks_per_sm": c_bps,
                     "waves": stats.grid / (sms * c_bps), "work_ratio": stats.work_ratio,
-                    "tflops": tflops})
+                    "tflops": tflops, "conv3x3": conv3x3_path(c)})
                 plain = f"{plain_ms:.4f} ms" if plain_ms is not None else "not measured"
-                print(f"K2 B={b} {h}x{h}x{c}: grid {stats.grid}, {c_bps} blocks/SM, "
+                print(f"K2 B={b} {h}x{h}x{c} (3x3 on {conv3x3_path(c)}): grid {stats.grid}, "
+                      f"{c_bps} blocks/SM, "
                       f"{stats.grid / (sms * c_bps):.2f} waves, executed-work ratio "
                       f"{stats.work_ratio:.3f}, {tflops:.1f} TFLOP/s; kernel {ms:.4f} ms, "
                       f"plain {plain}, cuDNN 1x1+3x3 {lib_ms:.4f} ms, bound {bound:.4f} ms "
@@ -4778,7 +4852,7 @@ def main() -> int:
         for b in DETECTOR_BATCHES:
             k3_rows[b] = []
             for h, c, n in STAGES:
-                plan, stats, c_bps = checked_plan(b, h, c, K3)
+                plan, stats, c_bps = checked_plan(b, h, c, K3, sms)
                 xq, pack = k3_stage_inputs(b, h, c, dev, gen)
                 ms = cuda_ms(lambda: fused_residual_block_int8(xq, *pack, sx=sx, s1=s1,
                                                                s_out=s_out))
@@ -4906,7 +4980,7 @@ def main() -> int:
          "plain_ms": total(stages, "plain_ms"), "bound_ms": total(stages, "bound_ms"),
          "bound_by": bound_by(stages), "library_ms": total(stages, "library_ms"),
          "shape": "the 23 units of one B=8 batch", "stages": stages,
-         "stages_b32": k2_rows[32],
+         "stages_b32": k2_rows[32], "sass": k2_sass,
          "serving_launches": served["launches"]["fused_residual_block"],
          "serving_dispatches": served["dispatches"],
          "mesh_launches": mesh_rec["launches"]["fused_residual_block"],

@@ -2,7 +2,8 @@
 tilings it picks for the stage shapes of YOLOv3-416 and a ragged unit fit in
 shared memory, cover every output exactly once, and execute at most 0.05
 more MMA work than the row-strip tiling; a model of the kernel's tile
-arithmetic reproduces the plain version."""
+arithmetic, with the warpgroups, warps and lanes of its ``wgmma`` 3x3,
+reproduces the plain version."""
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from amyloid_yolo_tpu_torch.kernels.conv_block import (
     Plan,
     feasible_plans,
     fit_cost_model,
+    conv3x3_path,
     fused_residual_block_plain,
     load_plan_times,
     plan_launch,
@@ -63,14 +65,14 @@ def test_plan_covers_every_output_once(case):
 # planner serves K3 too, and K2's tilings must not move with it
 K2_PICKS = {
     (1, 208, 64): (5, 35, 64, 64, 32), (1, 104, 128): (6, 21, 128, 128, 64),
-    (1, 52, 256): (6, 8, 128, 128, 64), (1, 26, 512): (4, 4, 256, 256, 64),
+    (1, 52, 256): (4, 8, 128, 128, 32), (1, 26, 512): (4, 4, 256, 256, 64),
     (1, 13, 1024): (2, 7, 256, 256, 64), (1, 20, 128): (3, 5, 128, 128, 64),
     (8, 208, 64): (8, 30, 64, 64, 32), (8, 104, 128): (8, 21, 128, 64, 32),
     (8, 52, 256): (13, 13, 256, 128, 64), (8, 26, 512): (7, 13, 256, 256, 64),
-    (8, 13, 1024): (7, 7, 256, 256, 64), (8, 20, 128): (3, 10, 128, 128, 64),
-    (32, 208, 64): (7, 35, 64, 64, 32), (32, 104, 128): (13, 35, 128, 128, 64),
-    (32, 52, 256): (9, 26, 256, 128, 64), (32, 26, 512): (7, 13, 512, 256, 64),
-    (32, 13, 1024): (7, 13, 512, 128, 32), (32, 20, 128): (10, 10, 128, 128, 64),
+    (8, 13, 1024): (7, 7, 256, 256, 64), (8, 20, 128): (3, 5, 128, 128, 32),
+    (32, 208, 64): (13, 30, 64, 64, 32), (32, 104, 128): (13, 18, 128, 128, 32),
+    (32, 52, 256): (9, 13, 256, 128, 32), (32, 26, 512): (7, 13, 512, 256, 64),
+    (32, 13, 1024): (7, 13, 512, 128, 32), (32, 20, 128): (10, 10, 64, 64, 32),
 }
 
 
@@ -130,10 +132,56 @@ def _bf16(v):
     return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(torch.bfloat16).float().numpy()
 
 
+# wgmma's accumulator layout, per lane of a warp's 16 x N tile: element 4j + e
+# is row g + 8 * (e // 2), column 8j + 2 * (lane % 4) + e % 2, with g = lane // 4
+_LANE = np.arange(32)[:, None]
+
+
+def _acc_index(n):
+    e = np.arange(n // 2)[None, :]
+    return _LANE // 4 + 8 * (e % 4 // 2), 8 * (e // 4) + 2 * (_LANE % 4) + e % 2
+
+
+def _wgmma_3x3(rows_of, w2t, plan, m2):
+    """The kernel's wgmma 3x3 of one tile, (m2, oc_tile) f32: per block tile
+    (m chunk x n chunk) each warpgroup g owns rows g * BM / 2 + [0, BM / 2) as
+    m64 blocks, warp w of it rows 16 * (w % 4) of each block; every block
+    issues, rows past the tile's pixels read the zero pixel (``rows_of``
+    maps pixel indices to hidden rows, those >= m2 to the zero pixel).  The
+    products land in each lane's accumulators in wgmma's layout, and the
+    epilogue stores them from there, rows past the tile's pixels nowhere."""
+    bm, bn = plan.block_m, plan.block_n
+    out = np.full((m2, plan.oc_tile), np.nan, np.float32)
+    stores = np.zeros((m2, plan.oc_tile), np.int32)
+    arow, acol = _acc_index(bn)
+    g, tq = _LANE[:, 0] // 4, _LANE[:, 0] % 4
+    for mc in range(-(-m2 // bm)):
+        for nc in range(plan.oc_tile // bn):
+            ns = slice(nc * bn, (nc + 1) * bn)
+            for wg in range(2):
+                for mb in range(bm // 128):
+                    for wr in range(4):
+                        base = mc * bm + wg * bm // 2 + mb * 64 + wr * 16
+                        q = base + np.arange(16)
+                        d = sum(rows_of(tap, q) @ w2t[tap, ns].T for tap in range(9))
+                        acc = d[arow, acol]  # (lane, bn / 2)
+                        for hh in range(2):
+                            qq = base + hh * 8 + g
+                            for ni in range(bn // 8):
+                                for e in range(2):
+                                    ok = qq < m2
+                                    col = nc * bn + ni * 8 + 2 * tq + e
+                                    out[qq[ok], col[ok]] = acc[ok, ni * 4 + hh * 2 + e]
+                                    stores[qq[ok], col[ok]] += 1
+    assert (stores == 1).all()  # every output of the tile stored once
+    return out
+
+
 def _tiled(x, w1t, b1, w2t, b2, plan):
     """The kernel's tile arithmetic in numpy, f32 with the hidden map rounded
     to bf16: per tile, the 1x1 over the tile's in-image halo pixels, one zero
-    pixel for every tap outside the image, the 3x3 from that compact tile."""
+    pixel for every tap outside the image, the 3x3 from that compact tile
+    (as :func:`_wgmma_3x3` where the kernel runs wgmma)."""
     b, h, w, c = x.shape
     y = np.full_like(x, np.nan)
     for img, r0, rows, c0, cols, oc0 in tiles(b, h, w, c, plan):
@@ -144,14 +192,19 @@ def _tiled(x, w1t, b1, w2t, b2, plan):
         hid = _bf16(_leaky(px @ w1t.T + b1))
         hid = np.concatenate([hid, np.zeros((1, c // 2), np.float32)])  # the zero pixel
         oc = slice(oc0, oc0 + plan.oc_tile)
-        acc = np.zeros((rows * cols, plan.oc_tile), np.float32)
-        q = np.arange(rows * cols)
+        m2 = rows * cols
+
+        def rows_of(tap, q):
+            hr, hc = r0 + q // cols + tap // 3 - 1, c0 + q % cols + tap % 3 - 1
+            inside = (q < m2) & (hr >= 0) & (hr < h) & (hc >= 0) & (hc < w)
+            return hid[np.where(inside, (hr - hr0) * nhc + hc - hc0, len(hid) - 1)]
+
+        q = np.arange(m2)
+        if conv3x3_path(c) == "wgmma":
+            acc = _wgmma_3x3(rows_of, w2t[:, oc], plan, m2)
+        else:
+            acc = sum(rows_of(tap, q) @ w2t[tap, oc].T for tap in range(9))
         r, col = r0 + q // cols, c0 + q % cols
-        for tap in range(9):
-            hr, hc = r + tap // 3 - 1, col + tap % 3 - 1
-            inside = (hr >= 0) & (hr < h) & (hc >= 0) & (hc < w)
-            idx = np.where(inside, (hr - hr0) * nhc + hc - hc0, len(hid) - 1)
-            acc += hid[idx] @ w2t[tap, oc].T
         out = x[img, r, col][:, oc] + _leaky(acc + b2[oc])
         y[img, r, col, oc0:oc0 + plan.oc_tile] = out
     return y
@@ -161,6 +214,13 @@ def _tiled(x, w1t, b1, w2t, b2, plan):
     ((2, 7, 9, 64), Plan(3, 4, 64, 64)),
     ((1, 20, 20, 128), Plan(3, 20, 64, 64)),
     ((1, 5, 6, 128), Plan(5, 6, 128, 128)),
+    # the wgmma 3x3's block tiles: 64- and 128-channel warpgroup products at
+    # BM = 256 (two m64 blocks a warpgroup) and 128 and 256 at BM = 128, on
+    # tiles whose pixels fill no whole m64 block or leave one wholly empty
+    ((1, 13, 13, 128), Plan(13, 13, 128, 128, 64)),
+    ((1, 5, 6, 128), Plan(5, 6, 128, 64, 32)),
+    ((1, 6, 7, 512), Plan(6, 7, 256, 128, 32)),
+    ((2, 7, 9, 256), Plan(3, 9, 256, 256, 64)),
 ])
 def test_tile_arithmetic_matches_plain(rng, shape, plan):
     b, h, w, c = shape
