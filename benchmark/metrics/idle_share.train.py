@@ -1,0 +1,8 @@
+"""idle_share.train (device; device trace): the share of the traced span,
+first device operation to last, in which no operation ran."""
+
+
+def read(ctx):
+    if ctx.get("kind") != "train" or ctx["trace"]["span_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx["trace"]["busy_s"] / ctx["trace"]["span_s"])
