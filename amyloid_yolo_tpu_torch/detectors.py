@@ -43,6 +43,7 @@ from .ops.boxes import rescale_boxes_batched, rescale_from_tile_frame
 from .ops.merge import merge_detections
 from .ops.preprocess import f32_from_bf16_input, preprocess_tiles
 from .parallel.mesh import Mesh, normalize_device, replicate, split_batch, to_device
+from .utils import spans
 from .utils.device import DeviceLike, no_tf32, resolve_device
 
 
@@ -307,21 +308,23 @@ class Detector:
         if self.precision != "bf16" and self._act_scales is None:
             raise ValueError(f"{self.precision} needs activation scales: "
                              "calibrate() or load_calibration() first")
-        x = self.model_input(tiles_u8)
+        with spans.span(spans.DETECT_PREPROCESS):
+            x = self.model_input(tiles_u8)
         cd = self.compute_dtype
-        if self.precision == "int8_full":
-            return darknet.apply_folded_int8_full(
-                rep.params, rep.qparams, self._act_scales, self.spec, x,
-                compute_dtype=cd, s2d_stem=rep.s2d, s2d_downs=rep.s2d_downs,
-                int32_accum_max_hw=self.int32_accum_max_hw)
-        if self.precision == "int8_early":
-            return darknet.apply_folded_int8(
-                rep.params, rep.qparams, self._act_scales, self.spec, x,
-                upto=self._int8_upto, compute_dtype=cd, int8_compute=self.int8_compute)
-        if not self.fold_bn:
-            return darknet.apply(rep.params, self.spec, x, compute_dtype=cd)
-        return darknet.apply_folded(rep.params, self.spec, x, compute_dtype=cd,
-                                    packs=rep.packs, s2d_stem=rep.s2d)
+        with spans.span(spans.DETECT_BACKBONE):
+            if self.precision == "int8_full":
+                return darknet.apply_folded_int8_full(
+                    rep.params, rep.qparams, self._act_scales, self.spec, x,
+                    compute_dtype=cd, s2d_stem=rep.s2d, s2d_downs=rep.s2d_downs,
+                    int32_accum_max_hw=self.int32_accum_max_hw)
+            if self.precision == "int8_early":
+                return darknet.apply_folded_int8(
+                    rep.params, rep.qparams, self._act_scales, self.spec, x,
+                    upto=self._int8_upto, compute_dtype=cd, int8_compute=self.int8_compute)
+            if not self.fold_bn:
+                return darknet.apply(rep.params, self.spec, x, compute_dtype=cd)
+            return darknet.apply_folded(rep.params, self.spec, x, compute_dtype=cd,
+                                        packs=rep.packs, s2d_stem=rep.s2d)
 
     @torch.inference_mode()
     def calibrate(self, tiles_u8, *, accumulate: bool = False,
@@ -472,20 +475,26 @@ class Detector:
         return dets, valid
 
     def _detect(self, tiles: torch.Tensor, rep: _Replica):
-        """One device's share of a call: ``(dets, valid, n_cand)`` there."""
+        """One device's share of a call: ``(dets, valid, n_cand)`` there, its
+        stages in the ``detect/*`` spans (:mod:`.utils.spans`)."""
         maps = self._head_maps(tiles, rep)
         pool = self.nms_pool
         if self.lazy_decode:
-            det, scores, n_cand = heads.decode_topk(
-                maps, self.spec, self.model_size, self.conf_thres, pool)
-            dets, valid = nms_ops.non_max_suppression_pooled(
-                det, scores, self.nms_thres, self.capacity)
+            with spans.span(spans.DETECT_DECODE):
+                det, scores, n_cand = heads.decode_topk(
+                    maps, self.spec, self.model_size, self.conf_thres, pool)
+            with spans.span(spans.DETECT_NMS):
+                dets, valid = nms_ops.non_max_suppression_pooled(
+                    det, scores, self.nms_thres, self.capacity)
         else:
-            pred = heads.decode_all(maps, self.spec, self.model_size)
-            dets, valid, n_cand = nms_ops.non_max_suppression(
-                pred, self.conf_thres, self.nms_thres, self.capacity, pool=pool,
-                return_count=True)
-        dets = rescale_boxes_batched(dets, self.model_size, self.tile_size, self.tile_size)
+            with spans.span(spans.DETECT_DECODE):
+                pred = heads.decode_all(maps, self.spec, self.model_size)
+            with spans.span(spans.DETECT_NMS):
+                dets, valid, n_cand = nms_ops.non_max_suppression(
+                    pred, self.conf_thres, self.nms_thres, self.capacity, pool=pool,
+                    return_count=True)
+        with spans.span(spans.DETECT_RESCALE):
+            dets = rescale_boxes_batched(dets, self.model_size, self.tile_size, self.tile_size)
         return dets, valid, n_cand
 
     def account_overflow(self, n_valid: Optional[int] = None, n_cand=None) -> int:

@@ -36,10 +36,10 @@ import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 
 from .mesh import Mesh, normalize_device
-from .steps import Layout, _loss, _device, flat_cat, flat_split, record_function, shard_batch, \
-    trainable_keys
+from .steps import Layout, _loss, _device, flat_cat, flat_split, shard_batch, trainable_keys
 from ..ops.augment import draw_augment_params
 from ..utils.device import resolve_device
+from ..utils.spans import TRAIN_AUGMENT, TRAIN_BACKWARD, span
 
 #: seconds a collective (a barrier included) waits for the other ranks
 DEFAULT_TIMEOUT_S = 1800.0
@@ -163,7 +163,7 @@ class ProcessShards:
         images_u8, targets, target_mask = batch
         b = len(images_u8)
         row0 = self.rank * b
-        with record_function("train/augment"):
+        with span(TRAIN_AUGMENT):
             draws = None
             if augment:  # the global batch's draws, this rank's rows
                 draws = {k: v[row0:row0 + b] for k, v in
@@ -174,7 +174,7 @@ class ProcessShards:
                                            _GroupReducer(self.world), layout)
         keys = trainable_keys(params)
         tensors = [params[k] for k in keys]
-        with record_function("train/backward"):
+        with span(TRAIN_BACKWARD):
             grads = torch.autograd.grad(total, tensors)
             flat = flat_cat(grads)
             dist.all_reduce(flat, op=dist.ReduceOp.SUM)

@@ -79,8 +79,9 @@ from ..ops import bnstats
 from ..ops.loss import yolo_loss
 from ..ops.nms import non_max_suppression
 from ..ops.preprocess import RECIP_255
+from ..utils.spans import TRAIN_AUGMENT, TRAIN_BACKWARD, TRAIN_FORWARD, TRAIN_LOSS, span
 from .mesh import Mesh, make_mesh, replicate, to_device
-from .steps import Layout, StepFn, _device, _precision, flat_cat, prepare_batch, record_function
+from .steps import Layout, StepFn, _device, _precision, flat_cat, prepare_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -529,19 +530,19 @@ class SpatialShards:
         if _device(params) != first:
             raise ValueError(f"the parameters are on {_device(params)}, not on the mesh's "
                              f"first device {first}")
-        with record_function("train/augment"):
+        with span(TRAIN_AUGMENT):
             images, targets, target_mask = prepare_batch(*batch, img_size, first, augment, rng,
                                                          layout.image_layout)
             if layout.image_layout == "planar":
                 images = images.permute(0, 2, 3, 1)  # the NHWC view apply_sharded takes
-        with record_function("train/forward"):
+        with span(TRAIN_FORWARD):
             replicas = leaf_replicas(params, self.mesh)
             maps, new_stats = apply_sharded(params, spec, images, self.mesh,
                                             compute_dtype=compute_dtype, train=True,
                                             s2d_stem=layout.s2d_stem, replicas=replicas)
-        with record_function("train/loss"):
+        with span(TRAIN_LOSS):
             total, per_head = yolo_loss(maps, spec, img_size, targets, target_mask)
-        with record_function("train/backward"):
+        with span(TRAIN_BACKWARD):
             total.backward()
             add_replica_grads(params, replicas)
         return total, new_stats, per_head, images.shape[0]

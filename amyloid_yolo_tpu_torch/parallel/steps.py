@@ -80,9 +80,9 @@ from ..ops.augment import augment_batch, draw_augment_params
 from ..ops.loss import yolo_loss
 from ..ops.preprocess import preprocess_tiles
 from ..utils.device import DeviceLike, no_tf32, resolve_device
+from ..utils.spans import (TRAIN_AUGMENT, TRAIN_BACKWARD, TRAIN_FORWARD, TRAIN_LOSS,
+                           TRAIN_OPTIMIZER, span)
 from .mesh import Mesh, shard_size, to_device
-
-record_function = torch.profiler.record_function
 
 TRAINABLE_SUFFIXES = (".weight", ".bias")
 STAT_SUFFIXES = (".running_mean", ".running_var")
@@ -245,11 +245,11 @@ def prepare_batch(images_u8, targets, target_mask, img_size: int, device: torch.
 
 def _loss(params: StateDict, spec: GraphSpec, images, targets, target_mask, img_size: int,
           compute_dtype: torch.dtype, reducer=None, layout: Layout = Layout()):
-    with record_function("train/forward"):
+    with span(TRAIN_FORWARD):
         maps, new_stats = darknet.apply(params, spec, images, compute_dtype=compute_dtype,
                                         train=True, reducer=reducer, s2d_stem=layout.s2d_stem,
                                         input_layout=layout.image_layout)
-    with record_function("train/loss"):
+    with span(TRAIN_LOSS):
         total, per_head = yolo_loss(maps, spec, img_size, targets, target_mask, reducer)
     return total, new_stats, per_head
 
@@ -341,7 +341,7 @@ class MeshShards:
         images_u8, targets, target_mask = (torch.as_tensor(a) for a in batch)
         n = images_u8.shape[0]
         b = shard_size(n, self.mesh)
-        with record_function("train/augment"):
+        with span(TRAIN_AUGMENT):
             draws = (draw_augment_params(rng, n, img_size, devices[0]) if augment else None)
         reducer = _ShardReducer(devices, SHARD_WAIT_S)
 
@@ -350,7 +350,7 @@ class MeshShards:
             rows = slice(k * b, (k + 1) * b)
             with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
                 p = {key: to_device(v, dev) for key, v in params.items()}
-                with record_function("train/augment"):
+                with span(TRAIN_AUGMENT):
                     d = ({key: to_device(v[rows], dev) for key, v in draws.items()}
                          if augment else None)
                     shard_in = shard_batch(images_u8[rows], targets, target_mask, k * b,
@@ -359,7 +359,7 @@ class MeshShards:
                              layout)
 
         total, new_stats, per_head = _run_threads(shard, len(devices), reducer.barrier)[0]
-        with record_function("train/backward"):
+        with span(TRAIN_BACKWARD):
             total.backward()
         return total, new_stats, per_head, n
 
@@ -399,26 +399,27 @@ def _micro_step(state: TrainState, spec: GraphSpec, optimizer: Optimizer, batch,
     the apply when ``do_apply``, the BN running statistics, the EMA on an
     apply, the counters.  ``shards`` (:class:`MeshShards`,
     ``distributed.ProcessShards``, ``spatial.SpatialShards``) runs the
-    forward and backward over several devices.  The ``train/*`` ranges name its parts in a
-    ``torch.profiler`` trace (the backward's kernels run on autograd's
-    device thread, outside them)."""
+    forward and backward over several devices.  The ``train/*`` spans
+    (:mod:`..utils.spans`) name its parts in a ``torch.profiler`` trace;
+    the backward's kernels run on autograd's device thread while this
+    thread waits in ``train/backward``."""
     dev = _device(state.params)
     if shards is None:
-        with record_function("train/augment"):
+        with span(TRAIN_AUGMENT):
             images, targets, target_mask = prepare_batch(*batch, img_size, dev, augment, rng,
                                                          layout.image_layout)
         with _precision(compute_dtype, dev):
             total, new_stats, per_head = _loss(state.params, spec, images, targets,
                                                target_mask, img_size, compute_dtype,
                                                layout=layout)
-            with record_function("train/backward"):
+            with span(TRAIN_BACKWARD):
                 total.backward()
         n_images = images.shape[0]
     else:
         with _precision(compute_dtype, dev):
             total, new_stats, per_head, n_images = shards.run(
                 state.params, spec, batch, rng, img_size, augment, compute_dtype, layout)
-    with record_function("train/optimizer"):
+    with span(TRAIN_OPTIMIZER):
         if do_apply:
             optimizer.apply(state.optimizer)
         _set_stats(state.params, new_stats)
