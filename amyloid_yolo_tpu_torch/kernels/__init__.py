@@ -2,17 +2,22 @@
 
 * K1 :func:`.preprocess_kernel.resize_normalize` (``csrc/resize_normalize.cu``);
 * K2 :func:`.conv_block.fused_residual_block` (``csrc/conv_block.cu``);
-* K3 :func:`.int8_block.fused_residual_block_int8` (``csrc/int8_block.cu``).
+* K3 :func:`.int8_block.fused_residual_block_int8` (``csrc/int8_block.cu``);
+* the library convs' epilogue :func:`.bias_leaky.bias_leaky`
+  (``csrc/bias_leaky.cu``), which replaces no Pallas kernel.
 
 Each wrapper counts its launches in an integer attribute ``launches``;
-:func:`launch_counts` reads them and :func:`reset_launch_counts` sets them
-to 0.
+:func:`launch_counts` reads and :func:`reset_launch_counts` zeroes those of
+the three ports of the JAX package's Pallas kernels (K1, K2, K3), which the
+checks of every path compare; the epilogue's count is read from
+``bias_leaky.launches`` itself.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+from .bias_leaky import bias_leaky
 from .conv_block import fused_residual_block
 from .int8_block import fused_residual_block_int8
 from .preprocess_kernel import resize_normalize
@@ -34,4 +39,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts",
-           "resize_normalize", "fused_residual_block", "fused_residual_block_int8"]
+           "resize_normalize", "fused_residual_block", "fused_residual_block_int8",
+           "bias_leaky"]

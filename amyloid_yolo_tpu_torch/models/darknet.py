@@ -29,7 +29,9 @@ the reference does.
 bf16 contract of the convolutions that are not fused (``darknet.py:
 462-467``): the conv accumulates in f32 and rounds to bf16, then the bf16
 bias is added and the leaky runs in bf16 as ``where(v >= 0, v, v ·
-bf16(0.1))`` — ``F.leaky_relu`` on bf16 rounds differently.  Every fusible
+bf16(0.1))`` — ``F.leaky_relu`` on bf16 rounds differently.  On the card the
+bias and the leaky of the folded forward are one in-place pass with those
+roundings (``kernels/bias_leaky.py``).  Every fusible
 residual unit (all 23 of YOLOv3, the 64-channel one included) goes through
 K2 when packs are given.
 
@@ -64,6 +66,7 @@ from ..graphspec import (
     YoloSpec,
 )
 from ..io.weights import StateDict, _bn_key, _conv_key, _np32
+from ..kernels.bias_leaky import bias_leaky, leaky_where as _leaky
 from ..kernels.conv_block import LEAKY_SLOPE, fused_residual_block, pack_block_weights
 from ..ops import bnstats
 from ..ops import int8 as q8
@@ -167,11 +170,6 @@ def pack_residual_blocks(folded: Folded, spec: GraphSpec,
                               dtype)
         for i in fusible_residual_blocks(spec)
     }
-
-
-def _leaky(v: torch.Tensor) -> torch.Tensor:
-    # the slope is rounded to v's dtype first, as jnp's weakly typed 0.1 is
-    return torch.where(v >= 0, v, v * torch.tensor(LEAKY_SLOPE, dtype=v.dtype))
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -352,9 +350,11 @@ def _bn(params: Mapping[str, torch.Tensor], i: int, out: torch.Tensor,
 def folded_conv(folded: Folded, i: int, layer: ConvSpec, x: torch.Tensor,
                 compute_dtype: torch.dtype, padding=None) -> torch.Tensor:
     """Conv ``i`` over BN-folded params: conv, bias in ``compute_dtype``,
-    activation (``padding`` as :func:`conv` takes it)."""
+    activation (``padding`` as :func:`conv` takes it).  On the card the bias
+    and the activation are one in-place pass over the conv's output
+    (:func:`~..kernels.bias_leaky.bias_leaky`)."""
     out = conv(folded[f"conv_{i}"]["w"], layer, x, compute_dtype, padding)
-    return activate(layer, out + folded[f"conv_{i}"]["b"].to(compute_dtype)[None, :, None, None])
+    return bias_leaky(out, folded[f"conv_{i}"]["b"], layer.activation == "leaky")
 
 
 def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, *,

@@ -32,9 +32,9 @@ Phases (any failure exits non-zero; nothing is caught):
 6. the main path: ``Detector(conf_thres=0.3)`` at the full width of
    ``yolov3_spec(num_classes=2)``, 416 on 1536² tiles, random weights from a
    numpy seed carried over with ``params_from_jax``, 3 batches of 8 tiles.
-   Launch counts must be 3 (K1), 69 (K2) and 0 (K3); head maps through the
-   kernels must match the plain path on the card; outputs finite, (8, 64, 7)
-   and (8, 64);
+   Launch counts must be 3 (K1), 69 (K2) and 0 (K3), and 87 of the library
+   convs' epilogue (29 a call); head maps through the kernels must match the
+   plain path on the card; outputs finite, (8, 64, 7) and (8, 64);
 7. the int8 Detectors, ``precision="int8_full"`` and ``"int8_early"``, on
    the same weights, calibrated on the first batch, then 3 batches of 8:
    launch counts 3 (K1), 0 (K2), 0 (K3); outputs finite and shaped as
@@ -57,7 +57,10 @@ Phases (any failure exits non-zero; nothing is caught):
    (H100 SXM peaks: 989 TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s); K2 and
    K3 per stage at B=8 and B=32 with their launch plans (grid, blocks per
    SM, waves, executed-work ratio), achieved TFLOP/s or TOP/s, and which
-   3×3 each K2 stage ran (``conv3x3_path``: ``wgmma`` or ``mma.sync``).  Every
+   3×3 each K2 stage ran (``conv3x3_path``: ``wgmma`` or ``mma.sync``); the
+   library convs' epilogue (``kernels/bias_leaky.py``) at the 29 conv
+   outputs of a B=64 call, bit-exact to its plain version on each and timed
+   beside it and its bytes bound (:func:`epilogue_rows`).  Every
    trace behind a printed device-busy, idle-share or launch figure (here
    and in phases 10, 11, 16, 17 and the BN tool of 18 (e)) is warmed (a
    dropped warm-up step) and checked complete: it must keep a device record
@@ -298,7 +301,8 @@ Phases (any failure exits non-zero; nothing is caught):
    dispatch's and the worker's parts in ``save_walls``) and its file equal
    to the live state;
 19. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
-   every path above), the ``nvidia-smi`` line, and last
+   every path above; the epilogue's on phase 6's), the ``nvidia-smi`` line,
+   and last
    ``{"ok": true, "device": {...}}``.
 
 f32 references run with TF32 off.  It exits non-zero when CUDA is absent.
@@ -341,6 +345,7 @@ SEED = 0
 K3_SCALES = (0.011, 0.017, 0.023)            # sx, s1, s_out of the reference tool
 CAA_TOL = 1e-3                               # classifier probabilities, card vs CPU f32
 FOLDER = dict(n_tiles=37, side=1536, border=(1000, 1536), blank=2)
+EPILOGUE_BATCH = 64                          # the detect-416-b64 cell's batch
 # A trace is complete when it kept a device record for each of the host's
 # launch calls but this many a Detector call or train micro-step: the
 # cudaMemsetAsync that one cuDNN convolution of each bf16 Detector call
@@ -572,6 +577,49 @@ def k2_check(b, h, c, dev, gen, sms, plan=None) -> float:
           "(Python = C)")
     torch.testing.assert_close(y.float(), r.float(), rtol=K2_RTOL, atol=K2_ATOL)
     return err
+
+
+def epilogue_rows(spec, dev, gen, card: str, batch: int = EPILOGUE_BATCH) -> list:
+    """The library convs' epilogue at each conv output outside the residual
+    units, at ``batch`` and 416 in bf16 channels_last: the kernel on a copy
+    of a random map, bit for bit against the plain version (NaN by mask),
+    then the kernel's time (in place, over and over), the plain version's
+    and the bound (the map read and written once at 3.35 TB/s)."""
+    import torch
+    from amyloid_yolo_tpu_torch.graphspec import ConvSpec
+    from amyloid_yolo_tpu_torch.kernels.bias_leaky import bias_leaky, bias_leaky_plain
+    from amyloid_yolo_tpu_torch.models.darknet import fusible_residual_blocks
+    from amyloid_yolo_tpu_torch.parallel.spatial import layer_strides
+    inside = {j for i in fusible_residual_blocks(spec) for j in (i, i + 1)}
+    rows = []
+    for i, (layer, stride) in enumerate(zip(spec.layers, layer_strides(spec))):
+        if not isinstance(layer, ConvSpec) or i in inside:
+            continue
+        side = 416 // stride
+        c, leaky = layer.out_ch, layer.activation == "leaky"
+        x = torch.randn(batch, c, side, side, device=dev, generator=gen).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        b = torch.randn(c, device=dev, generator=gen).to(torch.bfloat16)
+        want = bias_leaky_plain(x, b, leaky)
+        got = bias_leaky(x.clone(memory_format=torch.channels_last), b, leaky)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        exact = (torch.equal(nan, torch.isnan(got))
+                 and torch.equal(want[~nan].view(torch.int16), got[~nan].view(torch.int16)))
+        del want, got
+        ms = cuda_ms(lambda: bias_leaky(x, b, leaky))
+        plain_ms = cuda_ms(lambda: bias_leaky_plain(x, b, leaky))
+        bound = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+        rows.append({"conv": i, "shape": f"{batch}x{c}x{side}x{side}", "leaky": leaky,
+                     "bit_exact": exact, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound})
+        print(f"epilogue conv {i} B={batch} {c}x{side}x{side} {'leaky' if leaky else 'linear'}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes); bit-exact {exact} [{card}]", flush=True)
+        if not exact:
+            raise AssertionError(f"the epilogue kernel differs from its plain version at "
+                                 f"conv {i}, B={batch}")
+        del x
+    return rows
 
 
 def detector_ms(det, b, dev, gen) -> float:
@@ -4600,7 +4648,7 @@ def main() -> int:
     from amyloid_yolo_tpu_torch.graphspec import yolov3_spec
     from amyloid_yolo_tpu_torch.io.weights import params_from_jax
     from amyloid_yolo_tpu_torch.kernels import _build, launch_counts, reset_launch_counts
-    from amyloid_yolo_tpu_torch.kernels import conv_block
+    from amyloid_yolo_tpu_torch.kernels import bias_leaky, conv_block
     from amyloid_yolo_tpu_torch.kernels.conv_block import (
         K2, conv3x3_path, fused_residual_block, fused_residual_block_plain, unit_flops)
     from amyloid_yolo_tpu_torch.kernels import int8_block
@@ -4688,9 +4736,15 @@ def main() -> int:
     rng = np.random.RandomState(SEED)
     batches = [rng.randint(0, 256, (DETECTOR_BATCHES[0], 1536, 1536, 3)).astype(np.uint8)
                for _ in range(3)]
+    epilogue0 = bias_leaky.launches
     drive(det, batches, {"resize_normalize": 3, "fused_residual_block": 69,
                          "fused_residual_block_int8": 0})
     counts = launch_counts()
+    epilogue_launches = bias_leaky.launches - epilogue0
+    print(f"bf16 Detector epilogue launches: {epilogue_launches} (want 87, 29 a call)",
+          flush=True)
+    if epilogue_launches != 87:
+        raise AssertionError(f"the epilogue ran {epilogue_launches} times over 3 calls, want 87")
 
     with torch.inference_mode():
         tiles = torch.from_numpy(batches[0]).to(dev)
@@ -4889,6 +4943,12 @@ def main() -> int:
         print(f"K3 23 units: B=8 {sum(s['ms'] * s['units'] for s in stages3):.4f} ms, "
               f"B=32 {sum(s['ms'] * s['units'] for s in k3_rows[32]):.4f} ms [{card}]")
 
+        epilogue = epilogue_rows(spec, dev, gen, card)
+        print(f"epilogue {len(epilogue)} convs of a B={EPILOGUE_BATCH} call: kernel "
+              f"{sum(r['ms'] for r in epilogue):.4f} ms, plain "
+              f"{sum(r['plain_ms'] for r in epilogue):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in epilogue):.4f} ms (bytes) [{card}]", flush=True)
+
     # 10. the folder path
     starts["10"] = time.perf_counter()
     folder = folder_phase(det, spec, params, card)
@@ -5012,6 +5072,17 @@ def main() -> int:
          "layout_training_launches":
              layout["training"]["launches"]["fused_residual_block_int8"],
          **tool_launches("fused_residual_block_int8"), "int8_block_tool": k3_tool},
+        {"name": "bias_leaky", "route": "cuda",
+         "source": "amyloid_yolo_tpu_torch/csrc/bias_leaky.cu",
+         "replaces": None,  # XLA fused the bias and the leaky into each conv
+         "launches": epilogue_launches, "launches_per_call": epilogue_launches / 3,
+         "max_abs_err": 0, "max_abs_diff": 0, "tol": "bit-exact",
+         "ms": sum(r["ms"] for r in epilogue), "kernel_ms": sum(r["ms"] for r in epilogue),
+         "plain_ms": sum(r["plain_ms"] for r in epilogue),
+         "bound_ms": sum(r["bound_ms"] for r in epilogue), "bound_by": "bytes",
+         "library_ms": None,
+         "shape": f"the {len(epilogue)} conv outputs outside the residual units of one "
+                  f"B={EPILOGUE_BATCH} call", "convs": epilogue},
     ]
     detector["int8_division_flips"] = int8_flips
     ends = [*list(starts.values())[1:], time.perf_counter()]
