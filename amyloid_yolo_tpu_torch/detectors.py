@@ -207,6 +207,8 @@ class Detector:
         self.mesh = mesh
         self.route = route(self.device.type, compute_dtype, precision, fold_bn)
         self.spec = spec or yolov3_spec(num_classes=2)
+        if precision != "bf16":
+            darknet.refuse_grid_sensitive(self.spec, precision)
         if params is None:
             params = darknet.init_params(torch.Generator().manual_seed(seed), self.spec)
         dev, cd = self.device, compute_dtype

@@ -45,9 +45,14 @@ class NetInfo:
     burn_in: int = 1000
 
 
+#: the conv activations the executors compute; :func:`from_cfg` refuses others
+ACTIVATIONS = ("leaky", "mish", "linear")
+
+
 @dataclasses.dataclass(frozen=True)
 class ConvSpec:
-    """Conv (+ optional BN, + optional LeakyReLU) — reference ``models.py:26-45``."""
+    """Conv (+ optional BN, + optional activation) — reference ``models.py:26-45``;
+    ``mish`` is YOLOv4's CSPDarknet53 activation, ``x·tanh(softplus(x))``."""
 
     index: int
     in_ch: int
@@ -55,7 +60,7 @@ class ConvSpec:
     kernel: int
     stride: int
     batch_normalize: bool
-    activation: str  # "leaky" | "linear"
+    activation: str  # one of ACTIVATIONS
 
     @property
     def pad(self) -> int:
@@ -101,6 +106,8 @@ class YoloSpec:
     ignore_thres: float = 0.5
     obj_scale: float = 1.0
     noobj_scale: float = 100.0
+    #: YOLOv4's grid-sensitive decode: centre ``σ(t)·s − (s−1)/2 + cell``
+    scale_x_y: float = 1.0
 
 
 LayerSpec = object  # union of the dataclasses above
@@ -142,6 +149,9 @@ def from_cfg(path: str) -> GraphSpec:
     Follows the same channel-tracking rules as the reference's
     ``create_modules`` (``models.py:16-83``): routes sum the channel counts of
     their source layers, shortcuts inherit the channel count of their source.
+    A conv activation outside :data:`ACTIVATIONS` raises; the ``[yolo]`` keys
+    that only darknet's training reads (``iou_loss``, ``iou_normalizer``,
+    ``max_delta``, ``nms_kind``, ...) are ignored, and ``scale_x_y`` is kept.
     """
     blocks = parse_model_config(path)
     hyper = blocks[0]
@@ -167,6 +177,10 @@ def from_cfg(path: str) -> GraphSpec:
     for li, block in enumerate(blocks[1:]):
         btype = block["type"]
         if btype == "convolutional":
+            act = block.get("activation", "linear")
+            if act not in ACTIVATIONS:
+                raise ValueError(f"layer {li}: unsupported activation {act!r} "
+                                 f"(the executors compute {', '.join(ACTIVATIONS)})")
             spec = ConvSpec(
                 index=li,
                 in_ch=prev_ch(),
@@ -174,7 +188,7 @@ def from_cfg(path: str) -> GraphSpec:
                 kernel=int(block["size"]),
                 stride=int(block["stride"]),
                 batch_normalize=bool(int(block.get("batch_normalize", "0"))),
-                activation=block.get("activation", "linear"),
+                activation=act,
             )
             layers.append(spec)
             out_channels.append(spec.out_ch)
@@ -204,6 +218,7 @@ def from_cfg(path: str) -> GraphSpec:
                     num_classes=int(block["classes"]),
                     ignore_thres=0.5,  # reference hard-codes 0.5 (models.py:106),
                     # NOT the cfg's ignore_thresh=.7 — documented trap.
+                    scale_x_y=float(block.get("scale_x_y", 1.0)),
                 )
             )
             out_channels.append(prev_ch())
@@ -421,6 +436,8 @@ def emit_cfg(spec: GraphSpec) -> str:
             out.append(f"anchors={anchors}")
             out.append(f"classes={l.num_classes}")
             out.append(f"num={num}")
+            if l.scale_x_y != 1.0:
+                out.append(f"scale_x_y={l.scale_x_y!r}")
             out.append("jitter=.3")
             out.append("ignore_thresh=.7")
             out.append("truth_thresh=1")
@@ -432,5 +449,5 @@ def emit_cfg(spec: GraphSpec) -> str:
 __all__ = [
     "NetInfo", "ConvSpec", "MaxPoolSpec", "UpsampleSpec", "RouteSpec",
     "ShortcutSpec", "YoloSpec", "GraphSpec", "from_cfg", "yolov3_spec",
-    "emit_cfg", "YOLOV3_ANCHORS", "YOLOV3_MASKS",
+    "emit_cfg", "YOLOV3_ANCHORS", "YOLOV3_MASKS", "ACTIVATIONS",
 ]

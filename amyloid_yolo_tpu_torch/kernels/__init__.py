@@ -3,21 +3,22 @@
 * K1 :func:`.preprocess_kernel.resize_normalize` (``csrc/resize_normalize.cu``);
 * K2 :func:`.conv_block.fused_residual_block` (``csrc/conv_block.cu``);
 * K3 :func:`.int8_block.fused_residual_block_int8` (``csrc/int8_block.cu``);
-* the library convs' epilogue :func:`.bias_leaky.bias_leaky`
-  (``csrc/bias_leaky.cu``), which replaces no Pallas kernel.
+* the library convs' epilogue :func:`.bias_leaky.bias_leaky`, and for
+  Mish convs :func:`.bias_leaky.bias_mish` (``csrc/bias_leaky.cu``), which
+  replace no Pallas kernel.
 
 Each wrapper counts its launches in an integer attribute ``launches``;
 :func:`launch_counts` reads and :func:`reset_launch_counts` zeroes those of
 the three ports of the JAX package's Pallas kernels (K1, K2, K3), which the
-checks of every path compare; the epilogue's count is read from
-``bias_leaky.launches`` itself.
+checks of every path compare; the epilogue's counts are read from
+``bias_leaky.launches`` and ``bias_mish.launches`` themselves.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from .bias_leaky import bias_leaky
+from .bias_leaky import bias_leaky, bias_mish
 from .conv_block import fused_residual_block
 from .int8_block import fused_residual_block_int8
 from .preprocess_kernel import resize_normalize

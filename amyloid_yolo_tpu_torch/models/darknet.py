@@ -29,9 +29,13 @@ the reference does.
 bf16 contract of the convolutions that are not fused (``darknet.py:
 462-467``): the conv accumulates in f32 and rounds to bf16, then the bf16
 bias is added and the leaky runs in bf16 as ``where(v >= 0, v, v ·
-bf16(0.1))`` — ``F.leaky_relu`` on bf16 rounds differently.  On the card the
-bias and the leaky of the folded forward are one in-place pass with those
-roundings (``kernels/bias_leaky.py``).  Every fusible
+bf16(0.1))`` — ``F.leaky_relu`` on bf16 rounds differently.  A Mish conv
+(YOLOv4's CSPDarknet53) adds the bias the same way, then computes Mish in
+float32 on that bf16 sum and rounds once to bf16 (:func:`activate`).  On the
+card the bias and the activation of the folded forward are one in-place pass
+with those roundings (``kernels/bias_leaky.py``; Mish there to one bf16 ulp).
+The int8 executors and the s2d stem take YOLOv3's leaky convs only and refuse
+a graph with Mish convs or grid-sensitive heads.  Every fusible
 residual unit (all 23 of YOLOv3, the 64-channel one included) goes through
 K2 when packs are given.
 
@@ -66,7 +70,7 @@ from ..graphspec import (
     YoloSpec,
 )
 from ..io.weights import StateDict, _bn_key, _conv_key, _np32
-from ..kernels.bias_leaky import bias_leaky, leaky_where as _leaky
+from ..kernels.bias_leaky import bias_leaky, bias_mish, leaky_where as _leaky, mish_wide
 from ..kernels.conv_block import LEAKY_SLOPE, fused_residual_block, pack_block_weights
 from ..ops import bnstats
 from ..ops import int8 as q8
@@ -306,7 +310,28 @@ def conv_bias(params: Mapping[str, torch.Tensor], i: int, out: torch.Tensor,
 
 
 def activate(layer: ConvSpec, out: torch.Tensor) -> torch.Tensor:
-    return _leaky(out) if layer.activation == "leaky" else out
+    """The conv's activation on ``out``: the leaky in ``out``'s dtype, Mish
+    in at least float32 rounded once to it, or nothing (linear)."""
+    if layer.activation == "leaky":
+        return _leaky(out)
+    if layer.activation == "mish":
+        return mish_wide(out)
+    return out
+
+
+def refuse_grid_sensitive(spec: GraphSpec, path: str) -> None:
+    """``ValueError`` if the graph has YOLOv4's parts, Mish convs or heads
+    with ``scale_x_y`` ≠ 1, which ``path`` (built for YOLOv3's leaky convs
+    and plain heads) would compute wrongly."""
+    mish = [l.index for l in spec.layers
+            if isinstance(l, ConvSpec) and l.activation == "mish"]
+    scaled = [f"{l.index} ({l.scale_x_y})" for l in spec.layers
+              if isinstance(l, YoloSpec) and l.scale_x_y != 1.0]
+    parts = ([f"{len(mish)} Mish convs (first {mish[0]})"] if mish else []) + (
+        [f"yolo layers with scale_x_y != 1: {', '.join(scaled)}"] if scaled else [])
+    if parts:
+        raise ValueError(f"{path} takes YOLOv3's leaky convs and heads only; this graph has "
+                         + "; ".join(parts))
 
 
 def conv_layer(params: Mapping[str, torch.Tensor], i: int, layer: ConvSpec, x: torch.Tensor,
@@ -352,8 +377,11 @@ def folded_conv(folded: Folded, i: int, layer: ConvSpec, x: torch.Tensor,
     """Conv ``i`` over BN-folded params: conv, bias in ``compute_dtype``,
     activation (``padding`` as :func:`conv` takes it).  On the card the bias
     and the activation are one in-place pass over the conv's output
-    (:func:`~..kernels.bias_leaky.bias_leaky`)."""
+    (:func:`~..kernels.bias_leaky.bias_leaky`, or for a Mish conv
+    :func:`~..kernels.bias_leaky.bias_mish`)."""
     out = conv(folded[f"conv_{i}"]["w"], layer, x, compute_dtype, padding)
+    if layer.activation == "mish":
+        return bias_mish(out, folded[f"conv_{i}"]["b"])
     return bias_leaky(out, folded[f"conv_{i}"]["b"], layer.activation == "leaky")
 
 
@@ -533,7 +561,9 @@ def _folded_layers(folded: Folded, spec: GraphSpec, prev: torch.Tensor,
 
 def _check_s2d_spec(spec: GraphSpec) -> None:
     """Raise ``ValueError`` unless layers 0-1 are the YOLOv3 stem: conv
-    3x3/s1 leaky into conv 3x3/s2 leaky, layer 0 read by layer 1 only."""
+    3x3/s1 leaky into conv 3x3/s2 leaky, layer 0 read by layer 1 only, in a
+    graph without YOLOv4's parts."""
+    refuse_grid_sensitive(spec, "the s2d stem")
     l0, l1 = spec.layers[0], spec.layers[1]
     ok = (isinstance(l0, ConvSpec) and l0.kernel == 3 and l0.stride == 1
           and l0.activation == "leaky"
@@ -803,6 +833,7 @@ def calibrate_act_scales(folded: Folded, spec: GraphSpec, x: torch.Tensor, upto:
                          percentile: float = 100.0) -> Dict[str, float]:
     """Static activation scales of the ``int8_early`` region from a sample
     batch ``x`` (NHWC, [0, 1]): an f32 forward, TF32 off."""
+    refuse_grid_sensitive(spec, "int8_early")
     for layer in spec.layers[:upto]:
         if isinstance(layer, (RouteSpec, YoloSpec)):
             raise TypeError(f"int8 region cannot contain {layer!r}")
@@ -812,6 +843,7 @@ def calibrate_act_scales(folded: Folded, spec: GraphSpec, x: torch.Tensor, upto:
 def calibrate_act_scales_full(folded: Folded, spec: GraphSpec, x: torch.Tensor,
                               percentile: float = 100.0) -> Dict[str, float]:
     """Static activation scales of every layer's output (``int8_full``)."""
+    refuse_grid_sensitive(spec, "int8_full")
     return _calibrate(folded, spec, x, len(spec.layers), percentile)
 
 
@@ -1039,7 +1071,7 @@ __all__ = ["init_params", "apply", "fold_batchnorm", "fusible_residual_blocks",
            "int8_full_conv_indices", "quantize_folded_int8_full",
            "calibrate_act_scales_full", "apply_folded_int8_full",
            "make_s2d_stem", "make_s2d_stem_int8", "make_s2d_down_int8", "s2d_stem_forward",
-           "s2d_train_stem_qualifies",
+           "s2d_train_stem_qualifies", "refuse_grid_sensitive",
            "conv", "conv_layer", "folded_conv", "conv_bias", "activate", "bn_batch_moments",
            "bn_batch_moments_matmul", "bn_moments_from_sums", "bn_running_stats",
            "bn_running_moments", "bn_normalize", "resolve_bn_form", "BN_EPS", "BN_MOMENTUM",

@@ -7,6 +7,11 @@ by the stride.  Rows go in (anchor, row, col) order per head and the heads
 are concatenated — the reference's order, which NMS tie-breaking sees.
 
 Head maps are NHWC ``(B, g, g, A·(5+C))`` with channel ``a·(5+C)+k``.
+
+YOLOv4's grid-sensitive heads (``YoloSpec.scale_x_y`` = s ≠ 1, darknet's
+``scale_x_y``) stretch the centre's sigmoid about the cell's middle:
+``(σ(t)·s − (s−1)/2 + cell)·stride``.  At s = 1 nothing is computed for it,
+so YOLOv3's decode runs the same operations as before.
 """
 
 from __future__ import annotations
@@ -38,15 +43,23 @@ def _grid_anchors(anchors: Tuple[Tuple[float, float], ...], stride: float,
         return (torch.tensor(anchors, dtype=torch.float32) / stride).to(device)
 
 
+def grid_sensitive(xy: torch.Tensor, scale_x_y: float) -> torch.Tensor:
+    """The centre's sigmoid ``xy`` stretched by ``scale_x_y`` about 0.5
+    (``xy`` itself at 1)."""
+    if scale_x_y == 1.0:
+        return xy
+    return xy * scale_x_y - (scale_x_y - 1.0) / 2
+
+
 def decode_head(raw: torch.Tensor, anchors: Sequence[Tuple[float, float]],
-                img_dim: int, num_classes: int) -> torch.Tensor:
+                img_dim: int, num_classes: int, scale_x_y: float = 1.0) -> torch.Tensor:
     """Decode one NHWC head map into ``(B, A·g·g, 5+C)`` rows."""
     b, g = raw.shape[0], raw.shape[1]
     na, nch = len(anchors), 5 + num_classes
     stride = img_dim / g
     pred = raw.reshape(b, g, g, na, nch).permute(0, 3, 1, 2, 4)
 
-    xy = torch.sigmoid(pred[..., 0:2])
+    xy = grid_sensitive(torch.sigmoid(pred[..., 0:2]), scale_x_y)
     wh = pred[..., 2:4]
     conf = torch.sigmoid(pred[..., 4:5])
     cls = torch.sigmoid(pred[..., 5:])
@@ -63,7 +76,7 @@ def decode_all(head_maps: List[torch.Tensor], spec: GraphSpec,
                img_dim: int) -> torch.Tensor:
     """Decode and concatenate every head: ``(B, Σ_h A·g_h², 5+C)``."""
     specs = _yolo_specs(spec, len(head_maps))
-    return torch.cat([decode_head(m, ys.anchors, img_dim, ys.num_classes)
+    return torch.cat([decode_head(m, ys.anchors, img_dim, ys.num_classes, ys.scale_x_y)
                       for m, ys in zip(head_maps, specs)], dim=1)
 
 
@@ -123,7 +136,7 @@ def decode_topk(head_maps: List[torch.Tensor], spec: GraphSpec, img_dim: int,
         rows = torch.gather(m.reshape(b, g * g * na, nch), 1,
                             flat[..., None].expand(-1, -1, nch))
 
-        xy = torch.sigmoid(rows[..., 0:2])
+        xy = grid_sensitive(torch.sigmoid(rows[..., 0:2]), ys.scale_x_y)
         grid = torch.stack([c, r], dim=-1).to(torch.float32)
         cxy = (xy + grid) * stride
         wh = torch.exp(rows[..., 2:4]) * anc[a] * stride
@@ -142,18 +155,19 @@ def decode_topk(head_maps: List[torch.Tensor], spec: GraphSpec, img_dim: int,
 
 
 def head_grid_tensors(raw: torch.Tensor, anchors: Sequence[Tuple[float, float]],
-                      img_dim: int, num_classes: int) -> dict:
+                      img_dim: int, num_classes: int, scale_x_y: float = 1.0) -> dict:
     """Training-path decode (reference ``models/heads.py:198-238``): the
-    tensors the YOLO loss reads, each (B, A, g, g, ...) — sigmoid x/y,
-    raw w/h, sigmoid conf/cls, and pred boxes ``(cx, cy, w, h)`` in grid
-    units — plus the anchors in grid units, the stride and the grid size."""
+    tensors the YOLO loss reads, each (B, A, g, g, ...) — sigmoid x/y
+    (stretched by ``scale_x_y``), raw w/h, sigmoid conf/cls, and pred boxes
+    ``(cx, cy, w, h)`` in grid units — plus the anchors in grid units, the
+    stride and the grid size."""
     b, g = raw.shape[0], raw.shape[1]
     na = len(anchors)
     stride = img_dim / g
     pred = raw.reshape(b, g, g, na, 5 + num_classes).permute(0, 3, 1, 2, 4)
 
-    x = torch.sigmoid(pred[..., 0])
-    y = torch.sigmoid(pred[..., 1])
+    x = grid_sensitive(torch.sigmoid(pred[..., 0]), scale_x_y)
+    y = grid_sensitive(torch.sigmoid(pred[..., 1]), scale_x_y)
     w = pred[..., 2]
     h = pred[..., 3]
     conf = torch.sigmoid(pred[..., 4])
@@ -172,4 +186,5 @@ def head_grid_tensors(raw: torch.Tensor, anchors: Sequence[Tuple[float, float]],
             "grid_size": g}
 
 
-__all__ = ["decode_head", "decode_all", "decode_topk", "head_grid_tensors"]
+__all__ = ["decode_head", "decode_all", "decode_topk", "head_grid_tensors",
+           "grid_sensitive"]

@@ -68,7 +68,7 @@ def yolo_head_loss(raw: torch.Tensor, yolo: YoloSpec, img_dim: int,
                    target: torch.Tensor, target_mask: torch.Tensor, reducer: Reducer = None
                    ) -> Tuple[torch.Tensor, Metrics]:
     """Loss and metrics of one head's raw NHWC map (f32)."""
-    t = head_grid_tensors(raw, yolo.anchors, img_dim, yolo.num_classes)
+    t = head_grid_tensors(raw, yolo.anchors, img_dim, yolo.num_classes, yolo.scale_x_y)
     bt = build_targets(t["pred_boxes"], t["cls"], target, target_mask,
                        t["scaled_anchors"], yolo.ignore_thres)
     obj = bt["obj_mask"].to(torch.float32)

@@ -176,6 +176,8 @@ class Trainer:
             device = mesh.devices[0]
         self.device = resolve_device(device)
         self.spec = spec or yolov3_spec(num_classes=cfg.num_classes)
+        # the YOLOv3 loss and targets; YOLOv4's CIoU loss is not ported
+        darknet.refuse_grid_sensitive(self.spec, "the Trainer")
         data = parse_data_config(cfg.data_config)
         self.train_path = data["train"]
         self.valid_path = data["valid"]

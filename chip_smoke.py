@@ -34,7 +34,12 @@ Phases (any failure exits non-zero; nothing is caught):
    numpy seed carried over with ``params_from_jax``, 3 batches of 8 tiles.
    Launch counts must be 3 (K1), 69 (K2) and 0 (K3), and 87 of the library
    convs' epilogue (29 a call); head maps through the kernels must match the
-   plain path on the card; outputs finite, (8, 64, 7) and (8, 64);
+   plain path on the card; outputs finite, (8, 64, 7) and (8, 64).  Then
+   one call of a bf16 ``Detector`` of YOLOv4 at 608
+   (``benchmark/configs/yolov4-amyloid-608.cfg``, weights from the
+   Detector's seed) on the first batch, both epilogue counters set to 0
+   just before: 72 launches of the Mish epilogue and 38 of the leaky one,
+   K1 once, K2 and K3 never, outputs as above;
 7. the int8 Detectors, ``precision="int8_full"`` and ``"int8_early"``, on
    the same weights, calibrated on the first batch, then 3 batches of 8:
    launch counts 3 (K1), 0 (K2), 0 (K3); outputs finite and shaped as
@@ -60,7 +65,11 @@ Phases (any failure exits non-zero; nothing is caught):
    3×3 each K2 stage ran (``conv3x3_path``: ``wgmma`` or ``mma.sync``); the
    library convs' epilogue (``kernels/bias_leaky.py``) at the 29 conv
    outputs of a B=64 call, bit-exact to its plain version on each and timed
-   beside it and its bytes bound (:func:`epilogue_rows`).  Every
+   beside it and its bytes bound (:func:`epilogue_rows`); its Mish form
+   (``bias_mish``) at the 72 Mish conv outputs of a B=64 YOLOv4 call at
+   608, within one bf16 ulp of its plain version on each (the share of
+   elements that differ recorded) and timed the same way
+   (:func:`mish_rows`).  Every
    trace behind a printed device-busy, idle-share or launch figure (here
    and in phases 10, 11, 16, 17 and the BN tool of 18 (e)) is warmed (a
    dropped warm-up step) and checked complete: it must keep a device record
@@ -301,7 +310,8 @@ Phases (any failure exits non-zero; nothing is caught):
    dispatch's and the worker's parts in ``save_walls``) and its file equal
    to the live state;
 19. one JSON line ``{"kernels": [...]}`` (with each kernel's launches on
-   every path above; the epilogue's on phase 6's), the ``nvidia-smi`` line,
+   every path above; the epilogue's on phase 6's, the Mish epilogue's on
+   its YOLOv4 call), the ``nvidia-smi`` line,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -346,6 +356,8 @@ K3_SCALES = (0.011, 0.017, 0.023)            # sx, s1, s_out of the reference to
 CAA_TOL = 1e-3                               # classifier probabilities, card vs CPU f32
 FOLDER = dict(n_tiles=37, side=1536, border=(1000, 1536), blank=2)
 EPILOGUE_BATCH = 64                          # the detect-416-b64 cell's batch
+MISH_BATCH = 64                              # the detect-v4-608-b64 cell's batch
+V4_CFG = os.path.join(REPO, "benchmark", "configs", "yolov4-amyloid-608.cfg")
 # A trace is complete when it kept a device record for each of the host's
 # launch calls but this many a Detector call or train micro-step: the
 # cudaMemsetAsync that one cuDNN convolution of each bf16 Detector call
@@ -618,6 +630,60 @@ def epilogue_rows(spec, dev, gen, card: str, batch: int = EPILOGUE_BATCH) -> lis
         if not exact:
             raise AssertionError(f"the epilogue kernel differs from its plain version at "
                                  f"conv {i}, B={batch}")
+        del x
+    return rows
+
+
+def bf16_ulps(got, want):
+    """The distance of two bf16 tensors in bf16 steps (the sign-magnitude
+    order of their bits)."""
+    import torch
+
+    def order(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (order(got) - order(want)).abs()
+
+
+def mish_rows(dev, gen, card: str, batch: int = MISH_BATCH) -> list:
+    """The bias-and-Mish epilogue at each of YOLOv4's 72 Mish conv outputs,
+    at ``batch`` and 608 in bf16 channels_last: the kernel on a copy of a
+    random map against the plain version, within one bf16 ulp (the share
+    of elements that differ at all is recorded), then the kernel's time (in
+    place, over and over), the plain version's and the bound (the map read
+    and written once at 3.35 TB/s)."""
+    import torch
+    from amyloid_yolo_tpu_torch.graphspec import ConvSpec, from_cfg
+    from amyloid_yolo_tpu_torch.kernels.bias_leaky import bias_mish, bias_mish_plain
+    from amyloid_yolo_tpu_torch.parallel.spatial import layer_strides
+    spec = from_cfg(V4_CFG)
+    rows = []
+    for i, (layer, stride) in enumerate(zip(spec.layers, layer_strides(spec))):
+        if not (isinstance(layer, ConvSpec) and layer.activation == "mish"):
+            continue
+        side, c = 608 // stride, layer.out_ch
+        x = (3 * torch.randn(batch, c, side, side, device=dev, generator=gen)).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        b = torch.randn(c, device=dev, generator=gen).to(torch.bfloat16)
+        want = bias_mish_plain(x, b)
+        got = bias_mish(x.clone(memory_format=torch.channels_last), b)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(got, want)
+        max_ulps, differ = int(ulps.max()), int((ulps > 0).sum())
+        max_abs = (got.float() - want.float()).abs().max().item()
+        del want, got, ulps
+        ms = cuda_ms(lambda: bias_mish(x, b))
+        plain_ms = cuda_ms(lambda: bias_mish_plain(x, b))
+        bound = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+        rows.append({"conv": i, "shape": f"{batch}x{c}x{side}x{side}", "elements": x.numel(),
+                     "differ": differ, "max_ulps": max_ulps, "max_abs_diff": max_abs,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound})
+        print(f"Mish epilogue conv {i} B={batch} {c}x{side}x{side}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes); {differ} of {x.numel()} "
+              f"elements differ, at most {max_ulps} bf16 ulp [{card}]", flush=True)
+        if max_ulps > 1:
+            raise AssertionError(f"the Mish epilogue is {max_ulps} bf16 ulps from its plain "
+                                 f"version at conv {i}, B={batch}")
         del x
     return rows
 
@@ -4645,10 +4711,10 @@ def main() -> int:
     import torch.nn.functional as F
 
     from amyloid_yolo_tpu_torch.detectors import Detector
-    from amyloid_yolo_tpu_torch.graphspec import yolov3_spec
+    from amyloid_yolo_tpu_torch.graphspec import from_cfg, yolov3_spec
     from amyloid_yolo_tpu_torch.io.weights import params_from_jax
     from amyloid_yolo_tpu_torch.kernels import _build, launch_counts, reset_launch_counts
-    from amyloid_yolo_tpu_torch.kernels import bias_leaky, conv_block
+    from amyloid_yolo_tpu_torch.kernels import bias_leaky, bias_mish, conv_block
     from amyloid_yolo_tpu_torch.kernels.conv_block import (
         K2, conv3x3_path, fused_residual_block, fused_residual_block_plain, unit_flops)
     from amyloid_yolo_tpu_torch.kernels import int8_block
@@ -4745,6 +4811,17 @@ def main() -> int:
           flush=True)
     if epilogue_launches != 87:
         raise AssertionError(f"the epilogue ran {epilogue_launches} times over 3 calls, want 87")
+    det_v4 = Detector(from_cfg(V4_CFG), model_size=608, seed=SEED)
+    bias_leaky.launches = bias_mish.launches = 0
+    drive(det_v4, batches[:1], {"resize_normalize": 1, "fused_residual_block": 0,
+                                "fused_residual_block_int8": 0})
+    v4_epilogues = {"bias_mish": bias_mish.launches, "bias_leaky": bias_leaky.launches}
+    print(f"YOLOv4 bf16 Detector epilogue launches over one call: {v4_epilogues} "
+          "(want 72 and 38)", flush=True)
+    if v4_epilogues != {"bias_mish": 72, "bias_leaky": 38}:
+        raise AssertionError(f"a YOLOv4 call ran the epilogues {v4_epilogues}, want 72 Mish "
+                             "and 38 leaky")
+    del det_v4
 
     with torch.inference_mode():
         tiles = torch.from_numpy(batches[0]).to(dev)
@@ -4948,6 +5025,14 @@ def main() -> int:
               f"{sum(r['ms'] for r in epilogue):.4f} ms, plain "
               f"{sum(r['plain_ms'] for r in epilogue):.4f} ms, bound "
               f"{sum(r['bound_ms'] for r in epilogue):.4f} ms (bytes) [{card}]", flush=True)
+        mish = mish_rows(dev, gen, card)
+        mish_differ = sum(r["differ"] for r in mish) / sum(r["elements"] for r in mish)
+        print(f"Mish epilogue {len(mish)} convs of a B={MISH_BATCH} call at 608: kernel "
+              f"{sum(r['ms'] for r in mish):.4f} ms, plain "
+              f"{sum(r['plain_ms'] for r in mish):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in mish):.4f} ms (bytes); "
+              f"{100 * mish_differ:.6f}% of the elements differ, by one bf16 ulp [{card}]",
+              flush=True)
 
     # 10. the folder path
     starts["10"] = time.perf_counter()
@@ -5083,6 +5168,21 @@ def main() -> int:
          "library_ms": None,
          "shape": f"the {len(epilogue)} conv outputs outside the residual units of one "
                   f"B={EPILOGUE_BATCH} call", "convs": epilogue},
+        {"name": "bias_mish", "route": "cuda",
+         "source": "amyloid_yolo_tpu_torch/csrc/bias_leaky.cu",
+         "replaces": None,  # the Mish form of the epilogue, for YOLOv4's CSPDarknet53
+         "launches": v4_epilogues["bias_mish"],
+         "launches_per_call": v4_epilogues["bias_mish"],
+         "max_abs_err": max(r["max_abs_diff"] for r in mish),
+         "max_abs_diff": max(r["max_abs_diff"] for r in mish),
+         "max_ulps": max(r["max_ulps"] for r in mish), "differ_share": mish_differ,
+         "tol": "one bf16 ulp",
+         "ms": sum(r["ms"] for r in mish), "kernel_ms": sum(r["ms"] for r in mish),
+         "plain_ms": sum(r["plain_ms"] for r in mish),
+         "bound_ms": sum(r["bound_ms"] for r in mish), "bound_by": "bytes",
+         "library_ms": None,
+         "shape": f"the {len(mish)} Mish conv outputs of one B={MISH_BATCH} YOLOv4 call at 608",
+         "convs": mish},
     ]
     detector["int8_division_flips"] = int8_flips
     ends = [*list(starts.values())[1:], time.perf_counter()]

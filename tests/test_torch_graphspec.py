@@ -19,9 +19,18 @@ CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
                       "amyloid_yolo_tpu", "config")
 
 
+def _layer_fields(layer) -> dict:
+    """A layer's fields; the port's ``YoloSpec.scale_x_y`` (YOLOv4's, which
+    the JAX package lacks) left out where it is 1, YOLOv3's decode."""
+    d = dataclasses.asdict(layer)
+    if isinstance(layer, port_gs.YoloSpec) and d["scale_x_y"] == 1.0:
+        del d["scale_x_y"]
+    return d
+
+
 def _as_plain(spec):
     return (dataclasses.asdict(spec.net),
-            [(type(l).__name__, dataclasses.asdict(l)) for l in spec.layers],
+            [(type(l).__name__, _layer_fields(l)) for l in spec.layers],
             spec.out_channels, spec.consumers)
 
 
