@@ -215,6 +215,7 @@ class Detector:
         self._int8_upto = (darknet.int8_region(self.spec, int8_downsample)
                            if precision == "int8_early" else 0)
         self.packs: Optional[darknet.Packs] = None
+        self.spp = darknet.spp_blocks(self.spec)   # the folded forward's SPP blocks
         self._qparams: Optional[darknet.QParams] = None
         self._folded_cpu: Optional[darknet.Folded] = None
         s2d = s2d_downs = None
@@ -326,7 +327,7 @@ class Detector:
             if not self.fold_bn:
                 return darknet.apply(rep.params, self.spec, x, compute_dtype=cd)
             return darknet.apply_folded(rep.params, self.spec, x, compute_dtype=cd,
-                                        packs=rep.packs, s2d_stem=rep.s2d)
+                                        packs=rep.packs, s2d_stem=rep.s2d, spp=self.spp)
 
     @torch.inference_mode()
     def calibrate(self, tiles_u8, *, accumulate: bool = False,

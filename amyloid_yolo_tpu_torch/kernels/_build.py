@@ -33,7 +33,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("resize_normalize", "conv_block", "int8_block", "bias_leaky")
+SOURCES = ("resize_normalize", "conv_block", "int8_block", "bias_leaky", "spp_pool")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -37,7 +37,9 @@ with those roundings (``kernels/bias_leaky.py``; Mish there to one bf16 ulp).
 The int8 executors and the s2d stem take YOLOv3's leaky convs only and refuse
 a graph with Mish convs or grid-sensitive heads.  Every fusible
 residual unit (all 23 of YOLOv3, the 64-channel one included) goes through
-K2 when packs are given.
+K2 when packs are given; every SPP block given to the folded forward
+(YOLOv4's stride-1 pools and their route, :func:`spp_blocks`) is one pass
+of ``kernels/spp_pool.py`` whose output equals the layers' bit for bit.
 
 int8 contract (:mod:`amyloid_yolo_tpu_torch.ops.int8`): int8 convolutions
 are exact int32 sums (``torch._int_mm``), rounded to bf16 where the
@@ -54,7 +56,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +74,7 @@ from ..graphspec import (
 from ..io.weights import StateDict, _bn_key, _conv_key, _np32
 from ..kernels.bias_leaky import bias_leaky, bias_mish, leaky_where as _leaky, mish_wide
 from ..kernels.conv_block import LEAKY_SLOPE, fused_residual_block, pack_block_weights
+from ..kernels.spp_pool import MAX_KERNEL, MAX_POOLS, spp_pool
 from ..ops import bnstats
 from ..ops import int8 as q8
 from ..utils.device import no_tf32
@@ -162,6 +165,56 @@ def fusible_residual_blocks(spec: GraphSpec) -> Dict[int, Tuple[int, int, int]]:
         if spec.consumers[i] - {i + 1} or spec.consumers[i + 1] - {i + 2}:
             continue
         blocks[i] = (i, i + 1, i + 2)
+    return blocks
+
+
+class SppBlock(NamedTuple):
+    """A spatial pyramid pooling block (YOLOv4's SPP): stride-1 pools of
+    odd ``kernels`` over layer ``input``, joined with it by the route at
+    index ``route`` in the ``order`` of its members (a pool's position in
+    ``kernels``, ``-1`` for the input)."""
+
+    input: int
+    kernels: Tuple[int, ...]
+    order: Tuple[int, ...]
+    route: int
+
+
+def spp_blocks(spec: GraphSpec) -> Dict[int, SppBlock]:
+    """Map the first pool's index → :class:`SppBlock` for every run of
+    layers that is: a stride-1 max-pool of an odd kernel from 3 to
+    ``MAX_KERNEL`` over the layer before it; up to ``MAX_POOLS - 1``
+    ``[route]`` layers back to that input, each followed by another such
+    pool; a route whose members are those pools and the input, each once,
+    in any order; and no layer but that route reading a pool or one of the
+    routes back.  Those are the blocks :func:`~..kernels.spp_pool.spp_pool`
+    takes on any map."""
+    layers = spec.layers
+
+    def pool(j: int) -> bool:
+        l = layers[j] if j < len(layers) else None
+        return (isinstance(l, MaxPoolSpec) and l.stride == 1 and l.kernel % 2 == 1
+                and 3 <= l.kernel <= MAX_KERNEL)
+
+    blocks: Dict[int, SppBlock] = {}
+    taken = -1
+    for i in [i for i, l in enumerate(layers) if isinstance(l, MaxPoolSpec)]:
+        if i <= taken or i == 0 or not pool(i):
+            continue
+        src, pools, j = i - 1, [i], i + 1
+        while (isinstance(layers[j] if j < len(layers) else None, RouteSpec)
+               and layers[j].layers == (src,) and pool(j + 1)):
+            pools.append(j + 1)
+            j += 2
+        end = layers[j] if j < len(layers) else None
+        if (len(pools) <= MAX_POOLS and isinstance(end, RouteSpec)
+                and sorted(end.layers) == sorted([src, *pools])
+                and all(spec.consumers[p] == {j} for p in pools)
+                and not any(spec.consumers[p - 1] for p in pools[1:])):
+            blocks[i] = SppBlock(src, tuple(layers[p].kernel for p in pools),
+                                 tuple(-1 if m == src else pools.index(m) for m in end.layers),
+                                 j)
+            taken = j
     return blocks
 
 
@@ -484,7 +537,8 @@ def apply_folded(folded: Folded, spec: GraphSpec, x: torch.Tensor, *,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  packs: Optional[Packs] = None,
                  block_fn: Callable[..., torch.Tensor] = fused_residual_block,
-                 s2d_stem: Optional[Folded] = None) -> List[torch.Tensor]:
+                 s2d_stem: Optional[Folded] = None,
+                 spp: Optional[Mapping[int, SppBlock]] = None) -> List[torch.Tensor]:
     """Inference forward over BN-folded params; returns the f32 NHWC map at
     each yolo layer.
 
@@ -494,41 +548,51 @@ def apply_folded(folded: Folded, spec: GraphSpec, x: torch.Tensor, *,
     its plain version to compare with.  Without packs every layer runs
     unfused.  ``s2d_stem`` (:func:`make_s2d_stem`) computes layers 0-1 on
     the space-to-depth grid (:func:`s2d_stem_forward`); the residual units
-    from layer 2 on are unchanged.
+    from layer 2 on are unchanged.  ``spp`` (:func:`spp_blocks`) sends each
+    SPP block through :func:`~..kernels.spp_pool.spp_pool`; without it the
+    pools and their route run layer by layer.
     """
     x = x.to(compute_dtype)
     if s2d_stem is None:
         return _folded_layers(folded, spec, _cl(_nchw(x)), {}, 0, compute_dtype, packs,
-                              block_fn)
+                              block_fn, spp)
     prev = s2d_stem_forward(s2d_stem, x, compute_dtype)
     saved = {1: prev} if 1 in _last_use(spec) else {}
-    return _folded_layers(folded, spec, prev, saved, 2, compute_dtype, packs, block_fn)
+    return _folded_layers(folded, spec, prev, saved, 2, compute_dtype, packs, block_fn, spp)
 
 
 def _folded_layers(folded: Folded, spec: GraphSpec, prev: torch.Tensor,
                    saved: Dict[int, torch.Tensor], start: int,
                    compute_dtype: torch.dtype, packs: Optional[Packs] = None,
                    block_fn: Callable[..., torch.Tensor] = fused_residual_block,
+                   spp: Optional[Mapping[int, SppBlock]] = None,
                    ) -> List[torch.Tensor]:
     """Layers ``start..`` of the folded forward from the NCHW map ``prev``
-    and the live activations ``saved``."""
+    and the live activations ``saved``.  Each block of ``spp``
+    (:func:`spp_blocks`) runs as one :func:`~..kernels.spp_pool.spp_pool`
+    from its first pool to its route."""
     last_use = _last_use(spec)
+    spp = spp or {}
     head_maps: List[torch.Tensor] = []
     skip_until = -1
     for i, layer in enumerate(spec.layers):
         if i < start or i < skip_until:
             continue
+        end = None
         if packs is not None and i in packs:
-            xin = _nhwc(_cl(prev))
-            out = _nchw(block_fn(xin, *packs[i]))
-            i_sc = i + 2  # liveness bookkeeping happens at the shortcut index
-            if i_sc in last_use:
-                saved[i_sc] = out
+            out = _nchw(block_fn(_nhwc(_cl(prev)), *packs[i]))
+            end = i + 2  # liveness bookkeeping happens at the shortcut index
+        elif i in spp:
+            out = spp_pool(prev, spp[i].kernels, spp[i].order)
+            end = spp[i].route
+        if end is not None:
+            if end in last_use:
+                saved[end] = out
             for k in [k for k, lu in last_use.items()
-                      if i <= lu <= i_sc and k in saved and k != i_sc]:
+                      if i <= lu <= end and k in saved and k != end]:
                 del saved[k]
             prev = out
-            skip_until = i + 3
+            skip_until = end + 1
             continue
         if isinstance(layer, ConvSpec):
             out = folded_conv(folded, i, layer, prev, compute_dtype)

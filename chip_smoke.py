@@ -38,8 +38,9 @@ Phases (any failure exits non-zero; nothing is caught):
    one call of a bf16 ``Detector`` of YOLOv4 at 608
    (``benchmark/configs/yolov4-amyloid-608.cfg``, weights from the
    Detector's seed) on the first batch, both epilogue counters set to 0
-   just before: 72 launches of the Mish epilogue and 38 of the leaky one,
-   K1 once, K2 and K3 never, outputs as above;
+   just before: 72 launches of the Mish epilogue, 38 of the leaky one and
+   1 of the SPP block's kernel (none in the YOLOv3 calls before it), K1
+   once, K2 and K3 never, outputs as above;
 7. the int8 Detectors, ``precision="int8_full"`` and ``"int8_early"``, on
    the same weights, calibrated on the first batch, then 3 batches of 8:
    launch counts 3 (K1), 0 (K2), 0 (K3); outputs finite and shaped as
@@ -69,7 +70,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (``bias_mish``) at the 72 Mish conv outputs of a B=64 YOLOv4 call at
    608, within one bf16 ulp of its plain version on each (the share of
    elements that differ recorded) and timed the same way
-   (:func:`mish_rows`).  Every
+   (:func:`mish_rows`); YOLOv4's SPP block (``kernels/spp_pool.py``) on its
+   B=64 input at 608, bit-exact to its plain version (the pools and the
+   cat) and timed beside it and its bytes bound (:func:`spp_rows`).  Every
    trace behind a printed device-busy, idle-share or launch figure (here
    and in phases 10, 11, 16, 17 and the BN tool of 18 (e)) is warmed (a
    dropped warm-up step) and checked complete: it must keep a device record
@@ -684,6 +687,51 @@ def mish_rows(dev, gen, card: str, batch: int = MISH_BATCH) -> list:
         if max_ulps > 1:
             raise AssertionError(f"the Mish epilogue is {max_ulps} bf16 ulps from its plain "
                                  f"version at conv {i}, B={batch}")
+        del x
+    return rows
+
+
+def spp_rows(dev, gen, card: str, batch: int = MISH_BATCH) -> list:
+    """YOLOv4's SPP block (``kernels/spp_pool.py``) at each of its blocks'
+    inputs at ``batch`` and 608 in bf16 channels_last: the kernel against
+    the plain version (its pools and the route's cat) bit for bit, on
+    random values and on values that tie ``-0.0`` with ``+0.0`` among
+    ``-inf`` and NaN; then the kernel's time, the plain version's and the
+    bound (the input read once and the joined map written once at
+    3.35 TB/s)."""
+    import torch
+    from amyloid_yolo_tpu_torch.graphspec import from_cfg
+    from amyloid_yolo_tpu_torch.kernels.spp_pool import spp_pool, spp_pool_plain
+    from amyloid_yolo_tpu_torch.models.darknet import spp_blocks
+    from amyloid_yolo_tpu_torch.parallel.spatial import layer_strides
+    spec = from_cfg(V4_CFG)
+    strides = layer_strides(spec)
+    rows = []
+    for i, blk in spp_blocks(spec).items():
+        side, c = 608 // strides[blk.input], spec.out_channels[blk.input]
+        x = (3 * torch.randn(batch, c, side, side, device=dev, generator=gen)).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        u = torch.rand(x.shape, device=dev, generator=gen)
+        ties = torch.where(u < 0.3, torch.where(u < 0.15, -0.0, 0.0), -u)
+        ties = torch.where(u > 0.995, float("nan"), torch.where(
+            (u > 0.5) & (u < 0.52), float("-inf"), ties)).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        exact = all(torch.equal(spp_pool(v, blk.kernels, blk.order).view(torch.int16),
+                                spp_pool_plain(v, blk.kernels, blk.order).view(torch.int16))
+                    for v in (x, ties))
+        del ties, u
+        ms = cuda_ms(lambda: spp_pool(x, blk.kernels, blk.order))
+        plain_ms = cuda_ms(lambda: spp_pool_plain(x, blk.kernels, blk.order))
+        bound = (1 + len(blk.order)) * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+        rows.append({"pools": i, "shape": f"{batch}x{c}x{side}x{side}",
+                     "kernels": list(blk.kernels), "bit_exact": exact, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound})
+        print(f"SPP layers {i}-{blk.route} B={batch} {c}x{side}x{side} pools "
+              f"{list(blk.kernels)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms (bytes); bit-exact {exact} [{card}]", flush=True)
+        if not exact:
+            raise AssertionError(f"the SPP kernel differs from its plain version at layers "
+                                 f"{i}-{blk.route}, B={batch}")
         del x
     return rows
 
@@ -4714,7 +4762,7 @@ def main() -> int:
     from amyloid_yolo_tpu_torch.graphspec import from_cfg, yolov3_spec
     from amyloid_yolo_tpu_torch.io.weights import params_from_jax
     from amyloid_yolo_tpu_torch.kernels import _build, launch_counts, reset_launch_counts
-    from amyloid_yolo_tpu_torch.kernels import bias_leaky, bias_mish, conv_block
+    from amyloid_yolo_tpu_torch.kernels import bias_leaky, bias_mish, conv_block, spp_pool
     from amyloid_yolo_tpu_torch.kernels.conv_block import (
         K2, conv3x3_path, fused_residual_block, fused_residual_block_plain, unit_flops)
     from amyloid_yolo_tpu_torch.kernels import int8_block
@@ -4811,16 +4859,19 @@ def main() -> int:
           flush=True)
     if epilogue_launches != 87:
         raise AssertionError(f"the epilogue ran {epilogue_launches} times over 3 calls, want 87")
+    if spp_pool.launches != 0:
+        raise AssertionError(f"the YOLOv3 calls ran the SPP kernel {spp_pool.launches} times")
     det_v4 = Detector(from_cfg(V4_CFG), model_size=608, seed=SEED)
     bias_leaky.launches = bias_mish.launches = 0
     drive(det_v4, batches[:1], {"resize_normalize": 1, "fused_residual_block": 0,
                                 "fused_residual_block_int8": 0})
-    v4_epilogues = {"bias_mish": bias_mish.launches, "bias_leaky": bias_leaky.launches}
-    print(f"YOLOv4 bf16 Detector epilogue launches over one call: {v4_epilogues} "
-          "(want 72 and 38)", flush=True)
-    if v4_epilogues != {"bias_mish": 72, "bias_leaky": 38}:
-        raise AssertionError(f"a YOLOv4 call ran the epilogues {v4_epilogues}, want 72 Mish "
-                             "and 38 leaky")
+    v4_epilogues = {"bias_mish": bias_mish.launches, "bias_leaky": bias_leaky.launches,
+                    "spp_pool": spp_pool.launches}
+    print(f"YOLOv4 bf16 Detector epilogue and SPP launches over one call: {v4_epilogues} "
+          "(want 72, 38 and 1)", flush=True)
+    if v4_epilogues != {"bias_mish": 72, "bias_leaky": 38, "spp_pool": 1}:
+        raise AssertionError(f"a YOLOv4 call ran {v4_epilogues}, want 72 Mish epilogues, "
+                             "38 leaky ones and 1 SPP pass")
     del det_v4
 
     with torch.inference_mode():
@@ -5033,6 +5084,7 @@ def main() -> int:
               f"{sum(r['bound_ms'] for r in mish):.4f} ms (bytes); "
               f"{100 * mish_differ:.6f}% of the elements differ, by one bf16 ulp [{card}]",
               flush=True)
+        spp = spp_rows(dev, gen, card)
 
     # 10. the folder path
     starts["10"] = time.perf_counter()
@@ -5183,6 +5235,16 @@ def main() -> int:
          "library_ms": None,
          "shape": f"the {len(mish)} Mish conv outputs of one B={MISH_BATCH} YOLOv4 call at 608",
          "convs": mish},
+        {"name": "spp_pool", "route": "cuda",
+         "source": "amyloid_yolo_tpu_torch/csrc/spp_pool.cu",
+         "replaces": None,  # XLA ran YOLOv4's pools and their concatenate
+         "launches": v4_epilogues["spp_pool"], "launches_per_call": v4_epilogues["spp_pool"],
+         "max_abs_err": 0, "max_abs_diff": 0, "tol": "bit-exact",
+         "ms": sum(r["ms"] for r in spp), "kernel_ms": sum(r["ms"] for r in spp),
+         "plain_ms": sum(r["plain_ms"] for r in spp),
+         "bound_ms": sum(r["bound_ms"] for r in spp), "bound_by": "bytes",
+         "library_ms": sum(r["plain_ms"] for r in spp),
+         "shape": f"the SPP block of one B={MISH_BATCH} YOLOv4 call at 608", "blocks": spp},
     ]
     detector["int8_division_flips"] = int8_flips
     ends = [*list(starts.values())[1:], time.perf_counter()]
