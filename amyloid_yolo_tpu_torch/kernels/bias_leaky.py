@@ -40,7 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_block import LEAKY_SLOPE
+
+#: the leaky ReLU's slope, the reference's ``0.1``
+LEAKY_SLOPE = 0.1
 
 _P = ctypes.c_void_p
 
@@ -56,7 +58,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def leaky_where(v: torch.Tensor) -> torch.Tensor:
-    # the slope is rounded to v's dtype first, as jnp's weakly typed 0.1 is
+    # the slope is rounded to v's dtype first, as jnp's weakly typed 0.1 is;
+    # in float32 that is the product with the Python float
     return torch.where(v >= 0, v, v * torch.tensor(LEAKY_SLOPE, dtype=v.dtype))
 
 
@@ -142,4 +145,4 @@ bias_leaky.launches = 0
 bias_mish.launches = 0
 
 __all__ = ["bias_leaky", "bias_leaky_plain", "bias_mish", "bias_mish_plain", "leaky_where",
-           "mish_wide"]
+           "mish_wide", "LEAKY_SLOPE"]

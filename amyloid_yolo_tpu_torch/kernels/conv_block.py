@@ -66,8 +66,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .bias_leaky import LEAKY_SLOPE, leaky_where
 
-LEAKY_SLOPE = 0.1
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on Hopper
 MAX_STRIP = 8
 
@@ -153,10 +153,6 @@ def pack_block_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
             w2t, b2.to(torch.float32).contiguous())
 
 
-def _leaky(v: torch.Tensor) -> torch.Tensor:
-    return torch.where(v >= 0, v, v * LEAKY_SLOPE)
-
-
 def fused_residual_block_plain(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
                                w2t: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K2 on NHWC ``x``: every product in f32 (x and the
@@ -165,10 +161,10 @@ def fused_residual_block_plain(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Ten
     f32 = torch.float32
     c2, c = w1t.shape
     xf = x.to(f32)
-    h = _leaky(xf @ w1t.to(f32).t() + b1.to(f32)).to(x.dtype).to(f32)
+    h = leaky_where(xf @ w1t.to(f32).t() + b1.to(f32)).to(x.dtype).to(f32)
     w2 = w2t.to(f32).reshape(3, 3, c, c2).permute(2, 3, 0, 1)
     acc = F.conv2d(h.permute(0, 3, 1, 2), w2, padding=1).permute(0, 2, 3, 1)
-    return (xf + _leaky(acc + b2.to(f32))).to(x.dtype)
+    return (xf + leaky_where(acc + b2.to(f32))).to(x.dtype)
 
 
 def conv3x3_path(c: int) -> str:

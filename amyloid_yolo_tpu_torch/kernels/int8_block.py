@@ -58,9 +58,8 @@ import torch
 from ..graphspec import GraphSpec
 from ..ops.int8 import conv_int8, int_mm, requant
 from . import _build
+from .bias_leaky import leaky_where
 from .conv_block import KernelDesc, Plan, fits_in_smem, plan_launch, sm_count, smem_bytes
-
-LEAKY_SLOPE = 0.1
 
 # The planner's cost model for this kernel (see conv_block.COST_MODEL):
 # (SM int8 op/s with 32-channel warps, with 64-channel warps, s per k-step,
@@ -120,10 +119,6 @@ def pack_int8_block(w1q: torch.Tensor, ws1: torch.Tensor, b1: torch.Tensor,
             ws2.to(f32).contiguous(), b2.to(f32).contiguous())
 
 
-def _leaky(v: torch.Tensor) -> torch.Tensor:
-    return torch.where(v >= 0, v, v * LEAKY_SLOPE)
-
-
 def fused_residual_block_int8_plain(xq: torch.Tensor, w1t: torch.Tensor,
                                     a1: torch.Tensor, b1: torch.Tensor,
                                     w2t: torch.Tensor, a2: torch.Tensor,
@@ -136,10 +131,10 @@ def fused_residual_block_int8_plain(xq: torch.Tensor, w1t: torch.Tensor,
     c2 = w1t.shape[0]
     f32 = torch.float32
     acc1 = int_mm(xq.reshape(-1, c), w1t)
-    hq = requant(_leaky(acc1.to(f32) * a1 + b1), s1).reshape(b, h, w, c2)
+    hq = requant(leaky_where(acc1.to(f32) * a1 + b1), s1).reshape(b, h, w, c2)
     w2 = w2t.reshape(3, 3, c, c2).permute(2, 3, 0, 1)  # OIHW view
     acc2 = conv_int8(hq, w2, 1, 1).reshape(-1, c)
-    y = _leaky(acc2.to(f32) * a2 + b2) + xq.reshape(-1, c).to(f32) * sx
+    y = leaky_where(acc2.to(f32) * a2 + b2) + xq.reshape(-1, c).to(f32) * sx
     return requant(y, s_out).reshape(b, h, w, c)
 
 
@@ -250,4 +245,4 @@ def c_blocks_per_sm(c: int, plan: Plan, smem: int) -> int:
 
 __all__ = ["fused_residual_block_int8", "fused_residual_block_int8_plain",
            "pack_int8_block", "pack_model_int8_units", "Int8Unit", "K3", "COST_MODEL",
-           "PLAN_TIMES", "c_smem_bytes", "c_blocks_per_sm", "LEAKY_SLOPE"]
+           "PLAN_TIMES", "c_smem_bytes", "c_blocks_per_sm"]

@@ -16,9 +16,14 @@ Counterpart of the reference package's ``models/darknet.py``:
 True)``, ``:215-240``), the s2d downsample of ``int8_full``
 (:func:`make_s2d_down_int8`), the planar input (``apply(input_layout=
 "planar")``) and the BN statistics as matrix products (``apply(bn_form=
-"matmul")``, :mod:`..ops.bnstats`).  The float layer loops call per-layer
-functions (:func:`conv`, the BN steps, :func:`folded_conv`), which the
-height-sharded runner of ``parallel/spatial.py`` calls on each shard.
+"matmul")``, :mod:`..ops.bnstats`).
+
+Every forward, the height-sharded one of ``parallel/spatial.py`` included,
+runs the graph through :func:`walk`, which keeps each value while a later
+layer reads it and takes a fused kernel (a K2 residual unit, an SPP block,
+the s2d stem) as one run of layers.  A forward gives it one per-layer
+step, built on the per-layer functions (:func:`conv`, the BN steps,
+:func:`folded_conv`, :func:`plain_layer`).
 
 Layout: float activations are NCHW tensors in ``channels_last`` memory —
 physically NHWC, which is what the kernels K1 and K2 read and write, and
@@ -72,8 +77,9 @@ from ..graphspec import (
     YoloSpec,
 )
 from ..io.weights import StateDict, _bn_key, _conv_key, _np32
-from ..kernels.bias_leaky import bias_leaky, bias_mish, leaky_where as _leaky, mish_wide
-from ..kernels.conv_block import LEAKY_SLOPE, fused_residual_block, pack_block_weights
+from ..kernels.bias_leaky import (LEAKY_SLOPE, bias_leaky, bias_mish, leaky_where as _leaky,
+                                  mish_wide)
+from ..kernels.conv_block import fused_residual_block, pack_block_weights
 from ..kernels.spp_pool import MAX_KERNEL, MAX_POOLS, spp_pool
 from ..ops import bnstats
 from ..ops import int8 as q8
@@ -229,41 +235,86 @@ def pack_residual_blocks(folded: Folded, spec: GraphSpec,
     }
 
 
-def _wide(x: torch.Tensor) -> torch.Tensor:
+def widen(x: torch.Tensor) -> torch.Tensor:
     """At least float32: widens bf16 without narrowing a float64 forward."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def _maxpool(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    # kernel-2/stride-1 pools get the reference's (0,1,0,1) ZERO pad
-    # (models.py:50-51); symmetric (k-1)//2 padding of -inf otherwise
+def pool_padding(kernel: int, stride: int) -> Tuple[int, int, float]:
+    """A max pool's padding on each axis: ``(before, after, value)``.  A
+    kernel-2/stride-1 pool gets the reference's zero row and column after
+    the map (``models.py:50-51``); any other pool ``(k − 1)//2`` of −inf
+    on both sides."""
     if kernel == 2 and stride == 1:
-        return F.max_pool2d(F.pad(x, (0, 1, 0, 1)), kernel, stride)
-    return F.max_pool2d(x, kernel, stride, padding=(kernel - 1) // 2)
+        return 0, 1, 0.0
+    return (kernel - 1) // 2, (kernel - 1) // 2, float("-inf")
 
 
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
+def _maxpool(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    before, after, value = pool_padding(kernel, stride)
+    if value == 0.0:
+        return F.max_pool2d(F.pad(x, (before, after, before, after)), kernel, stride)
+    return F.max_pool2d(x, kernel, stride, padding=before)  # pads with −inf itself
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _nchw(x: torch.Tensor) -> torch.Tensor:
+def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def _cl(x: torch.Tensor) -> torch.Tensor:
+def channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
-def _last_use(spec: GraphSpec) -> Dict[int, int]:
-    """Layer → index of the last route/shortcut that reads it."""
-    return {i: max(cons) for i, cons in enumerate(spec.consumers) if cons}
+# ---------------------------------------------------------------------------
+# The walk: every forward runs the graph through :func:`walk`
+# ---------------------------------------------------------------------------
+
+#: ``step(i, layer, prev, saved)``: layer ``i``'s value from the previous
+#: layer's ``prev`` and the live values ``saved``
+Step = Callable[[int, object, object, Dict[int, object]], object]
+#: start index → ``(end, fn)``: ``fn(prev, saved)`` is layer ``end``'s value,
+#: layers ``start..end`` computed as one (a fused kernel)
+Runs = Mapping[int, Tuple[int, Callable[[object, Dict[int, object]], object]]]
 
 
-def _release(saved: Dict, last_use: Mapping[int, int], i: int) -> None:
-    """Free the activations whose last reader is layer ``i``."""
-    for k in [k for k, lu in last_use.items() if lu == i and k in saved]:
-        if k != i:
-            del saved[k]
+def walk(spec: GraphSpec, step: Step, prev, saved: Dict[int, object], *, start: int = 0,
+         stop: Optional[int] = None, runs: Optional[Runs] = None):
+    """Layers ``start..stop − 1`` of ``spec`` (``stop``: all), from layer
+    ``start − 1``'s value ``prev`` and the live values ``saved``; returns
+    the last layer's value.
+
+    Each layer is ``step``, or with the rest of its run of ``runs`` one
+    call of that run's ``fn``.  A value goes into ``saved`` when a later
+    layer reads it and leaves it right after its last reader, so ``saved``
+    holds what layers ``stop..`` read when the walk returns (nothing after
+    the whole graph).  A run's inner layers are never saved: a run is
+    valid only where no layer after it reads them.  The values are the
+    caller's: NCHW maps, ``(map, scale)`` pairs of the int8 forwards, one
+    map per shard."""
+    stop = len(spec.layers) if stop is None else stop
+    runs = runs or {}
+    freed: List[List[int]] = [[] for _ in spec.layers]  # layers whose last reader is i
+    for k, readers in enumerate(spec.consumers):
+        if readers:
+            freed[max(readers)].append(k)
+    i = start
+    while i < stop:
+        if i in runs:
+            end, fn = runs[i]
+            prev = fn(prev, saved)
+        else:
+            end, prev = i, step(i, spec.layers[i], prev, saved)
+        if spec.consumers[end]:
+            saved[end] = prev
+        for j in range(i, end + 1):
+            for k in freed[j]:
+                saved.pop(k, None)
+        i = end + 1
+    return prev
 
 
 def conv(w: torch.Tensor, layer: ConvSpec, x: torch.Tensor, compute_dtype: torch.dtype,
@@ -310,7 +361,7 @@ def bn_batch_moments_matmul(out: torch.Tensor, reducer: Optional[Callable] = Non
     of the NCHW conv output in its own dtype as one product
     (:func:`~..ops.bnstats.channel_sums` over its NHWC rows)."""
     c = out.shape[1]
-    s1, s2 = bnstats.channel_sums(_nhwc(out).reshape(-1, c))
+    s1, s2 = bnstats.channel_sums(nhwc(out).reshape(-1, c))
     n = out.shape[0] * out.shape[2] * out.shape[3]
     if reducer is not None:
         s1, s2 = reducer(s1, s2)
@@ -416,7 +467,7 @@ def _bn(params: Mapping[str, torch.Tensor], i: int, out: torch.Tensor,
         f32 = torch.float32
         return bnstats.bn_normalize(out, mean, torch.rsqrt(var + BN_EPS),
                                     params[f"{p}.weight"].to(f32), params[f"{p}.bias"].to(f32))
-    out32 = _wide(out)
+    out32 = widen(out)
     if train:
         mean, var, n = bn_batch_moments(out32, reducer, groups)
         new_stats.update(bn_running_stats(params, i, mean, var, n))
@@ -487,48 +538,38 @@ def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, 
     """
     bn_form = resolve_bn_form(bn_form)
     planar = input_layout == "planar"
-    last_use = _last_use(spec)
-    saved: Dict[int, torch.Tensor] = {}
     head_maps: List[torch.Tensor] = []
     new_stats: StateDict = {}
-    x = x.to(compute_dtype)
-    start = 0
-    if s2d_stem:
-        prev = _s2d_train_stem(params, spec, x, compute_dtype, train, reducer, new_stats,
-                               planar)
-        if 1 in last_use:
-            saved[1] = prev
-        start = 2
-    else:
-        prev = _cl(x if planar else _nchw(x))
-    for i, layer in enumerate(spec.layers):
-        if i < start:
-            continue
+
+    def step(i, layer, prev, saved):
         if isinstance(layer, ConvSpec):
-            out = conv_layer(params, i, layer, prev, compute_dtype, train=train,
-                             reducer=reducer, new_stats=new_stats, bn_form=bn_form)
-        else:
-            out = _plain_layer(layer, prev, saved, head_maps)
-        if i in last_use:
-            saved[i] = out
-        _release(saved, last_use, i)
-        prev = out
+            return conv_layer(params, i, layer, prev, compute_dtype, train=train,
+                              reducer=reducer, new_stats=new_stats, bn_form=bn_form)
+        return plain_layer(layer, prev, saved, head_maps)
+
+    x = x.to(compute_dtype)
+    if s2d_stem:
+        walk(spec, step, x, {}, runs={0: (1, lambda x, _: _s2d_train_stem(
+            params, spec, x, compute_dtype, train, reducer, new_stats, planar))})
+    else:
+        walk(spec, step, channels_last(x if planar else nchw(x)), {})
     return (head_maps, new_stats) if train else head_maps
 
 
-def _plain_layer(layer, prev: torch.Tensor, saved: Dict[int, torch.Tensor],
-                 head_maps: List[torch.Tensor]) -> torch.Tensor:
+def plain_layer(layer, prev: torch.Tensor, saved: Dict[int, torch.Tensor],
+                head_maps: List[torch.Tensor]) -> torch.Tensor:
     """A layer other than a conv, on an NCHW float map."""
     if isinstance(layer, MaxPoolSpec):
         return _maxpool(prev, layer.kernel, layer.stride)
     if isinstance(layer, UpsampleSpec):
         return F.interpolate(prev, scale_factor=layer.factor, mode="nearest")
     if isinstance(layer, RouteSpec):
-        return _cl(torch.cat([saved[s] if s in saved else prev for s in layer.layers], dim=1))
+        return channels_last(torch.cat([saved[s] if s in saved else prev
+                                        for s in layer.layers], dim=1))
     if isinstance(layer, ShortcutSpec):
         return prev + saved[layer.from_index]
     if isinstance(layer, YoloSpec):
-        head_maps.append(_nhwc(_wide(prev)).contiguous())
+        head_maps.append(nhwc(widen(prev)).contiguous())
         return prev
     raise TypeError(f"unknown layer spec {layer!r}")  # pragma: no cover
 
@@ -550,59 +591,52 @@ def apply_folded(folded: Folded, spec: GraphSpec, x: torch.Tensor, *,
     the space-to-depth grid (:func:`s2d_stem_forward`); the residual units
     from layer 2 on are unchanged.  ``spp`` (:func:`spp_blocks`) sends each
     SPP block through :func:`~..kernels.spp_pool.spp_pool`; without it the
-    pools and their route run layer by layer.
+    pools and their route run layer by layer.  Each of these is a run of
+    :func:`walk`.
     """
     x = x.to(compute_dtype)
-    if s2d_stem is None:
-        return _folded_layers(folded, spec, _cl(_nchw(x)), {}, 0, compute_dtype, packs,
-                              block_fn, spp)
-    prev = s2d_stem_forward(s2d_stem, x, compute_dtype)
-    saved = {1: prev} if 1 in _last_use(spec) else {}
-    return _folded_layers(folded, spec, prev, saved, 2, compute_dtype, packs, block_fn, spp)
-
-
-def _folded_layers(folded: Folded, spec: GraphSpec, prev: torch.Tensor,
-                   saved: Dict[int, torch.Tensor], start: int,
-                   compute_dtype: torch.dtype, packs: Optional[Packs] = None,
-                   block_fn: Callable[..., torch.Tensor] = fused_residual_block,
-                   spp: Optional[Mapping[int, SppBlock]] = None,
-                   ) -> List[torch.Tensor]:
-    """Layers ``start..`` of the folded forward from the NCHW map ``prev``
-    and the live activations ``saved``.  Each block of ``spp``
-    (:func:`spp_blocks`) runs as one :func:`~..kernels.spp_pool.spp_pool`
-    from its first pool to its route."""
-    last_use = _last_use(spec)
-    spp = spp or {}
     head_maps: List[torch.Tensor] = []
-    skip_until = -1
-    for i, layer in enumerate(spec.layers):
-        if i < start or i < skip_until:
-            continue
-        end = None
-        if packs is not None and i in packs:
-            out = _nchw(block_fn(_nhwc(_cl(prev)), *packs[i]))
-            end = i + 2  # liveness bookkeeping happens at the shortcut index
-        elif i in spp:
-            out = spp_pool(prev, spp[i].kernels, spp[i].order)
-            end = spp[i].route
-        if end is not None:
-            if end in last_use:
-                saved[end] = out
-            for k in [k for k, lu in last_use.items()
-                      if i <= lu <= end and k in saved and k != end]:
-                del saved[k]
-            prev = out
-            skip_until = end + 1
-            continue
-        if isinstance(layer, ConvSpec):
-            out = folded_conv(folded, i, layer, prev, compute_dtype)
-        else:
-            out = _plain_layer(layer, prev, saved, head_maps)
-        if i in last_use:
-            saved[i] = out
-        _release(saved, last_use, i)
-        prev = out
+    runs = {**_spp_runs(spp), **_residual_runs(packs, block_fn)}
+    if s2d_stem is None:
+        prev = channels_last(nchw(x))
+    else:
+        runs[0] = (1, lambda x, _: s2d_stem_forward(s2d_stem, x, compute_dtype))
+        prev = x
+    walk(spec, _folded_step(folded, compute_dtype, head_maps), prev, {}, runs=runs)
     return head_maps
+
+
+def _folded_step(folded: Folded, compute_dtype: torch.dtype,
+                 head_maps: List[torch.Tensor]) -> Step:
+    """A layer of the folded forward on an NCHW map: :func:`folded_conv`
+    or :func:`plain_layer`."""
+    def step(i, layer, prev, saved):
+        if isinstance(layer, ConvSpec):
+            return folded_conv(folded, i, layer, prev, compute_dtype)
+        return plain_layer(layer, prev, saved, head_maps)
+    return step
+
+
+def _residual_runs(packs: Optional[Packs], block_fn: Callable[..., torch.Tensor]) -> Runs:
+    """Each packed residual unit as a run from its 1x1 conv to its
+    shortcut: ``block_fn`` on the NHWC view of the map."""
+    return {i: (i + 2, functools.partial(_residual_unit, block_fn, pack))
+            for i, pack in (packs or {}).items()}
+
+
+def _residual_unit(block_fn, pack, prev: torch.Tensor, saved) -> torch.Tensor:
+    return nchw(block_fn(nhwc(channels_last(prev)), *pack))
+
+
+def _spp_runs(spp: Optional[Mapping[int, SppBlock]]) -> Runs:
+    """Each SPP block as a run from its first pool to its route: one
+    :func:`~..kernels.spp_pool.spp_pool`."""
+    return {i: (block.route, functools.partial(_spp_block, block))
+            for i, block in (spp or {}).items()}
+
+
+def _spp_block(block: SppBlock, prev: torch.Tensor, saved) -> torch.Tensor:
+    return spp_pool(prev, block.kernels, block.order)
 
 
 # ---------------------------------------------------------------------------
@@ -712,7 +746,7 @@ def make_s2d_stem(folded: Folded, spec: GraphSpec) -> Folded:
 def _conv_b(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """2x2/s1 conv of an NCHW map with one zero row on top and one zero
     column on the left (the s2d image of conv 1's symmetric pad 1)."""
-    return F.conv2d(_cl(F.pad(x, (1, 0, 1, 0))), w)
+    return F.conv2d(channels_last(F.pad(x, (1, 0, 1, 0))), w)
 
 
 def s2d_stem_forward(stem: Folded, x: torch.Tensor, compute_dtype: torch.dtype
@@ -721,7 +755,7 @@ def s2d_stem_forward(stem: Folded, x: torch.Tensor, compute_dtype: torch.dtype
     Cin) → layer 1's NCHW output (B, C1, S/2, S/2), channels_last.  Rounded
     where the reference rounds: each conv's f32 sum to ``compute_dtype``,
     then the bias in ``compute_dtype``, then leaky."""
-    xs = _cl(_nchw(_space_to_depth(x.to(compute_dtype))))
+    xs = channels_last(nchw(_space_to_depth(x.to(compute_dtype))))
     a = F.conv2d(xs, stem["wa"].to(compute_dtype), padding=1)
     a = _leaky(a + stem["ba"].to(compute_dtype)[None, :, None, None])
     b = _conv_b(a, stem["wb"].to(compute_dtype))
@@ -778,7 +812,7 @@ def _s2d_train_stem(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torc
     wa = _s2d_relabel(params[f"{_conv_key(0)}.weight"].to(compute_dtype),
                       _s2d_gather_indices_a(l0.in_ch, l0.out_ch, dev))
     xs = _space_to_depth_planar(x) if planar else _space_to_depth(x)
-    a = F.conv2d(_cl(_nchw(xs)), wa, padding=1)
+    a = F.conv2d(channels_last(nchw(xs)), wa, padding=1)
     a = _leaky(_bn(params, 0, a, compute_dtype, train, reducer, new_stats, groups=4))
     wb = _s2d_relabel(params[f"{_conv_key(1)}.weight"].to(compute_dtype),
                       _s2d_gather_indices_b(l1.in_ch, l1.out_ch, dev))
@@ -869,25 +903,23 @@ def _calibrate(folded: Folded, spec: GraphSpec, x: torch.Tensor, upto: int,
     """f32 probe forward over layers ``< upto``; ``{"in": ..., "i": ...}``
     scales ``stat/127 + 1e-12`` of the input and of each layer's output."""
     f32 = torch.float32
-    prev = _cl(_nchw(x.to(f32)))
+    prev = channels_last(nchw(x.to(f32)))
     stats = {"in": _act_stat(prev, percentile)}
-    last_use = _last_use(spec)
-    saved: Dict[int, torch.Tensor] = {}
+
+    def step(i, layer, prev, saved):
+        if isinstance(layer, ConvSpec):
+            out = F.conv2d(prev, folded[f"conv_{i}"]["w"].to(f32),
+                           stride=layer.stride, padding=layer.pad)
+            out = out + folded[f"conv_{i}"]["b"].to(f32)[None, :, None, None]
+            if layer.activation == "leaky":
+                out = _leaky(out)
+        else:
+            out = plain_layer(layer, prev, saved, [])
+        stats[str(i)] = _act_stat(out, percentile)
+        return out
+
     with no_tf32():
-        for i, layer in enumerate(spec.layers[:upto]):
-            if isinstance(layer, ConvSpec):
-                out = F.conv2d(prev, folded[f"conv_{i}"]["w"].to(f32),
-                               stride=layer.stride, padding=layer.pad)
-                out = out + folded[f"conv_{i}"]["b"].to(f32)[None, :, None, None]
-                if layer.activation == "leaky":
-                    out = _leaky(out)
-            else:
-                out = _plain_layer(layer, prev, saved, [])
-            stats[str(i)] = _act_stat(out, percentile)
-            if i in last_use:
-                saved[i] = out
-            _release(saved, last_use, i)
-            prev = out
+        walk(spec, step, prev, {}, stop=upto)
     keys = list(stats)
     values = torch.stack([stats[k].to(f32) for k in keys]).cpu().tolist()
     return {k: float(v) / 127.0 + 1e-12 for k, v in zip(keys, values)}
@@ -953,7 +985,7 @@ def _wide_conv(w: torch.Tensor, b: torch.Tensor, xf: torch.Tensor,
     """NHWC ``xf`` through the OIHW ``w`` rounded to ``compute_dtype``, the
     sum in f32, plus the f32 bias: f32 NHWC."""
     w = w.to(compute_dtype).to(torch.float32)
-    y = _nhwc(F.conv2d(_nchw(xf.to(torch.float32)), w, stride=stride, padding=pad))
+    y = nhwc(F.conv2d(nchw(xf.to(torch.float32)), w, stride=stride, padding=pad))
     return y + b.to(torch.float32)
 
 
@@ -975,11 +1007,11 @@ def apply_folded_int8(folded: Folded, qparams: QParams, act_scales: Mapping[str,
     path in ``compute_dtype``.  ``x`` is the f32 NHWC input in [0, 1]."""
     x = x.to(torch.float32)
     sc = q8.inverse_scales(act_scales, x.device)
-    last_use = _last_use(spec)
-    prev_q, prev_s = q8.quant(x, sc["in"]), act_scales["in"]
-    saved_q: Dict[int, Tuple[torch.Tensor, float]] = {}
-    for i, layer in enumerate(spec.layers[:upto]):
-        y: Optional[torch.Tensor] = None
+
+    def step(i, layer, prev, saved):  # (int8 map, scale) pairs
+        prev_q, prev_s = prev
+        if isinstance(layer, UpsampleSpec):
+            return q8.upsample_int8(prev_q, layer.factor), prev_s
         if isinstance(layer, ConvSpec):
             if int8_compute:
                 y = _int8_conv(qparams[f"conv_{i}"], prev_q, prev_s, layer, False)
@@ -987,25 +1019,25 @@ def apply_folded_int8(folded: Folded, qparams: QParams, act_scales: Mapping[str,
                 y = _bf16_conv(folded, i, layer, _in_dtype(prev_q, prev_s, compute_dtype),
                                compute_dtype)
         elif isinstance(layer, ShortcutSpec):
-            aq, as_ = saved_q[layer.from_index]
+            aq, as_ = saved[layer.from_index]
             y = _dequant(prev_q, prev_s) + _dequant(aq, as_)
         elif isinstance(layer, MaxPoolSpec):
-            y = _nhwc(_maxpool(_nchw(_dequant(prev_q, prev_s)), layer.kernel, layer.stride))
-        elif isinstance(layer, UpsampleSpec):
-            out_q, out_s = q8.upsample_int8(prev_q, layer.factor), prev_s
+            y = nhwc(_maxpool(nchw(_dequant(prev_q, prev_s)), layer.kernel, layer.stride))
         else:  # pragma: no cover
             raise TypeError(f"int8 region cannot contain {layer!r}")
-        if y is not None:
-            out_q, out_s = q8.quant(y, sc[str(i)]), act_scales[str(i)]
-        if i in last_use:
-            saved_q[i] = (out_q, out_s)
-        _release(saved_q, last_use, i)
-        prev_q, prev_s = out_q, out_s
+        return q8.quant(y, sc[str(i)]), act_scales[str(i)]
+
+    saved_q: Dict[int, Tuple[torch.Tensor, float]] = {}
+    prev_q, prev_s = walk(spec, step, (q8.quant(x, sc["in"]), act_scales["in"]), saved_q,
+                          stop=upto)
 
     # boundary: dequantize into compute_dtype and run the standard folded path
-    prev = _cl(_nchw(_in_dtype(prev_q, prev_s, compute_dtype)))
-    saved = {k: _cl(_nchw(_in_dtype(q, s, compute_dtype))) for k, (q, s) in saved_q.items()}
-    return _folded_layers(folded, spec, prev, saved, upto, compute_dtype)
+    prev = channels_last(nchw(_in_dtype(prev_q, prev_s, compute_dtype)))
+    saved = {k: channels_last(nchw(_in_dtype(q, s, compute_dtype)))
+             for k, (q, s) in saved_q.items()}
+    head_maps: List[torch.Tensor] = []
+    walk(spec, _folded_step(folded, compute_dtype, head_maps), prev, saved, start=upto)
+    return head_maps
 
 
 def make_s2d_stem_int8(folded: Folded, qparams: QParams, spec: GraphSpec) -> QParams:
@@ -1062,28 +1094,12 @@ def apply_folded_int8_full(folded: Folded, qparams: QParams,
     x = x.to(torch.float32)
     sc = q8.inverse_scales(act_scales, x.device)
     quantized = int8_full_conv_indices(spec)
-    last_use = _last_use(spec)
+    head_maps: List[torch.Tensor] = []
+
     # (map, scale) pairs; scale None marks a float map (the raw input, or a
     # head conv's output)
-    saved: Dict[int, Tuple[torch.Tensor, Optional[float]]] = {}
-    head_maps: List[torch.Tensor] = []
-    prev_q, prev_s = x, None
-    start = 0
-    if s2d_stem is not None:
-        a = _wide_conv(s2d_stem["wa"], s2d_stem["ba"], _space_to_depth(x.to(compute_dtype)),
-                       compute_dtype, 1, 1)
-        aq = q8.quant(_leaky(a), sc["0"])
-        y = _int8_epilogue(q8.conv_int8(aq, s2d_stem["wbq"], 1, (1, 0)),
-                           {"ws": s2d_stem["wbs"], "b": s2d_stem["bb"]}, act_scales["0"],
-                           spec.layers[1], False)
-        prev_q, prev_s = q8.quant(y, sc["1"]), act_scales["1"]
-        if 1 in last_use:
-            saved[1] = (prev_q, prev_s)
-        start = 2
-    for i, layer in enumerate(spec.layers):
-        if i < start:
-            continue
-        out_s: Optional[float] = None
+    def step(i, layer, prev, saved):
+        prev_q, prev_s = prev
         if isinstance(layer, ConvSpec):
             if i in quantized:
                 if prev_s is None:  # raw input into a quantized conv
@@ -1092,40 +1108,43 @@ def apply_folded_int8_full(folded: Folded, qparams: QParams,
                 y = _int8_conv(qparams[f"conv_{i}"], prev_q, prev_s, layer,
                                out_hw <= int32_accum_max_hw,
                                s2d_downs.get(i) if s2d_downs else None)
-                out_q, out_s = q8.quant(y, sc[str(i)]), act_scales[str(i)]
-            else:
-                y = _bf16_conv(folded, i, layer, _in_dtype(prev_q, prev_s, compute_dtype),
-                               compute_dtype)
-                if layer.activation == "leaky":
-                    out_q, out_s = q8.quant(y, sc[str(i)]), act_scales[str(i)]
-                else:
-                    out_q = y  # the f32 map feeds the decode
-        elif isinstance(layer, ShortcutSpec):
+                return q8.quant(y, sc[str(i)]), act_scales[str(i)]
+            y = _bf16_conv(folded, i, layer, _in_dtype(prev_q, prev_s, compute_dtype),
+                           compute_dtype)
+            if layer.activation == "leaky":
+                return q8.quant(y, sc[str(i)]), act_scales[str(i)]
+            return y, None  # the f32 map feeds the decode
+        if isinstance(layer, ShortcutSpec):
             aq, as_ = saved[layer.from_index]
             y = _dequant(prev_q, prev_s) + _dequant(aq, as_)
-            out_q, out_s = q8.quant(y, sc[str(i)]), act_scales[str(i)]
-        elif isinstance(layer, MaxPoolSpec):
-            out_q, out_s = q8.maxpool_int8(prev_q, layer.kernel, layer.stride), prev_s
-        elif isinstance(layer, UpsampleSpec):
-            out_q, out_s = q8.upsample_int8(prev_q, layer.factor), prev_s
-        elif isinstance(layer, RouteSpec):
-            out_s = act_scales[str(i)]
+            return q8.quant(y, sc[str(i)]), act_scales[str(i)]
+        if isinstance(layer, MaxPoolSpec):
+            return q8.maxpool_int8(prev_q, layer.kernel, layer.stride), prev_s
+        if isinstance(layer, UpsampleSpec):
+            return q8.upsample_int8(prev_q, layer.factor), prev_s
+        if isinstance(layer, RouteSpec):
             parts = []
             for k in layer.layers:
                 q, s = saved[k] if k in saved else (prev_q, prev_s)
                 parts.append(q8.quant(q if s is None else _dequant(q, s), sc[str(i)]))
-            out_q = torch.cat(parts, dim=-1)
-        elif isinstance(layer, YoloSpec):
+            return torch.cat(parts, dim=-1), act_scales[str(i)]
+        if isinstance(layer, YoloSpec):
             if prev_s is not None:
                 raise ValueError(f"yolo layer {i} must read a linear head conv")
             head_maps.append(prev_q.contiguous())
-            out_q = prev_q
-        else:  # pragma: no cover
-            raise TypeError(f"unknown layer spec {layer!r}")
-        if i in last_use:
-            saved[i] = (out_q, out_s)
-        _release(saved, last_use, i)
-        prev_q, prev_s = out_q, out_s
+            return prev_q, None
+        raise TypeError(f"unknown layer spec {layer!r}")  # pragma: no cover
+
+    def stem(prev, _):  # layers 0-1 on the s2d grid
+        a = _wide_conv(s2d_stem["wa"], s2d_stem["ba"],
+                       _space_to_depth(prev[0].to(compute_dtype)), compute_dtype, 1, 1)
+        aq = q8.quant(_leaky(a), sc["0"])
+        y = _int8_epilogue(q8.conv_int8(aq, s2d_stem["wbq"], 1, (1, 0)),
+                           {"ws": s2d_stem["wbs"], "b": s2d_stem["bb"]}, act_scales["0"],
+                           spec.layers[1], False)
+        return q8.quant(y, sc["1"]), act_scales["1"]
+
+    walk(spec, step, (x, None), {}, runs=None if s2d_stem is None else {0: (1, stem)})
     return head_maps
 
 
@@ -1139,5 +1158,5 @@ __all__ = ["init_params", "apply", "fold_batchnorm", "fusible_residual_blocks",
            "conv", "conv_layer", "folded_conv", "conv_bias", "activate", "bn_batch_moments",
            "bn_batch_moments_matmul", "bn_moments_from_sums", "bn_running_stats",
            "bn_running_moments", "bn_normalize", "resolve_bn_form", "BN_EPS", "BN_MOMENTUM",
-           "BN_FORM",
-           "LEAKY_SLOPE"]
+           "BN_FORM", "LEAKY_SLOPE", "walk", "Step", "Runs", "plain_layer", "pool_padding",
+           "widen", "nchw", "nhwc", "channels_last"]

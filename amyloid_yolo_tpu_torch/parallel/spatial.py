@@ -33,12 +33,13 @@ compiler, so this module writes the row choreography itself:
   before.
 * **Lockstep.**  One thread runs the spec layer by layer over every shard
   (a thread per shard would meet at a barrier at every 3×3 conv and every
-  BN).  The forward reads parameters through differentiable copies;
-  the train step gives each other device leaf copies instead and, after
-  its one ``backward()``, adds their gradients into the first device's
-  parameters (:func:`leaf_replicas`), so that no gradient crosses cards
-  into a parameter inside autograd.  Each BN sums the shards' per-channel ``Σx`` and ``Σx²`` on
-  the first device with the true element count (height shards are
+  BN): ``darknet.walk`` with one map per shard as each layer's value.
+  The forward reads parameters through differentiable copies; the train
+  step gives each other device leaf copies instead and, after its one
+  ``backward()``, adds their gradients into the first device's parameters
+  (:func:`leaf_replicas`), so that no gradient crosses cards into a
+  parameter inside autograd.  Each BN sums the shards' per-channel ``Σx``
+  and ``Σx²`` on the first device with the true element count (height shards are
   unequal) and hands the global statistics back (sync-BN over sp × dp),
   each shard's sums taken as reductions or, in the ``"matmul"`` BN form,
   as products (:mod:`..ops.bnstats`).  The per-layer arithmetic is
@@ -73,8 +74,9 @@ from ..graphspec import (
     UpsampleSpec,
 )
 from ..io.weights import StateDict, _bn_key, _conv_key
+from ..kernels.bias_leaky import leaky_where
 from ..models import darknet, heads
-from ..models.darknet import _cl, _last_use, _nchw, _plain_layer, _release
+from ..models.darknet import channels_last, nchw, plain_layer
 from ..ops import bnstats
 from ..ops.loss import yolo_loss
 from ..ops.nms import non_max_suppression
@@ -235,24 +237,7 @@ def _rows_of(maps: Sequence[torch.Tensor], cols: Sequence[int], own: int, plan: 
             parts.append(part if c == own else to_device(part, device))
     if hi > height:
         parts.append(pad(hi - height))
-    return parts[0] if len(parts) == 1 else _cl(torch.cat(parts, dim=2))
-
-
-def _pool(layer: MaxPoolSpec, win: torch.Tensor) -> torch.Tensor:
-    """``darknet._maxpool`` on a window that holds its rows of padding: the
-    reference's zero column right of a 2/1 pool, else −inf columns."""
-    k, s = layer.kernel, layer.stride
-    if k == 2 and s == 1:
-        return F.max_pool2d(F.pad(win, (0, 1)), k, s)
-    p = (k - 1) // 2
-    return F.max_pool2d(F.pad(win, (p, p), value=float("-inf")), k, s)
-
-
-def _pool_window(layer: MaxPoolSpec) -> Tuple[int, float]:
-    """(rows of padding above, its value) of a pool."""
-    if layer.kernel == 2 and layer.stride == 1:
-        return 0, 0.0
-    return (layer.kernel - 1) // 2, float("-inf")
+    return parts[0] if len(parts) == 1 else channels_last(torch.cat(parts, dim=2))
 
 
 def apply_sharded(params, spec: GraphSpec, x: torch.Tensor, mesh: SpatialMesh, *,
@@ -299,7 +284,7 @@ def apply_sharded(params, spec: GraphSpec, x: torch.Tensor, mesh: SpatialMesh, *
         if s.dtype == torch.uint8:
             s = s.to(torch.float32) * RECIP_255
         s = s.to(compute_dtype)
-        return _cl(_nchw(darknet._space_to_depth(s) if s2d_stem else s))
+        return channels_last(nchw(darknet._space_to_depth(s) if s2d_stem else s))
 
     def windows(maps: List[torch.Tensor], s_in: int, top: int, k: int, s: int, s_out: int,
                 fill: float) -> List[torch.Tensor]:
@@ -312,50 +297,37 @@ def apply_sharded(params, spec: GraphSpec, x: torch.Tensor, mesh: SpatialMesh, *
                                 s * a - top, s * (b - 1) - top + k, devs[j], fill))
         return out
 
-    prev = [prep(s) for s in sharding.split(x, plan)]
     strides = layer_strides(spec)
-    last_use = _last_use(spec)
-    saved: List[Dict[int, torch.Tensor]] = [{} for _ in shards]
     head_maps: List[List[torch.Tensor]] = [[] for _ in shards]
     new_stats: StateDict = {}
     bn = functools.partial(_sync_bn, params, reps, compute_dtype=compute_dtype, train=train,
                            first=first, new_stats=new_stats)
-    start, s_in = 0, 1
-    if s2d_stem:
-        prev = _s2d_stem(reps, spec, prev, windows, bn, compute_dtype)
-        if 1 in last_use:
-            for j in range(len(shards)):
-                saved[j][1] = prev[j]
-        start, s_in = 2, strides[1]
 
-    for i, layer in enumerate(spec.layers):
-        if i < start:
-            continue
+    def step(i, layer, prev, saved):  # one map per shard
+        s_in = strides[i - 1] if i else 1
         if isinstance(layer, ConvSpec):
             wins = windows(prev, s_in, layer.pad, layer.kernel, layer.stride, strides[i], 0.0)
             pad = (0, layer.pad)
             if folded:
-                out = [darknet.folded_conv(p, i, layer, w, compute_dtype, pad)
-                       for p, w in zip(reps, wins)]
-            else:
-                out = [darknet.conv(p[f"{_conv_key(i)}.weight"], layer, w, compute_dtype, pad)
-                       for p, w in zip(reps, wins)]
-                out = ([darknet.conv_bias(p, i, o, compute_dtype) for p, o in zip(reps, out)]
-                       if not layer.batch_normalize else bn(i, out, bn_form=bn_form))
-                out = [darknet.activate(layer, o) for o in out]
-        elif isinstance(layer, MaxPoolSpec):
-            top, fill = _pool_window(layer)
-            out = [_pool(layer, w) for w in
-                   windows(prev, s_in, top, layer.kernel, layer.stride, strides[i], fill)]
-        else:
-            out = [_plain_layer(layer, prev[j], saved[j], head_maps[j])
-                   for j in range(len(shards))]
-        for j in range(len(shards)):
-            if i in last_use:
-                saved[j][i] = out[j]
-            _release(saved[j], last_use, i)
-        prev = out
-        s_in = strides[i]
+                return [darknet.folded_conv(p, i, layer, w, compute_dtype, pad)
+                        for p, w in zip(reps, wins)]
+            out = [darknet.conv(p[f"{_conv_key(i)}.weight"], layer, w, compute_dtype, pad)
+                   for p, w in zip(reps, wins)]
+            out = ([darknet.conv_bias(p, i, o, compute_dtype) for p, o in zip(reps, out)]
+                   if not layer.batch_normalize else bn(i, out, bn_form=bn_form))
+            return [darknet.activate(layer, o) for o in out]
+        if isinstance(layer, MaxPoolSpec):  # the window holds its rows of padding
+            k, s = layer.kernel, layer.stride
+            before, after, value = darknet.pool_padding(k, s)
+            return [F.max_pool2d(F.pad(w, (before, after), value=value), k, s)
+                    for w in windows(prev, s_in, before, k, s, strides[i], value)]
+        return [plain_layer(layer, prev[j], {k: v[j] for k, v in saved.items()}, head_maps[j])
+                for j in range(len(shards))]
+
+    prev = [prep(s) for s in sharding.split(x, plan)]
+    runs = ({0: (1, lambda xs, _: _s2d_stem(reps, spec, xs, windows, bn, compute_dtype))}
+            if s2d_stem else None)
+    darknet.walk(spec, step, prev, {}, runs=runs)
 
     maps = []
     for h in range(len(head_maps[0])):
@@ -427,11 +399,11 @@ def _s2d_stem(reps: List[StateDict], spec: GraphSpec, xs: List[torch.Tensor],
 
     wa = relabel(0, darknet._s2d_gather_indices_a, l0.in_ch, l0.out_ch)
     a = [F.conv2d(w, k, padding=(0, 1)) for w, k in zip(windows(xs, 2, 1, 3, 1, 2, 0.0), wa)]
-    a = [darknet._leaky(o) for o in bn(0, a, groups=4)]
+    a = [leaky_where(o) for o in bn(0, a, groups=4)]
     wb = relabel(1, darknet._s2d_gather_indices_b, l1.in_ch, l1.out_ch)
-    out = [F.conv2d(_cl(F.pad(w, (1, 0))), k)
+    out = [F.conv2d(channels_last(F.pad(w, (1, 0))), k)
            for w, k in zip(windows(a, 2, 1, 2, 1, 2, 0.0), wb)]
-    return [darknet._leaky(o) for o in bn(1, out)]
+    return [leaky_where(o) for o in bn(1, out)]
 
 
 def _sync_bn(master: StateDict, reps: List[StateDict], i: int, outs: List[torch.Tensor], *,
@@ -447,16 +419,16 @@ def _sync_bn(master: StateDict, reps: List[StateDict], i: int, outs: List[torch.
     the sums and the normalize's backward sums as products, as
     ``darknet._bn`` does.  Eval mode: the running statistics."""
     if not train:
-        return [darknet.bn_normalize(p, i, darknet._wide(o), *darknet.bn_running_moments(p, i),
+        return [darknet.bn_normalize(p, i, darknet.widen(o), *darknet.bn_running_moments(p, i),
                                      compute_dtype, groups) for p, o in zip(reps, outs)]
     matmul = bn_form == "matmul" and groups == 1
     total, n = None, 0
     for o in outs:
         b, cc, h, w = o.shape
         if matmul:
-            sums = bnstats.channel_sums(darknet._nhwc(o).reshape(-1, cc))
+            sums = bnstats.channel_sums(darknet.nhwc(o).reshape(-1, cc))
         else:
-            v = darknet._wide(o)
+            v = darknet.widen(o)
             v = v.reshape(b, groups, cc // groups, h, w) if groups > 1 else v
             dims = (0, 1, 3, 4) if groups > 1 else (0, 2, 3)
             sums = (v.sum(dim=dims), (v * v).sum(dim=dims))
@@ -472,7 +444,7 @@ def _sync_bn(master: StateDict, reps: List[StateDict], i: int, outs: List[torch.
                                      p[f"{key}.weight"].to(torch.float32),
                                      p[f"{key}.bias"].to(torch.float32))
                 for p, o in zip(reps, outs)]
-    return [darknet.bn_normalize(p, i, darknet._wide(o), to_device(mean, o.device),
+    return [darknet.bn_normalize(p, i, darknet.widen(o), to_device(mean, o.device),
                                  to_device(var, o.device), compute_dtype, groups)
             for p, o in zip(reps, outs)]
 

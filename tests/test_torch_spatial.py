@@ -33,8 +33,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from amyloid_yolo_tpu.models import darknet as jax_darknet
 from amyloid_yolo_tpu.parallel import spatial as jax_spatial
 from amyloid_yolo_tpu.parallel import steps as jax_steps
-from amyloid_yolo_tpu_torch.graphspec import MaxPoolSpec, NetInfo, _Builder, _finish, \
-    yolov3_spec
+from amyloid_yolo_tpu_torch.graphspec import yolov3_spec
 from amyloid_yolo_tpu_torch.io.weights import params_from_jax
 from amyloid_yolo_tpu_torch.models import darknet, heads
 from amyloid_yolo_tpu_torch.ops.nms import non_max_suppression
@@ -45,7 +44,7 @@ from amyloid_yolo_tpu_torch.parallel.spatial import (
     spatial_forward)
 
 from minispec import mini_spec
-from torch_port_helpers import copy_always, jax_params_np, port_mini_spec
+from torch_port_helpers import copy_always, jax_params_np, port_mini_spec, port_pool_spec
 
 LR = 1e-3
 B, CAP = 4, 4
@@ -217,27 +216,13 @@ def test_spatial_detect_matches_jax(weights, tiles, size, n_sp, n_dp):
         assert torch.equal(g, r)
 
 
-def _pool_spec(size):
-    """Convs around the three pools: 2/2 (−inf padding unused), 2/1 (the
-    reference's zero row and column) and 3/1 (−inf rows from neighbours)."""
-    b = _Builder(NetInfo(width=size, height=size))
-    b.conv(4, 3)
-    for k, s in ((2, 2), (2, 1), (3, 1), (2, 2)):
-        b.layers.append(MaxPoolSpec(b.i, k, s))
-        b.out_channels.append(b.out_channels[-1])
-        b.conv(8, 3)
-    b.conv(3 * 7, 1, bn=False, act="linear")
-    b.yolo((0, 1, 2), 2)
-    return _finish(b.net, b.layers, b.out_channels)
-
-
 @pytest.mark.parametrize("n_sp", [2, 3])
 def test_pools_match_unsharded(n_sp):
     """Max pools read their halo rows with the layer's own padding (the
     YOLOv3 graph has none; yolov3-tiny has 2/2 and 2/1): equal to the
     unsharded forward, eval and train, on a spec whose pools sit at the
     shard edges."""
-    spec = _pool_spec(24)
+    spec = port_pool_spec(24)
     params = darknet.init_params(torch.Generator().manual_seed(0), spec)
     x = torch.rand(2, 24, 24, 3, generator=torch.Generator().manual_seed(1)) - 0.5
     mesh = _cpu_mesh(n_sp)

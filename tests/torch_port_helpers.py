@@ -1,8 +1,9 @@
 """Shared fixtures of the PyTorch-port parity tests (``test_torch_*.py``).
 
 ``port_mini_spec`` builds ``minispec.mini_spec``'s graph with the port's own
-builder; ``jax_params_np`` makes JAX reference-scheme weights and hands them
-over as numpy, the form both packages take.  The folder path's tests write
+builder, ``port_pool_spec`` a graph of max pools of every padding rule;
+``jax_params_np`` makes JAX reference-scheme weights and hands them over as
+numpy, the form both packages take.  The folder path's tests write
 synthetic stain tiles (``stain_tile``, ``write_tile_folder``) and take the
 CAA classifier's weights from ``jax_classifier_params``.
 """
@@ -12,7 +13,8 @@ import numpy as np
 
 from amyloid_yolo_tpu.models import classifier as jax_classifier
 from amyloid_yolo_tpu.models import darknet as jax_darknet
-from amyloid_yolo_tpu_torch.graphspec import NetInfo, YOLOV3_MASKS, _Builder, _finish
+from amyloid_yolo_tpu_torch.graphspec import MaxPoolSpec, NetInfo, YOLOV3_MASKS, _Builder, \
+    _finish
 
 
 def port_mini_spec(num_classes: int = 2, img_size: int = 64):
@@ -59,6 +61,20 @@ def port_mini_spec(num_classes: int = 2, img_size: int = 64):
     b.conv(16, 3)
     b.conv(hf, 1, bn=False, act="linear")
     b.yolo(YOLOV3_MASKS[2], num_classes)
+    return _finish(b.net, b.layers, b.out_channels)
+
+
+def port_pool_spec(size: int):
+    """Convs around the three pools: 2/2 (−inf padding unused), 2/1 (the
+    reference's zero row and column) and 3/1 (−inf rows from neighbours)."""
+    b = _Builder(NetInfo(width=size, height=size))
+    b.conv(4, 3)
+    for k, s in ((2, 2), (2, 1), (3, 1), (2, 2)):
+        b.layers.append(MaxPoolSpec(b.i, k, s))
+        b.out_channels.append(b.out_channels[-1])
+        b.conv(8, 3)
+    b.conv(3 * 7, 1, bn=False, act="linear")
+    b.yolo((0, 1, 2), 2)
     return _finish(b.net, b.layers, b.out_channels)
 
 
