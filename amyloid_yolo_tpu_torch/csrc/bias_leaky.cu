@@ -46,6 +46,15 @@
 // 24.27 GB read and written, 7.25 ms at 3.35 TB/s; the arithmetic (an exp
 // and a reciprocal on the special-function units, a dozen FP32
 // instructions) stays under that.
+//
+// Into a route's slice (INTO, the Mish pass only): an NHWC output can be
+// written to another tensor, `dst`, whose pixels lie `ld` >= C elements
+// apart with their C channels contiguous: the channel slice of a route's
+// map that the conv is a member of.  The values and their rounding points are the in-place
+// pass's; only where they land differs, at pixel·ld + c instead of
+// pixel·C + c, so the route needs no copy of its members.  The 16-byte
+// vectors need both pointers 16-byte aligned and C and ld whole vectors (a
+// vector then lies in one pixel); anything else takes the scalar loop.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -106,12 +115,14 @@ template <bool BF16> struct MishOp {
   }
 };
 
-// The pass over out: op(element, its channel's bias) written back in place.
+// The pass over out: op(element, its channel's bias) written back in place,
+// or with INTO (NHWC only, inner == 1) to dst at pixel·ld + c.
 // I: the index type, 32-bit where every index fits, else 64-bit.
-template <bool BF16, typename I, typename Op>
+template <bool BF16, bool INTO, typename I, typename Op>
 __device__ __forceinline__ void each_element(typename Elem<BF16>::S* __restrict__ out,
+                                             typename Elem<BF16>::S* __restrict__ dst,
                                              const typename Elem<BF16>::S* __restrict__ bias,
-                                             I n, I n_vec, I inner, uint32_t C, Op op) {
+                                             I n, I n_vec, I inner, uint32_t C, I ld, Op op) {
   using E = Elem<BF16>;
   using S = typename E::S;
   constexpr int V = E::kVec;
@@ -125,6 +136,8 @@ __device__ __forceinline__ void each_element(typename Elem<BF16>::S* __restrict_
     uint4 raw = reinterpret_cast<const uint4*>(out)[v];
     S e[V];
     memcpy(e, &raw, sizeof(raw));
+    // INTO: C is whole vectors, so the vector lies in pixel q / C
+    S* const to = INTO ? dst + (q / C) * ld + c : out + i;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       e[j] = op(e[j], E::get(__ldg(bias + c)));
@@ -134,11 +147,17 @@ __device__ __forceinline__ void each_element(typename Elem<BF16>::S* __restrict_
       }
     }
     memcpy(&raw, e, sizeof(raw));
-    reinterpret_cast<uint4*>(out)[v] = raw;
+    *reinterpret_cast<uint4*>(to) = raw;
   }
   for (I i = n_vec * V + first; i < n; i += stride) {
-    const uint32_t c = (uint32_t)((i / inner) % C);
-    out[i] = op(out[i], E::get(__ldg(bias + c)));
+    const I q = i / inner;
+    const uint32_t c = (uint32_t)(q % C);
+    const S y = op(out[i], E::get(__ldg(bias + c)));
+    if (INTO) {
+      dst[(q / C) * ld + c] = y;
+    } else {
+      out[i] = y;
+    }
   }
 }
 
@@ -147,28 +166,33 @@ __global__ void __launch_bounds__(kThreads)
 bias_leaky_kernel(typename Elem<BF16>::S* __restrict__ out,
                   const typename Elem<BF16>::S* __restrict__ bias,
                   I n, I n_vec, I inner, uint32_t C, float slope, int leaky) {
-  each_element<BF16, I>(out, bias, n, n_vec, inner, C, LeakyOp<BF16>{slope, leaky});
+  each_element<BF16, false, I>(out, nullptr, bias, n, n_vec, inner, C, (I)0,
+                               LeakyOp<BF16>{slope, leaky});
 }
 
-template <bool BF16, typename I>
+template <bool BF16, bool INTO, typename I>
 __global__ void __launch_bounds__(kThreads)
 bias_mish_kernel(typename Elem<BF16>::S* __restrict__ out,
+                 typename Elem<BF16>::S* __restrict__ dst,
                  const typename Elem<BF16>::S* __restrict__ bias,
-                 I n, I n_vec, I inner, uint32_t C) {
-  each_element<BF16, I>(out, bias, n, n_vec, inner, C, MishOp<BF16>{});
+                 I n, I n_vec, I inner, uint32_t C, I ld) {
+  each_element<BF16, INTO, I>(out, dst, bias, n, n_vec, inner, C, ld, MishOp<BF16>{});
 }
 
 // The activations of the one entry point.
 enum Act { kLinear = 0, kLeaky = 1, kMish = 2 };
 
 // One pass of act over out: one wave of blocks at most, over the 16-byte
-// vectors (none where out is not 16-byte aligned) and the scalar tail.
+// vectors (none where a pointer is not 16-byte aligned, or where dst is given
+// and C or ld is not whole vectors) and the scalar tail.
 template <bool BF16, typename I>
-void launch(void* out, const void* bias, long long n, long long inner, int C, int act,
-            float slope, cudaStream_t stream) {
+void launch(void* out, void* dst, long long ld, const void* bias, long long n, long long inner,
+            int C, int act, float slope, cudaStream_t stream) {
   using S = typename Elem<BF16>::S;
   constexpr int V = Elem<BF16>::kVec;
-  const long long n_vec = ((uintptr_t)out % 16 == 0) ? n / V : 0;
+  const bool vec = (uintptr_t)out % 16 == 0
+      && (!dst || ((uintptr_t)dst % 16 == 0 && C % V == 0 && ld % V == 0));
+  const long long n_vec = vec ? n / V : 0;
   const long long work = n_vec + (n - n_vec * V);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -176,33 +200,40 @@ void launch(void* out, const void* bias, long long n, long long inner, int C, in
   long long blocks = (work + kThreads - 1) / kThreads;
   const long long wave = (long long)(sms > 0 ? sms : 1) * kBlocksPerSm;
   if (blocks > wave) blocks = wave;
-  if (act == kMish) {
-    bias_mish_kernel<BF16, I><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        (S*)out, (const S*)bias, (I)n, (I)n_vec, (I)inner, (uint32_t)C);
-  } else {
+  if (act != kMish) {
     bias_leaky_kernel<BF16, I><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        (S*)out, (const S*)bias, (I)n, (I)n_vec, (I)inner, (uint32_t)C, slope,
-        act == kLeaky);
+        (S*)out, (const S*)bias, (I)n, (I)n_vec, (I)inner, (uint32_t)C, slope, act == kLeaky);
+  } else if (dst) {
+    bias_mish_kernel<BF16, true, I><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        (S*)out, (S*)dst, (const S*)bias, (I)n, (I)n_vec, (I)inner, (uint32_t)C, (I)ld);
+  } else {
+    bias_mish_kernel<BF16, false, I><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        (S*)out, nullptr, (const S*)bias, (I)n, (I)n_vec, (I)inner, (uint32_t)C, (I)0);
   }
 }
 
 }  // namespace
 
 // out: n elements, C channels, `inner` elements a channel run (1: NHWC,
-// H*W: NCHW); bias: C elements of out's dtype; bf16: 1 for bf16, 0 for
-// float32; act: 0 linear (the bias alone), 1 leaky, 2 Mish; slope (leaky
-// only): 0.1 rounded to out's dtype.
-extern "C" int amyolo_bias_act(void* out, const void* bias, long long n, int C,
-                               long long inner, int bf16, int act, float slope, void* stream) {
+// H*W: NCHW); dst: NULL to write out in place, else (Mish and NHWC only)
+// where the results go, each pixel's C values at dst + pixel*ld, ld >= C;
+// bias: C elements of out's dtype; bf16: 1 for bf16, 0 for float32; act: 0
+// linear (the bias alone), 1 leaky, 2 Mish; slope (leaky only): 0.1 rounded
+// to out's dtype.
+extern "C" int amyolo_bias_act(void* out, void* dst, long long ld, const void* bias,
+                               long long n, int C, long long inner, int bf16, int act,
+                               float slope, void* stream) {
+  if (dst && (act != kMish || inner != 1 || ld < C)) return (int)cudaErrorInvalidValue;
   if (n > 0 && C > 0 && inner > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
-    const bool narrow = n < (1LL << 31);  // every index and index + stride fits in 32 bits
+    // every index and index + stride fits in 32 bits, in out and in dst
+    const bool narrow = n < (1LL << 31) && (!dst || n / C * ld < (1LL << 31));
     if (bf16) {
-      narrow ? launch<true, uint32_t>(out, bias, n, inner, C, act, slope, s)
-             : launch<true, uint64_t>(out, bias, n, inner, C, act, slope, s);
+      narrow ? launch<true, uint32_t>(out, dst, ld, bias, n, inner, C, act, slope, s)
+             : launch<true, uint64_t>(out, dst, ld, bias, n, inner, C, act, slope, s);
     } else {
-      narrow ? launch<false, uint32_t>(out, bias, n, inner, C, act, slope, s)
-             : launch<false, uint64_t>(out, bias, n, inner, C, act, slope, s);
+      narrow ? launch<false, uint32_t>(out, dst, ld, bias, n, inner, C, act, slope, s)
+             : launch<false, uint64_t>(out, dst, ld, bias, n, inner, C, act, slope, s);
     }
   }
   return (int)cudaGetLastError();

@@ -216,6 +216,7 @@ class Detector:
                            if precision == "int8_early" else 0)
         self.packs: Optional[darknet.Packs] = None
         self.spp = darknet.spp_blocks(self.spec)   # the folded forward's SPP blocks
+        self.routes = darknet.route_slices(self.spec)  # and its routes joined in place
         self._qparams: Optional[darknet.QParams] = None
         self._folded_cpu: Optional[darknet.Folded] = None
         s2d = s2d_downs = None
@@ -327,7 +328,8 @@ class Detector:
             if not self.fold_bn:
                 return darknet.apply(rep.params, self.spec, x, compute_dtype=cd)
             return darknet.apply_folded(rep.params, self.spec, x, compute_dtype=cd,
-                                        packs=rep.packs, s2d_stem=rep.s2d, spp=self.spp)
+                                        packs=rep.packs, s2d_stem=rep.s2d, spp=self.spp,
+                                        routes=self.routes)
 
     @torch.inference_mode()
     def calibrate(self, tiles_u8, *, accumulate: bool = False,

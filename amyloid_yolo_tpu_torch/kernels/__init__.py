@@ -14,7 +14,8 @@ Each wrapper counts its launches in an integer attribute ``launches``;
 the three ports of the JAX package's Pallas kernels (K1, K2, K3), which the
 checks of every path compare; the epilogue's and SPP's counts are read
 from ``bias_leaky.launches``, ``bias_mish.launches`` and
-``spp_pool.launches`` themselves.
+``spp_pool.launches`` themselves, and the Mish epilogue's launches that
+wrote into a route's slice from ``bias_mish.into_route``.
 """
 
 from __future__ import annotations

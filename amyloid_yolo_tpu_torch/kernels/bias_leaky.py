@@ -30,11 +30,20 @@ float32 on that sum, rounded once.  Its plain version
 with ``n = eᵗ(eᵗ+2)`` (one exp, one division), and the two agree to one
 bf16 ulp.  The 72 Mish convs of YOLOv4 write 94.8 M elements an image at
 608: at B=64, 24.27 GB read and written in bf16, 7.25 ms at 3.35 TB/s.
+
+:func:`bias_mish` takes ``into``: the channel slice of a route's map, an
+NHWC view whose pixels lie ``ld >= C`` elements apart with their channels
+contiguous.  The kernel then writes its results there instead of over
+``out``, with the same roundings, and counts the launch in
+``bias_mish.into_route`` too; on the CPU the plain version's result is
+copied into the slice.  A route whose members, YOLOv4's CSP Mish convs, all
+land in its map needs no copy (``models/darknet.py:route_slices``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,8 +60,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("bias_leaky")
     fn = lib.amyolo_bias_act
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float, _P]
+        fn.argtypes = [_P, _P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -90,9 +99,30 @@ _SLOPES = {dt: float(torch.tensor(LEAKY_SLOPE, dtype=dt)) for dt in (torch.bfloa
 _LINEAR, _LEAKY, _MISH = 0, 1, 2   # amyolo_bias_act's activations
 
 
-def _launch(out: torch.Tensor, b: torch.Tensor, act: int, what: str) -> None:
-    """Checks ``out`` and ``b`` for the kernels and runs activation ``act``
-    over ``out`` in place on its card."""
+def _slice_ld(into: torch.Tensor, out: torch.Tensor, what: str) -> int:
+    """``ld``, the distance between the pixels of ``into``, after checking
+    that it can take ``out``'s values: a view of ``out``'s shape and dtype
+    on its device, its channels contiguous and its pixels ``ld >= C``
+    apart in NHWC order (a channel slice of a channels_last map), and
+    ``out`` itself channels_last; else ``ValueError``."""
+    b, c, h, w = out.shape
+    if into.dtype != out.dtype or into.device != out.device or into.shape != out.shape:
+        raise ValueError(f"{what}: into must be {out.dtype} {tuple(out.shape)} on {out.device}, "
+                         f"got {into.dtype} {tuple(into.shape)} on {into.device}")
+    ld = into.stride(3)
+    if into.stride() != (h * w * ld, 1, w * ld, ld) or ld < c:
+        raise ValueError(f"{what}: into must be NHWC with its pixels ld >= C = {c} elements "
+                         f"apart, got strides {into.stride()}")
+    if not out.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{what} writes into a slice from a channels_last out only")
+    return ld
+
+
+def _launch(out: torch.Tensor, b: torch.Tensor, act: int, what: str,
+            into: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Checks ``out``, ``b`` and ``into`` for the kernels and runs
+    activation ``act`` over ``out`` on its card, in place or into
+    ``into``; returns the tensor written."""
     if out.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {out.device}")
     if out.dtype not in _SLOPES:
@@ -108,13 +138,15 @@ def _launch(out: torch.Tensor, b: torch.Tensor, act: int, what: str) -> None:
         inner = out.shape[2] * out.shape[3]
     else:
         raise ValueError(f"{what}: out must be channels_last- or NCHW-contiguous")
+    ld = 0 if into is None else _slice_ld(into, out, what)
     bias = b.to(out.device, out.dtype).contiguous()
     with torch.cuda.device(out.device):
         err = _lib().amyolo_bias_act(
-            out.data_ptr(), bias.data_ptr(), out.numel(), out.shape[1], inner,
-            int(out.dtype == torch.bfloat16), act, _SLOPES[out.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), None if into is None else into.data_ptr(), ld, bias.data_ptr(),
+            out.numel(), out.shape[1], inner, int(out.dtype == torch.bfloat16), act,
+            _SLOPES[out.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(err, f"{what} kernel launch")
+    return out if into is None else into
 
 
 def bias_leaky(out: torch.Tensor, b: torch.Tensor, leaky: bool) -> torch.Tensor:
@@ -130,19 +162,27 @@ def bias_leaky(out: torch.Tensor, b: torch.Tensor, leaky: bool) -> torch.Tensor:
     return out
 
 
-def bias_mish(out: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def bias_mish(out: torch.Tensor, b: torch.Tensor,
+              into: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`bias_mish_plain` of ``out`` and ``b``, taking what
-    :func:`bias_leaky` takes: on the card written into ``out`` (to one bf16
-    ulp of the plain version), on the CPU the plain version."""
+    :func:`bias_leaky` takes: on the card written into ``out`` or, from a
+    channels_last ``out``, into ``into`` (see the module's notes), to one
+    bf16 ulp of the plain version; on the CPU the plain version (copied
+    into ``into`` if given).  Returns the tensor written."""
     if out.device.type == "cpu":
-        return bias_mish_plain(out, b)
-    _launch(out, b, _MISH, "bias_mish")
+        y = bias_mish_plain(out, b)
+        if into is None:
+            return y
+        _slice_ld(into, out, "bias_mish")
+        return into.copy_(y)
+    y = _launch(out, b, _MISH, "bias_mish", into)
     bias_mish.launches += 1
-    return out
+    bias_mish.into_route += into is not None
+    return y
 
 
 bias_leaky.launches = 0
-bias_mish.launches = 0
+bias_mish.launches = bias_mish.into_route = 0
 
 __all__ = ["bias_leaky", "bias_leaky_plain", "bias_mish", "bias_mish_plain", "leaky_where",
            "mish_wide", "LEAKY_SLOPE"]

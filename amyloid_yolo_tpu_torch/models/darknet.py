@@ -44,7 +44,10 @@ a graph with Mish convs or grid-sensitive heads.  Every fusible
 residual unit (all 23 of YOLOv3, the 64-channel one included) goes through
 K2 when packs are given; every SPP block given to the folded forward
 (YOLOv4's stride-1 pools and their route, :func:`spp_blocks`) is one pass
-of ``kernels/spp_pool.py`` whose output equals the layers' bit for bit.
+of ``kernels/spp_pool.py`` whose output equals the layers' bit for bit.  A
+route given to the folded forward in its plan (:func:`route_slices`:
+YOLOv4's CSP joins) copies nothing: each member's epilogue writes into its
+channel slice of the route's map, with the same values.
 
 int8 contract (:mod:`amyloid_yolo_tpu_torch.ops.int8`): int8 convolutions
 are exact int32 sums (``torch._int_mm``), rounded to bf16 where the
@@ -60,6 +63,7 @@ float32 result.
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Set, Tuple
 
@@ -87,6 +91,8 @@ from ..utils.device import no_tf32
 
 Folded = Dict[str, Dict[str, torch.Tensor]]
 Packs = Dict[int, Tuple[torch.Tensor, ...]]
+#: the kernel's own Mish epilogue, which takes ``into`` (see :func:`folded_conv`)
+_bias_mish = bias_mish
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # torch BatchNorm2d(momentum=0.9), reference models.py:43
@@ -222,6 +228,31 @@ def spp_blocks(spec: GraphSpec) -> Dict[int, SppBlock]:
                                  j)
             taken = j
     return blocks
+
+
+def route_slices(spec: GraphSpec) -> Dict[int, Tuple[int, ...]]:
+    """Map route index → its members' channel offsets in its map, in the
+    route's order, for every route the folded forward joins in place: two
+    members or more, each a Mish conv that no other layer reads (the route
+    is its one consumer, and the layer after it is the route itself or
+    another route, which does not read it as its input).  Each such
+    member's Mish epilogue, the one that takes a destination, writes into
+    its slice of the route's map, and the route copies nothing.  No conv
+    inside a run of :func:`walk` qualifies: K2's convs are read by the
+    unit's next layer, and the s2d stem's layer 1 could only join a route
+    with layer 0, which no layer reads."""
+    plan: Dict[int, Tuple[int, ...]] = {}
+    for r, layer in enumerate(spec.layers):
+        if not (isinstance(layer, RouteSpec) and len(set(layer.layers)) == len(layer.layers) >= 2):
+            continue
+        if all(isinstance(spec.layers[m], ConvSpec) and spec.layers[m].activation == "mish"
+               and spec.consumers[m] == {r}
+               and (m + 1 == r or (isinstance(spec.layers[m + 1], RouteSpec)
+                                   and m not in spec.layers[m + 1].layers))
+               for m in layer.layers):
+            widths = [spec.out_channels[m] for m in layer.layers]
+            plan[r] = tuple(itertools.accumulate(widths[:-1], initial=0))
+    return plan
 
 
 def pack_residual_blocks(folded: Folded, spec: GraphSpec,
@@ -477,16 +508,29 @@ def _bn(params: Mapping[str, torch.Tensor], i: int, out: torch.Tensor,
 
 
 def folded_conv(folded: Folded, i: int, layer: ConvSpec, x: torch.Tensor,
-                compute_dtype: torch.dtype, padding=None) -> torch.Tensor:
+                compute_dtype: torch.dtype, padding=None,
+                into: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Conv ``i`` over BN-folded params: conv, bias in ``compute_dtype``,
     activation (``padding`` as :func:`conv` takes it).  On the card the bias
     and the activation are one in-place pass over the conv's output
     (:func:`~..kernels.bias_leaky.bias_leaky`, or for a Mish conv
-    :func:`~..kernels.bias_leaky.bias_mish`)."""
+    :func:`~..kernels.bias_leaky.bias_mish`).  ``into`` (a Mish conv only):
+    the channel slice of a route's map that takes the values instead, and
+    is returned.
+
+    ``conv`` and ``bias_mish`` are looked up here at each call, so that a
+    stand-in set on this module reaches every conv: the benchmark's planted
+    faults are such stand-ins.  A stand-in ``bias_mish`` takes ``(out, b)``
+    alone, so its result is copied into ``into``."""
     out = conv(folded[f"conv_{i}"]["w"], layer, x, compute_dtype, padding)
-    if layer.activation == "mish":
-        return bias_mish(out, folded[f"conv_{i}"]["b"])
-    return bias_leaky(out, folded[f"conv_{i}"]["b"], layer.activation == "leaky")
+    b = folded[f"conv_{i}"]["b"]
+    if layer.activation != "mish":
+        return bias_leaky(out, b, layer.activation == "leaky")
+    if into is None:
+        return bias_mish(out, b)
+    if bias_mish is not _bias_mish:
+        return into.copy_(bias_mish(out, b))
+    return bias_mish(out, b, into)
 
 
 def apply(params: Mapping[str, torch.Tensor], spec: GraphSpec, x: torch.Tensor, *,
@@ -579,7 +623,8 @@ def apply_folded(folded: Folded, spec: GraphSpec, x: torch.Tensor, *,
                  packs: Optional[Packs] = None,
                  block_fn: Callable[..., torch.Tensor] = fused_residual_block,
                  s2d_stem: Optional[Folded] = None,
-                 spp: Optional[Mapping[int, SppBlock]] = None) -> List[torch.Tensor]:
+                 spp: Optional[Mapping[int, SppBlock]] = None,
+                 routes: Optional[Mapping[int, Tuple[int, ...]]] = None) -> List[torch.Tensor]:
     """Inference forward over BN-folded params; returns the f32 NHWC map at
     each yolo layer.
 
@@ -592,7 +637,9 @@ def apply_folded(folded: Folded, spec: GraphSpec, x: torch.Tensor, *,
     from layer 2 on are unchanged.  ``spp`` (:func:`spp_blocks`) sends each
     SPP block through :func:`~..kernels.spp_pool.spp_pool`; without it the
     pools and their route run layer by layer.  Each of these is a run of
-    :func:`walk`.
+    :func:`walk`.  ``routes`` (:func:`route_slices`) joins each of its
+    routes in place: its members' epilogues write into the route's map, and
+    the route copies nothing; without it every route is a ``torch.cat``.
     """
     x = x.to(compute_dtype)
     head_maps: List[torch.Tensor] = []
@@ -602,15 +649,43 @@ def apply_folded(folded: Folded, spec: GraphSpec, x: torch.Tensor, *,
     else:
         runs[0] = (1, lambda x, _: s2d_stem_forward(s2d_stem, x, compute_dtype))
         prev = x
-    walk(spec, _folded_step(folded, compute_dtype, head_maps), prev, {}, runs=runs)
+    walk(spec, _folded_step(folded, compute_dtype, head_maps, spec, routes), prev, {},
+         runs=runs)
     return head_maps
 
 
-def _folded_step(folded: Folded, compute_dtype: torch.dtype,
-                 head_maps: List[torch.Tensor]) -> Step:
+def _folded_step(folded: Folded, compute_dtype: torch.dtype, head_maps: List[torch.Tensor],
+                 spec: Optional[GraphSpec] = None,
+                 routes: Optional[Mapping[int, Tuple[int, ...]]] = None) -> Step:
     """A layer of the folded forward on an NCHW map: :func:`folded_conv`
-    or :func:`plain_layer`."""
+    or :func:`plain_layer`.  A member of one of ``routes`` (the
+    :func:`route_slices` of ``spec``) is its slice of the route's map,
+    allocated at the route's first member to run and returned whole at the
+    route.  While such a map is held, a shortcut adds into the conv output
+    before it where no other layer reads that (the same sums), so that the
+    held map does not raise the forward's peak by a copy more."""
+    routes = routes or {}
+    slot = {m: (r, off) for r, offs in routes.items()
+            for m, off in zip(spec.layers[r].layers, offs)}
+    sole = {l.index for l in spec.layers if isinstance(l, ShortcutSpec)
+            and isinstance(spec.layers[l.index - 1], ConvSpec)
+            and spec.consumers[l.index - 1] == {l.index}} if routes else set()
+    maps: Dict[int, torch.Tensor] = {}
+
     def step(i, layer, prev, saved):
+        if i in slot:
+            r, off = slot[i]
+            if r not in maps:
+                b, _, h, w = prev.shape
+                h, w = ((n + 2 * layer.pad - layer.kernel) // layer.stride + 1 for n in (h, w))
+                maps[r] = torch.empty((b, spec.out_channels[r], h, w), dtype=compute_dtype,
+                                      device=prev.device, memory_format=torch.channels_last)
+            return folded_conv(folded, i, layer, prev, compute_dtype,
+                               into=maps[r][:, off:off + layer.out_ch])
+        if i in maps:
+            return maps.pop(i)
+        if maps and i in sole:
+            return prev.add_(saved[layer.from_index])
         if isinstance(layer, ConvSpec):
             return folded_conv(folded, i, layer, prev, compute_dtype)
         return plain_layer(layer, prev, saved, head_maps)

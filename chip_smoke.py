@@ -38,9 +38,10 @@ Phases (any failure exits non-zero; nothing is caught):
    one call of a bf16 ``Detector`` of YOLOv4 at 608
    (``benchmark/configs/yolov4-amyloid-608.cfg``, weights from the
    Detector's seed) on the first batch, both epilogue counters set to 0
-   just before: 72 launches of the Mish epilogue, 38 of the leaky one and
-   1 of the SPP block's kernel (none in the YOLOv3 calls before it), K1
-   once, K2 and K3 never, outputs as above;
+   just before: 72 launches of the Mish epilogue, 10 of them into a CSP
+   route's slice (``darknet.route_slices``; none in the YOLOv3 calls), 38
+   of the leaky one and 1 of the SPP block's kernel (none in the YOLOv3
+   calls before it), K1 once, K2 and K3 never, outputs as above;
 7. the int8 Detectors, ``precision="int8_full"`` and ``"int8_early"``, on
    the same weights, calibrated on the first batch, then 3 batches of 8:
    launch counts 3 (K1), 0 (K2), 0 (K3); outputs finite and shaped as
@@ -69,10 +70,13 @@ Phases (any failure exits non-zero; nothing is caught):
    beside it and its bytes bound (:func:`epilogue_rows`); its Mish form
    (``bias_mish``) at the 72 Mish conv outputs of a B=64 YOLOv4 call at
    608, within one bf16 ulp of its plain version on each (the share of
-   elements that differ recorded) and timed the same way
-   (:func:`mish_rows`); YOLOv4's SPP block (``kernels/spp_pool.py``) on its
-   B=64 input at 608, bit-exact to its plain version (the pools and the
-   cat) and timed beside it and its bytes bound (:func:`spp_rows`).  Every
+   elements that differ recorded) and timed the same way, and at the ten
+   members of the CSP routes joined in place also into the member's slice
+   of the route's map, bit for bit the in-place kernel with the map's other
+   channels untouched, timed beside the in-place form (:func:`mish_rows`);
+   YOLOv4's SPP block (``kernels/spp_pool.py``) on its B=64 input at 608,
+   bit-exact to its plain version (the pools and the cat) and timed beside
+   it and its bytes bound (:func:`spp_rows`).  Every
    trace behind a printed device-busy, idle-share or launch figure (here
    and in phases 10, 11, 16, 17 and the BN tool of 18 (e)) is warmed (a
    dropped warm-up step) and checked complete: it must keep a device record
@@ -654,12 +658,19 @@ def mish_rows(dev, gen, card: str, batch: int = MISH_BATCH) -> list:
     random map against the plain version, within one bf16 ulp (the share
     of elements that differ at all is recorded), then the kernel's time (in
     place, over and over), the plain version's and the bound (the map read
-    and written once at 3.35 TB/s)."""
+    and written once at 3.35 TB/s).  At the ten members of the CSP routes
+    that the folded forward joins in place (``darknet.route_slices``) the
+    kernel also writes into the member's slice of a NaN-filled route map:
+    the slice bit for bit the in-place kernel's values, every other channel
+    of the map still NaN, and its time beside the in-place form's."""
     import torch
     from amyloid_yolo_tpu_torch.graphspec import ConvSpec, from_cfg
     from amyloid_yolo_tpu_torch.kernels.bias_leaky import bias_mish, bias_mish_plain
+    from amyloid_yolo_tpu_torch.models.darknet import route_slices
     from amyloid_yolo_tpu_torch.parallel.spatial import layer_strides
     spec = from_cfg(V4_CFG)
+    slots = {m: (spec.out_channels[r], off) for r, offs in route_slices(spec).items()
+             for m, off in zip(spec.layers[r].layers, offs)}
     rows = []
     for i, (layer, stride) in enumerate(zip(spec.layers, layer_strides(spec))):
         if not (isinstance(layer, ConvSpec) and layer.activation == "mish"):
@@ -674,13 +685,35 @@ def mish_rows(dev, gen, card: str, batch: int = MISH_BATCH) -> list:
         ulps = bf16_ulps(got, want)
         max_ulps, differ = int(ulps.max()), int((ulps > 0).sum())
         max_abs = (got.float() - want.float()).abs().max().item()
-        del want, got, ulps
+        del want, ulps
+        row = {"conv": i, "shape": f"{batch}x{c}x{side}x{side}", "elements": x.numel(),
+               "differ": differ, "max_ulps": max_ulps, "max_abs_diff": max_abs}
+        if i in slots:
+            c_route, off = slots[i]
+            m = torch.full((batch, c_route, side, side), float("nan"), dtype=torch.bfloat16,
+                           device=dev).contiguous(memory_format=torch.channels_last)
+            into = m[:, off:off + c]
+            bias_mish(x, b, into)
+            torch.cuda.synchronize()
+            exact = torch.equal(into.view(torch.int16), got.view(torch.int16))
+            untouched = bool(torch.isnan(m[:, :off]).all() and torch.isnan(m[:, off + c:]).all())
+            into_ms = cuda_ms(lambda: bias_mish(x, b, into))
+            row["into_route"] = {"route_channels": c_route, "offset": off, "bit_exact": exact,
+                                 "others_untouched": untouched, "ms": into_ms}
+            print(f"Mish epilogue conv {i} into channels {off}..{off + c} of a {c_route}-channel "
+                  f"route map: {into_ms:.4f} ms; bit for bit the in-place kernel {exact}, "
+                  f"other channels untouched {untouched} [{card}]", flush=True)
+            if not (exact and untouched):
+                raise AssertionError(f"the Mish epilogue into a route's slice differs from the "
+                                     f"in-place kernel or writes outside its slice at conv {i}, "
+                                     f"B={batch}")
+            del m, into
+        del got
         ms = cuda_ms(lambda: bias_mish(x, b))
         plain_ms = cuda_ms(lambda: bias_mish_plain(x, b))
         bound = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
-        rows.append({"conv": i, "shape": f"{batch}x{c}x{side}x{side}", "elements": x.numel(),
-                     "differ": differ, "max_ulps": max_ulps, "max_abs_diff": max_abs,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound})
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        rows.append(row)
         print(f"Mish epilogue conv {i} B={batch} {c}x{side}x{side}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes); {differ} of {x.numel()} "
               f"elements differ, at most {max_ulps} bf16 ulp [{card}]", flush=True)
@@ -4861,17 +4894,19 @@ def main() -> int:
         raise AssertionError(f"the epilogue ran {epilogue_launches} times over 3 calls, want 87")
     if spp_pool.launches != 0:
         raise AssertionError(f"the YOLOv3 calls ran the SPP kernel {spp_pool.launches} times")
+    if bias_mish.into_route:
+        raise AssertionError("the YOLOv3 calls wrote an epilogue into a route's slice")
     det_v4 = Detector(from_cfg(V4_CFG), model_size=608, seed=SEED)
-    bias_leaky.launches = bias_mish.launches = 0
+    bias_leaky.launches = bias_mish.launches = bias_mish.into_route = 0
     drive(det_v4, batches[:1], {"resize_normalize": 1, "fused_residual_block": 0,
                                 "fused_residual_block_int8": 0})
     v4_epilogues = {"bias_mish": bias_mish.launches, "bias_leaky": bias_leaky.launches,
-                    "spp_pool": spp_pool.launches}
+                    "spp_pool": spp_pool.launches, "into_route": bias_mish.into_route}
     print(f"YOLOv4 bf16 Detector epilogue and SPP launches over one call: {v4_epilogues} "
-          "(want 72, 38 and 1)", flush=True)
-    if v4_epilogues != {"bias_mish": 72, "bias_leaky": 38, "spp_pool": 1}:
+          "(want 72, 38, 1 and 10 of the Mish epilogues into a CSP route's slice)", flush=True)
+    if v4_epilogues != {"bias_mish": 72, "bias_leaky": 38, "spp_pool": 1, "into_route": 10}:
         raise AssertionError(f"a YOLOv4 call ran {v4_epilogues}, want 72 Mish epilogues, "
-                             "38 leaky ones and 1 SPP pass")
+                             "38 leaky ones, 1 SPP pass and 10 Mish epilogues into a route")
     del det_v4
 
     with torch.inference_mode():
@@ -5084,6 +5119,10 @@ def main() -> int:
               f"{sum(r['bound_ms'] for r in mish):.4f} ms (bytes); "
               f"{100 * mish_differ:.6f}% of the elements differ, by one bf16 ulp [{card}]",
               flush=True)
+        joined = [r for r in mish if "into_route" in r]
+        print(f"Mish epilogue of the {len(joined)} CSP route members: into the routes' slices "
+              f"{sum(r['into_route']['ms'] for r in joined):.4f} ms, in place "
+              f"{sum(r['ms'] for r in joined):.4f} ms [{card}]", flush=True)
         spp = spp_rows(dev, gen, card)
 
     # 10. the folder path

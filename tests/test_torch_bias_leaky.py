@@ -4,24 +4,33 @@ ReLU in one pass.
 On the CPU: the plain version is the folded forward's expression, and both
 agree with the rounding points the kernel implements (an independent numpy
 model of them), on values that include ``-0.0``, infinities, NaN and bf16
-rounding ties; the folded conv on the CPU launches nothing.
+rounding ties; the folded conv on the CPU launches nothing.  Into a
+route's slice (the Mish epilogue's ``into``) the plain version's values
+land in the slice and nowhere else, and a destination the kernel cannot
+take is refused.
 
 Tests marked ``card`` need a CUDA card and skip without one.  They hold the
-kernel to the plain version bit for bit (NaN by mask) and import nothing
-of JAX; run them on the card without the JAX conftest:
+kernel to the plain version bit for bit (NaN by mask), and the kernel into
+a slice to the in-place kernel at YOLOv4's CSP member shapes, and import
+nothing of JAX; run them on the card without the JAX conftest:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_bias_leaky.py``.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from amyloid_yolo_tpu_torch.graphspec import ConvSpec, yolov3_spec
-from amyloid_yolo_tpu_torch.kernels.bias_leaky import bias_leaky, bias_leaky_plain
+from amyloid_yolo_tpu_torch.graphspec import ConvSpec, from_cfg, yolov3_spec
+from amyloid_yolo_tpu_torch.kernels.bias_leaky import (bias_leaky, bias_leaky_plain, bias_mish,
+                                                      bias_mish_plain)
 from amyloid_yolo_tpu_torch.kernels.conv_block import LEAKY_SLOPE
 from amyloid_yolo_tpu_torch.models import darknet
 from amyloid_yolo_tpu_torch.parallel.spatial import layer_strides
 
+V4_CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark",
+                      "configs", "yolov4-amyloid-608.cfg")
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 LAYOUTS = ("channels_last", "nchw")
 
@@ -134,6 +143,71 @@ def test_folded_conv_on_the_cpu_launches_nothing():
 
 
 # ---------------------------------------------------------------------------
+# into a route's slice: the Mish epilogue writes a member's values into its
+# channels of the route's channels_last map
+
+
+def _route_map(b, c_route, h, w, dtype, device="cpu"):
+    """A route's channels_last map filled with a NaN pattern, to show which
+    channels a write touched."""
+    m = torch.full((b, c_route, h, w), float("nan"), dtype=dtype, device=device)
+    return m.contiguous(memory_format=torch.channels_last)
+
+
+def _into_vs_in_place(x, b, off, c_route):
+    """The Mish epilogue of ``x`` into channels ``off..off + C`` of a
+    route's map against the in-place epilogue of a copy of ``x`` copied
+    there; the other channels stay NaN and ``x`` stays as it was."""
+    c = x.shape[1]
+    m = _route_map(x.shape[0], c_route, x.shape[2], x.shape[3], x.dtype, x.device)
+    before = x.clone()
+    got = bias_mish(x, b, m[:, off:off + c])
+    want = _route_map(x.shape[0], c_route, x.shape[2], x.shape[3], x.dtype, x.device)
+    want[:, off:off + c] = bias_mish(x.clone(memory_format=torch.channels_last), b)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    assert got.data_ptr() == m[:, off:off + c].data_ptr()
+    assert _same(m, want), (tuple(x.shape), off, c_route)
+    assert _same(x, before)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("off,c_route", [(0, 42), (21, 42), (5, 30), (0, 21), (13, 40)])
+def test_plain_writes_into_the_slice(dtype, off, c_route):
+    gen = torch.Generator().manual_seed(off + c_route)
+    x, b = _special_map(DTYPES[dtype], "channels_last", gen)
+    _into_vs_in_place(x, b, off, c_route)
+    # the slice holds the plain version's values
+    m = _route_map(2, c_route, 5, 7, x.dtype)
+    bias_mish(x, b, m[:, off:off + 21])
+    assert _same(m[:, off:off + 21], bias_mish_plain(x, b))
+
+
+def _refused(device):
+    """``(what, out, into, message)`` of the destinations the epilogue
+    refuses: pixels closer than C, another dtype, an NCHW one, another
+    shape, and an NCHW ``out``."""
+    x = torch.zeros(2, 8, 4, 4, dtype=torch.bfloat16, device=device).contiguous(
+        memory_format=torch.channels_last)
+    close = torch.zeros(2 * 16 * 6 + 8, dtype=torch.bfloat16, device=device).as_strided(
+        (2, 8, 4, 4), (16 * 6, 1, 4 * 6, 6))
+    m = _route_map(2, 16, 4, 4, torch.bfloat16, device)
+    return [("ld < C", x, close, "ld >= C"),
+            ("dtype", x, _route_map(2, 16, 4, 4, torch.float32, device)[:, :8], "into must be"),
+            ("nchw", x, torch.zeros(2, 16, 4, 4, dtype=torch.bfloat16, device=device)[:, 8:],
+             "NHWC"),
+            ("shape", x, m[:, :7], "into must be"),
+            ("nchw out", x.contiguous(), m[:, :8], "channels_last out only")]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_a_destination_it_cannot_take_is_refused(case):
+    _, out, into, match = _refused("cpu")[case]
+    with pytest.raises(ValueError, match=match):
+        bias_mish(out, torch.zeros(8), into)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 
 
@@ -234,3 +308,79 @@ def test_a_detector_call_runs_29_epilogues_bit_for_bit(cuda, monkeypatch):
         plain = det.head_maps(tiles)
     assert bias_leaky.launches - before == 29
     assert len(maps) == 3 and all(_same(m, p) for m, p in zip(maps, plain))
+
+
+def csp_member_shapes(side: int = 608):
+    """``(C, H, C_route, off)`` of each member of YOLOv4's CSP routes that
+    the folded forward joins in place (``darknet.route_slices``)."""
+    spec = from_cfg(V4_CFG)
+    strides = layer_strides(spec)
+    return [(spec.out_channels[m], side // strides[m], spec.out_channels[r], off)
+            for r, offs in darknet.route_slices(spec).items()
+            for m, off in zip(spec.layers[r].layers, offs)]
+
+
+def test_the_csp_member_shapes():
+    assert csp_member_shapes() == [
+        (64, 304, 128, 0), (64, 304, 128, 64), (64, 152, 128, 0), (64, 152, 128, 64),
+        (128, 76, 256, 0), (128, 76, 256, 128), (256, 38, 512, 0), (256, 38, 512, 256),
+        (512, 19, 1024, 0), (512, 19, 1024, 512)]
+
+
+@pytest.mark.card
+def test_kernel_into_the_slice_is_the_in_place_kernel_at_the_csp_shapes(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    for c, h, c_route, off in csp_member_shapes():
+        x = (3 * torch.randn(2, c, h, h, device=cuda, generator=gen)).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        x[0, 0, 0, :5] = torch.tensor([-0.0, float("inf"), float("-inf"), float("nan"), 25.0],
+                                      dtype=torch.bfloat16, device=cuda)
+        b = torch.randn(c, device=cuda, generator=gen).to(torch.bfloat16)
+        before, into = bias_mish.launches, bias_mish.into_route
+        _into_vs_in_place(x, b, off, c_route)
+        assert (bias_mish.launches - before, bias_mish.into_route - into) == (2, 1)
+        del x
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("c,off,c_route", [
+    (64, 64, 128),     # the vectors
+    (64, 3, 128),      # an offset off the vectors: the scalar loop
+    (21, 21, 42),      # C not whole vectors: the scalar loop
+    (24, 8, 40),       # whole vectors in bf16 and float32
+])
+def test_kernel_into_a_slice_off_the_vectors(cuda, dtype, c, off, c_route):
+    gen = torch.Generator().manual_seed(c + off)
+    x, b = _special_map(DTYPES[dtype], "channels_last", gen, b=3, c=c, h=13, w=11, device=cuda)
+    _into_vs_in_place(x, b, off, c_route)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", range(5))
+def test_the_kernel_refuses_a_destination_it_cannot_take(cuda, case):
+    _, out, into, match = _refused(cuda)[case]
+    before = bias_mish.launches
+    with pytest.raises(ValueError, match=match):
+        bias_mish(out, torch.zeros(8, device=cuda), into)
+    assert bias_mish.launches == before
+
+
+@pytest.mark.card
+def test_the_entry_point_takes_a_destination_for_mish_only(cuda):
+    """``amyolo_bias_act`` refuses ``dst`` for the leaky and linear passes
+    (the wrappers give none) and takes it for Mish."""
+    from amyloid_yolo_tpu_torch.kernels import _build
+    from amyloid_yolo_tpu_torch.kernels.bias_leaky import _lib
+    out = torch.zeros(2, 8, 4, 4, dtype=torch.bfloat16, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    m = _route_map(2, 16, 4, 4, torch.bfloat16, cuda)
+    bias = torch.zeros(8, dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    errs = [_lib().amyolo_bias_act(out.data_ptr(), m.data_ptr(), 16, bias.data_ptr(),
+                                   out.numel(), 8, 1, 1, act, 0.1, stream) for act in (0, 1, 2)]
+    torch.cuda.synchronize()
+    assert errs[0] != 0 and errs[1] != 0 and errs[2] == 0
+    assert torch.equal(m[:, :8], torch.zeros_like(out)) and torch.isnan(m[:, 8:]).all()
+    _build.check(_lib().amyolo_bias_act(out.data_ptr(), None, 0, bias.data_ptr(), out.numel(),
+                                        8, 1, 1, 1, 0.1, stream), "in place")

@@ -2,8 +2,9 @@
 of the port runs, seen through the folded forward and the height-sharded
 one: each saved value leaves ``saved`` right after its last reader and
 none is left at the end; a fused run's inner layers never enter it; and
-the fused and sharded forwards give the layer-by-layer forward's head
-maps bit for bit (float32 on the CPU).
+the fused forward (K2's units, SPP blocks and the routes joined in place)
+and the sharded one give the layer-by-layer forward's head maps bit for
+bit (float32 on the CPU).
 
 Graphs: the mini YOLOv3 (residual units for K2's plain version, routes,
 upsamples), the mini YOLOv4 of ``benchmark/tests/mini_v4.cfg`` (an SPP
@@ -65,7 +66,8 @@ def test_walk_frees_after_last_reader_and_fuses_runs(graph, forward, monkeypatch
     if forward == "fused":
         packs = darknet.pack_residual_blocks(folded, spec, torch.float32)
         spp = darknet.spp_blocks(spec)
-        kw = dict(packs=packs, block_fn=fused_residual_block_plain, spp=spp)
+        kw = dict(packs=packs, block_fn=fused_residual_block_plain, spp=spp,
+                  routes=darknet.route_slices(spec))
         runs = {**{i: i + 2 for i in packs}, **{i: b.route for i, b in spp.items()}}
         assert runs or graph == "pools"
     calls, left = [], []

@@ -29,6 +29,8 @@ from benchmark.reference import yolov4 as ref
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V4_CFG = os.path.join(ROOT, "benchmark", "configs", "yolov4-amyloid-608.cfg")
 MINI_CFG = os.path.join(ROOT, "benchmark", "tests", "mini_v4.cfg")
+V3_CFGS = [os.path.join(ROOT, "benchmark", "configs", f"yolov3-amyloid-{s}.cfg")
+           for s in ("416", "512a")]
 ANCHORS = ((12, 16), (19, 36), (40, 28), (36, 75), (76, 55), (72, 146), (142, 110),
            (192, 243), (459, 401))
 
@@ -318,6 +320,271 @@ def test_the_f32_detector_runs_yolov4_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the CSP routes joined in place: each member's epilogue writes into its
+# slice of the route's map (``darknet.route_slices``)
+
+CSP_ROUTES = {9: (0, 64), 22: (0, 64), 53: (0, 128), 84: (0, 256), 103: (0, 512)}
+
+
+def test_the_plan_is_yolov4s_five_csp_joins():
+    spec = from_cfg(V4_CFG)
+    assert darknet.route_slices(spec) == CSP_ROUTES
+    for r, offs in CSP_ROUTES.items():
+        a, b = spec.layers[r].layers
+        assert a == r - 1 and offs == (0, spec.out_channels[a])
+
+
+@pytest.mark.parametrize("cfg", V3_CFGS + ["yolov3"])
+def test_the_plan_is_empty_for_yolov3(cfg):
+    spec = yolov3_spec(num_classes=2) if cfg == "yolov3" else from_cfg(cfg)
+    assert darknet.route_slices(spec) == {}
+
+
+def _conv(f, k=1, s=1, act="mish"):
+    return (f"[convolutional]\nbatch_normalize=1\nfilters={f}\nsize={k}\nstride={s}\npad=1\n"
+            f"activation={act}\n")
+
+
+def _route(*layers):
+    return "[route]\nlayers=" + ",".join(str(l) for l in layers) + "\n"
+
+
+HEAD = ("[convolutional]\nfilters=21\nsize=1\nstride=1\npad=1\nactivation=linear\n\n"
+        "[yolo]\nmask=0,1,2\nanchors=4,6, 8,10, 12,9\nclasses=2\nnum=3\n")
+
+#: synthetic graphs: (layers, the plan); the last block is the route
+GRAPHS = {
+    # two mish members, then a [route] back that does not list them
+    "joined": ([_conv(8, 3), _conv(8), _route(-2), _conv(8), _route(-1, -3)], {4: (0, 8)}),
+    # members of two widths, joined in the order they ran
+    "widths": ([_conv(8, 3), _conv(6), _route(-2), _conv(10), _route(-3, -1)], {4: (0, 6)}),
+    # leaky members: only the Mish epilogue takes a destination
+    "leaky": ([_conv(8, 3, act="leaky"), _conv(6, act="leaky"), _route(-2),
+               _conv(10, act="leaky"), _route(-1, -3)], {}),
+    # member 1 is read by a later shortcut too
+    "read again": ([_conv(8, 3), _conv(8), _route(-2), _conv(8), _route(-1, -3), _conv(8),
+                    "[shortcut]\nfrom=1\nactivation=linear\n"], {}),
+    # member 2 is an upsample
+    "upsample": ([_conv(8, 3), _conv(8, 3, 2), "[upsample]\nstride=2\n", _route(-3), _conv(8),
+                  _route(-1, -3)], {}),
+    # member 3 ends a K2 unit (1x1 and 3x3 leaky convs and their shortcut)
+    "run end": ([_conv(8, 3, act="leaky"), _conv(4, act="leaky"), _conv(8, 3, act="leaky"),
+                 "[shortcut]\nfrom=-3\nactivation=linear\n", _route(-4), _conv(8),
+                 _route(-1, -3)], {}),
+    # layer 2 reads member 1 as its input
+    "read next": ([_conv(8, 3), _conv(8), _conv(8), _route(-1, -2)], {}),
+    # one member
+    "one": ([_conv(8, 3), _conv(8), _route(-1)], {}),
+}
+
+
+def _graph(tmp_path, name):
+    layers, plan = GRAPHS[name]
+    path = tmp_path / f"{name.replace(' ', '_')}.cfg"
+    path.write_text("[net]\nwidth=32\nheight=32\nchannels=3\n\n" + "\n".join(layers)
+                    + "\n" + _conv(8) + "\n" + HEAD)
+    return from_cfg(str(path)), plan
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_the_plan_of_a_synthetic_graph(tmp_path, name):
+    spec, plan = _graph(tmp_path, name)
+    assert darknet.route_slices(spec) == plan
+    if name == "run end":
+        assert darknet.fusible_residual_blocks(spec) == {1: (1, 2, 3)}
+
+
+def _maps(spec, folded, x, dtype, **kw):
+    with torch.no_grad():
+        return darknet.apply_folded(folded, spec, x, compute_dtype=dtype,
+                                    spp=darknet.spp_blocks(spec), **kw)
+
+
+def _same_bits(a, b):
+    return all(torch.equal(p.view(torch.int32), q.view(torch.int32)) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("graph", ["v4", "mini", "joined", "widths"])
+def test_the_joined_forward_is_the_cat_forward_bit_for_bit(tmp_path, monkeypatch, graph, dtype):
+    if graph in GRAPHS:
+        spec, _ = _graph(tmp_path, graph)
+    else:
+        spec = from_cfg(V4_CFG if graph == "v4" else MINI_CFG)
+    g = torch.Generator().manual_seed(5)
+    folded = darknet.fold_batchnorm(darknet.init_params(g, spec), spec)
+    # weights at He's scale, so that the maps do not shrink to nothing
+    for v in folded.values():
+        v["w"] *= (2.0 / v["w"][0].numel()) ** 0.5 / 0.02
+        v["b"] = 0.1 * torch.randn(v["b"].shape, generator=g)
+    side = 64 if graph == "v4" else 32
+    x = torch.rand(2, side, side, 3, generator=g)
+    plan = darknet.route_slices(spec)
+    cats = []
+    real = torch.cat
+    monkeypatch.setattr(torch, "cat", lambda t, *a, **k: cats.append(len(t)) or real(t, *a, **k))
+    want = _maps(spec, folded, x, dtype)
+    n_cat = len(cats)
+    got = _maps(spec, folded, x, dtype, routes=plan)
+    assert plan and len(got) == len(want) and _same_bits(got, want)
+    assert n_cat - (len(cats) - n_cat) == len(plan)
+    assert max(g.abs().max() for g in got) > 0.1
+
+
+@pytest.mark.parametrize("cfg,joined", [(V4_CFG, 10), (V3_CFGS[0], 0), (MINI_CFG, 2)])
+def test_the_detector_writes_its_members_into_their_routes(monkeypatch, cfg, joined):
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    spec = from_cfg(cfg)
+    det = Detector(spec, device="cpu", model_size=64)
+    assert det.routes == darknet.route_slices(spec)
+    joined_widths, in_place = [], []
+    real = darknet.folded_conv
+
+    def folded_conv(*a, into=None, **k):
+        if into is None:
+            in_place.append(1)
+        else:
+            joined_widths.append(into.shape[1])
+        return real(*a, into=into, **k)
+    monkeypatch.setattr(darknet, "folded_conv", folded_conv)
+    monkeypatch.setattr(darknet, "route_slices", lambda spec: pytest.fail("planned per call"))
+    tiles = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, 96, 96, 3)).astype(
+        np.uint8))
+    into_route = bias_mish.into_route
+    with torch.inference_mode():
+        det.head_maps(tiles)
+    # every conv outside K2's units (YOLOv3's 23) has its epilogue
+    convs = sum(isinstance(l, ConvSpec) for l in spec.layers) - 2 * len(det.packs)
+    assert len(joined_widths) + len(in_place) == convs
+    widths = [spec.out_channels[m] for r in det.routes for m in spec.layers[r].layers]
+    assert sorted(joined_widths) == sorted(widths) and len(widths) == joined
+    # the launch counter counts launches on the card only
+    assert bias_mish.into_route == into_route
+
+
+def _silu_epilogue(out, b):
+    """A two-argument stand-in for the Mish epilogue, as the benchmark's
+    planted ``mish_as_silu`` fault sets it on ``darknet``."""
+    return F.silu((out + b.to(out.dtype)[None, :, None, None]).float()).to(out.dtype)
+
+
+@pytest.mark.parametrize("cfg,mish", [(V4_CFG, 72), (MINI_CFG, None)])
+def test_a_stand_in_mish_epilogue_reaches_every_mish_conv(monkeypatch, cfg, mish):
+    """A stand-in set on ``darknet.bias_mish`` is every Mish conv's
+    epilogue, the route members' too: with it the forward with the plan
+    equals the forward without (where every member is a cat's operand) bit
+    for bit, and both differ from the sound forward."""
+    spec = from_cfg(cfg)
+    n_mish = sum(isinstance(l, ConvSpec) and l.activation == "mish" for l in spec.layers)
+    assert mish in (None, n_mish)
+    g = torch.Generator().manual_seed(9)
+    folded = darknet.fold_batchnorm(darknet.init_params(g, spec), spec)
+    x = torch.rand(1, 64, 64, 3, generator=g)
+    plan = darknet.route_slices(spec)
+    sound = _maps(spec, folded, x, torch.bfloat16, routes=plan)
+    calls = []
+    monkeypatch.setattr(darknet, "bias_mish", lambda out, b: calls.append(1) or
+                        _silu_epilogue(out, b))
+    faulted = _maps(spec, folded, x, torch.bfloat16, routes=plan)
+    assert len(calls) == n_mish
+    cat = _maps(spec, folded, x, torch.bfloat16)
+    assert len(calls) == 2 * n_mish and plan
+    assert _same_bits(faulted, cat) and not _same_bits(faulted, sound)
+
+
+def _aten_ops(fn):
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as mode:
+        fn()
+    return mode.ops
+
+
+def test_a_yolov3_detector_issues_the_ops_of_the_forward_without_a_plan():
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    det = Detector(yolov3_spec(num_classes=2), device="cpu", model_size=64)
+    assert det.routes == {} and det.packs
+    x = torch.rand(1, 64, 64, 3, generator=torch.Generator().manual_seed(3))
+    rep = det._replicas[0]
+    with torch.inference_mode():
+        with_plan = _aten_ops(lambda: darknet.apply_folded(
+            rep.params, det.spec, x, packs=rep.packs, spp=det.spp, routes=det.routes))
+        without = _aten_ops(lambda: darknet.apply_folded(rep.params, det.spec, x,
+                                                         packs=rep.packs, spp=det.spp))
+    assert with_plan == without and "aten.add_.Tensor" not in with_plan
+
+
+def _parent_step(folded, compute_dtype, head_maps):
+    """The folded forward's step as it was before the route plan:
+    :func:`darknet.folded_conv` or :func:`darknet.plain_layer`."""
+    def step(i, layer, prev, saved):
+        if isinstance(layer, ConvSpec):
+            return darknet.folded_conv(folded, i, layer, prev, compute_dtype)
+        return darknet.plain_layer(layer, prev, saved, head_maps)
+    return step
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("graph,tail", [("yolov3", False), ("yolov3", True), ("v4", False),
+                                        ("v4", True)])
+def test_a_forward_without_a_plan_is_the_forward_before_it(graph, tail, dtype):
+    """Without a plan the folded step issues the ops of the step before the
+    route plan and gives its bits: YOLOv3's unpacked folded forward (its
+    plan is empty), YOLOv4's without a plan, and the float tail of
+    ``int8_early`` from the end of its int8 region (no plan there)."""
+    spec = yolov3_spec(num_classes=2) if graph == "yolov3" else from_cfg(V4_CFG)
+    g = torch.Generator().manual_seed(4)
+    folded = darknet.fold_batchnorm(darknet.init_params(g, spec), spec)
+    x = torch.rand(1, 64, 64, 3, generator=g)
+    prev = darknet.channels_last(darknet.nchw(x.to(dtype)))
+    start, saved = 0, {}
+    if tail:
+        start = darknet.int8_region(spec)
+        assert start > 0
+        with torch.no_grad():
+            prev = darknet.walk(spec, _parent_step(folded, dtype, []), prev, saved, stop=start)
+    maps = {}
+
+    def run(name, step):
+        s = {k: v.clone(memory_format=torch.channels_last) for k, v in saved.items()}
+        p = prev.clone(memory_format=torch.channels_last)
+        maps[name] = []
+        with torch.no_grad():
+            return _aten_ops(lambda: darknet.walk(spec, step(maps[name]), p, s, start=start))
+
+    if graph == "yolov3" and not tail:
+        assert darknet.route_slices(spec) == {}
+        change = run("change", lambda hm: darknet._folded_step(
+            folded, dtype, hm, spec, darknet.route_slices(spec)))
+    else:
+        change = run("change", lambda hm: darknet._folded_step(folded, dtype, hm))
+    parent = run("parent", lambda hm: _parent_step(folded, dtype, hm))
+    assert change == parent and "aten.add_.Tensor" not in change
+    assert len(maps["change"]) == 3 and _same_bits(maps["change"], maps["parent"])
+
+
+def test_a_shortcut_adds_in_place_where_nothing_else_reads_its_input():
+    spec = from_cfg(V4_CFG)
+    sole = [l.index for l in spec.layers if isinstance(l, ShortcutSpec)]
+    assert len(sole) == 23 and all(spec.consumers[i - 1] == {i} for i in sole)
+    g = torch.Generator().manual_seed(2)
+    folded = darknet.fold_batchnorm(darknet.init_params(g, spec), spec)
+    x = torch.rand(1, 64, 64, 3, generator=g)
+    ops = _aten_ops(lambda: _maps(spec, folded, x, torch.bfloat16, routes=CSP_ROUTES))
+    # the plain epilogue's bias adds, one a conv, and no shortcut's
+    assert ops.count("aten.add_.Tensor") == 23 and ops.count("aten.add.Tensor") == 110
+
+
+# ---------------------------------------------------------------------------
 # on the card
 
 
@@ -417,3 +684,60 @@ def test_a_yolov4_detector_call_runs_72_mish_epilogues(cuda):
         torch.cuda.synchronize()
     assert bias_mish.launches - m0 == 72 and bias_leaky.launches - l0 == 38
     assert [tuple(m.shape) for m in maps] == [(2, 76, 76, 21), (2, 38, 38, 21), (2, 19, 19, 21)]
+
+
+@pytest.mark.card
+def test_a_yolov4_call_joins_its_csp_routes_in_place_bit_for_bit(cuda, monkeypatch):
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    rng = np.random.RandomState(0)
+    tiles = torch.from_numpy(rng.randint(0, 256, (2, 1536, 1536, 3)).astype(np.uint8)).to(cuda)
+    v3 = Detector(yolov3_spec(num_classes=2), device=cuda, model_size=416)
+    det = Detector(from_cfg(V4_CFG), device=cuda, model_size=608)
+    assert v3.routes == {} and det.routes == CSP_ROUTES
+    with torch.inference_mode():
+        m0 = bias_mish.into_route
+        v3.head_maps(tiles)
+        torch.cuda.synchronize()
+        assert bias_mish.into_route == m0
+        maps = det.head_maps(tiles)
+        torch.cuda.synchronize()
+        assert bias_mish.into_route - m0 == 10
+        monkeypatch.setattr(det, "routes", {})
+        cat = det.head_maps(tiles)
+        torch.cuda.synchronize()
+    assert bias_mish.into_route - m0 == 10
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(maps, cat))
+
+
+@pytest.mark.card
+def test_the_joined_maps_are_the_cats_of_the_members(cuda, monkeypatch):
+    """Each of the five joined maps of a B=2 call at 608 against the
+    ``torch.cat`` that the forward without the plan makes there."""
+    from amyloid_yolo_tpu_torch.detectors import Detector
+    det = Detector(from_cfg(V4_CFG), device=cuda, model_size=608)
+    rng = np.random.RandomState(1)
+    tiles = torch.from_numpy(rng.randint(0, 256, (2, 1536, 1536, 3)).astype(np.uint8)).to(cuda)
+    real = darknet.walk
+
+    def routes_of(plan):
+        seen = {}
+
+        def walk(spec, step, prev, saved, **kw):
+            def record(i, layer, p, s):
+                out = step(i, layer, p, s)
+                if i in CSP_ROUTES:
+                    seen[i] = out.clone(memory_format=torch.channels_last)
+                return out
+            return real(spec, record, prev, saved, **kw)
+
+        monkeypatch.setattr(darknet, "walk", walk)
+        monkeypatch.setattr(det, "routes", plan)
+        with torch.inference_mode():
+            det.head_maps(tiles)
+            torch.cuda.synchronize()
+        return seen
+
+    joined, cat = routes_of(CSP_ROUTES), routes_of({})
+    assert sorted(joined) == sorted(cat) == sorted(CSP_ROUTES)
+    for r in CSP_ROUTES:
+        assert torch.equal(joined[r].view(torch.int16), cat[r].view(torch.int16)), r
