@@ -96,9 +96,20 @@ class ShortcutSpec:
     from_index: int  # absolute layer index
 
 
+#: the box losses the port computes; :func:`from_cfg` refuses others
+IOU_LOSSES = ("mse", "ciou")
+
+
 @dataclasses.dataclass(frozen=True)
 class YoloSpec:
-    """One detection head scale (``models.py:98-125``)."""
+    """One detection head scale (``models.py:98-125``).
+
+    The training keys default to YOLOv3's loss and targets (PyTorch-YOLOv3's
+    ``YOLOLayer``): MSE box terms, one positive a head.  YOLOv4's cfg states
+    darknet's: ``iou_loss=ciou`` scaled by ``iou_normalizer``, the class
+    term by ``cls_normalizer``, and ``iou_thresh`` < 1, under which a truth's
+    positives are the best of ``all_anchors`` where ``mask`` holds it and
+    each other masked anchor above ``iou_thresh`` (``ops/targets.py``)."""
 
     index: int
     anchors: Tuple[Tuple[float, float], ...]  # the masked (per-scale) anchors
@@ -108,6 +119,16 @@ class YoloSpec:
     noobj_scale: float = 100.0
     #: YOLOv4's grid-sensitive decode: centre ``σ(t)·s − (s−1)/2 + cell``
     scale_x_y: float = 1.0
+    #: the box term: ``"mse"`` (x, y, w, h) or ``"ciou"`` (1 − CIoU)
+    iou_loss: str = "mse"
+    iou_normalizer: float = 1.0
+    cls_normalizer: float = 1.0
+    #: darknet's extra positives above this width-height IoU; 1.0 is off
+    iou_thresh: float = 1.0
+    #: the cfg's whole anchor table and this head's indices into it (empty
+    #: where the spec was built without a cfg)
+    all_anchors: Tuple[Tuple[float, float], ...] = ()
+    mask: Tuple[int, ...] = ()
 
 
 LayerSpec = object  # union of the dataclasses above
@@ -149,9 +170,15 @@ def from_cfg(path: str) -> GraphSpec:
     Follows the same channel-tracking rules as the reference's
     ``create_modules`` (``models.py:16-83``): routes sum the channel counts of
     their source layers, shortcuts inherit the channel count of their source.
-    A conv activation outside :data:`ACTIVATIONS` raises; the ``[yolo]`` keys
-    that only darknet's training reads (``iou_loss``, ``iou_normalizer``,
-    ``max_delta``, ``nms_kind``, ...) are ignored, and ``scale_x_y`` is kept.
+    A conv activation outside :data:`ACTIVATIONS` raises.  Of the
+    ``[yolo]`` keys beyond the anchors and classes, ``scale_x_y`` and
+    darknet's training keys ``iou_loss`` (one of :data:`IOU_LOSSES`, else it
+    raises), ``iou_normalizer``, ``cls_normalizer`` and ``iou_thresh`` are
+    kept, with the whole ``anchors`` table and the ``mask``; a cfg that
+    states none of the training keys (YOLOv3's) gets YOLOv3's loss.
+    ``ignore_thresh`` is not read (0.5, as the reference), and ``max_delta``,
+    ``truth_thresh``, ``nms_kind``, ``beta_nms``, ``jitter`` and ``random``
+    are read and ignored.
     """
     blocks = parse_model_config(path)
     hyper = blocks[0]
@@ -211,6 +238,10 @@ def from_cfg(path: str) -> GraphSpec:
             flat = [float(a) for a in block["anchors"].split(",")]
             all_anchors = [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
             anchors = tuple(all_anchors[m] for m in mask)
+            iou_loss = block.get("iou_loss", "mse")
+            if iou_loss not in IOU_LOSSES:
+                raise ValueError(f"layer {li}: unsupported iou_loss {iou_loss!r} "
+                                 f"(the loss computes {', '.join(IOU_LOSSES)})")
             layers.append(
                 YoloSpec(
                     index=li,
@@ -219,6 +250,12 @@ def from_cfg(path: str) -> GraphSpec:
                     ignore_thres=0.5,  # reference hard-codes 0.5 (models.py:106),
                     # NOT the cfg's ignore_thresh=.7 — documented trap.
                     scale_x_y=float(block.get("scale_x_y", 1.0)),
+                    iou_loss=iou_loss,
+                    iou_normalizer=float(block.get("iou_normalizer", 1.0)),
+                    cls_normalizer=float(block.get("cls_normalizer", 1.0)),
+                    iou_thresh=float(block.get("iou_thresh", 1.0)),
+                    all_anchors=tuple(all_anchors),
+                    mask=tuple(mask),
                 )
             )
             out_channels.append(prev_ch())
@@ -294,7 +331,13 @@ class _Builder:
              table: Optional[Sequence[Tuple[float, float]]] = None) -> int:
         table = YOLOV3_ANCHORS if table is None else tuple(table)
         anchors = tuple(table[m] for m in mask)
-        self.layers.append(YoloSpec(self.i, anchors, num_classes))
+        # the table and mask that emit_cfg writes: the standard table, or
+        # the head's own anchors
+        if all(a in YOLOV3_ANCHORS for a in anchors):
+            full, idx = YOLOV3_ANCHORS, tuple(YOLOV3_ANCHORS.index(a) for a in anchors)
+        else:
+            full, idx = anchors, tuple(range(len(anchors)))
+        self.layers.append(YoloSpec(self.i, anchors, num_classes, all_anchors=full, mask=idx))
         self.out_channels.append(self.out_channels[-1])
         return self.i - 1
 
@@ -381,6 +424,11 @@ def yolov3_spec(
     return _finish(b.net, b.layers, b.out_channels)
 
 
+def _num(v: float) -> str:
+    """An anchor side as a cfg writes it: an integer without its point."""
+    return str(int(v)) if float(v).is_integer() else repr(float(v))
+
+
 def emit_cfg(spec: GraphSpec) -> str:
     """Serialize a :class:`GraphSpec` back to darknet ``.cfg`` text."""
     out: List[str] = []
@@ -423,7 +471,11 @@ def emit_cfg(spec: GraphSpec) -> str:
             out.append("activation=linear")
         elif isinstance(l, YoloSpec):
             out.append("[yolo]")
-            if all(a in YOLOV3_ANCHORS for a in l.anchors):
+            if l.all_anchors:  # the cfg's own table and mask
+                mask = l.mask
+                anchors = ",  ".join(f"{_num(w)},{_num(h)}" for w, h in l.all_anchors)
+                num = len(l.all_anchors)
+            elif all(a in YOLOV3_ANCHORS for a in l.anchors):
                 # standard table: recover the reference cfg's mask indices
                 mask = tuple(YOLOV3_ANCHORS.index(a) for a in l.anchors)
                 anchors, num = flat_anchors, 9
@@ -438,6 +490,11 @@ def emit_cfg(spec: GraphSpec) -> str:
             out.append(f"num={num}")
             if l.scale_x_y != 1.0:
                 out.append(f"scale_x_y={l.scale_x_y!r}")
+            if l.iou_loss != "mse":
+                out.append(f"iou_loss={l.iou_loss}")
+            for key in ("iou_normalizer", "cls_normalizer", "iou_thresh"):
+                if getattr(l, key) != 1.0:
+                    out.append(f"{key}={getattr(l, key)!r}")
             out.append("jitter=.3")
             out.append("ignore_thresh=.7")
             out.append("truth_thresh=1")
@@ -449,5 +506,5 @@ def emit_cfg(spec: GraphSpec) -> str:
 __all__ = [
     "NetInfo", "ConvSpec", "MaxPoolSpec", "UpsampleSpec", "RouteSpec",
     "ShortcutSpec", "YoloSpec", "GraphSpec", "from_cfg", "yolov3_spec",
-    "emit_cfg", "YOLOV3_ANCHORS", "YOLOV3_MASKS", "ACTIVATIONS",
+    "emit_cfg", "YOLOV3_ANCHORS", "YOLOV3_MASKS", "ACTIVATIONS", "IOU_LOSSES",
 ]

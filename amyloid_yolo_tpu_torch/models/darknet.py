@@ -456,8 +456,10 @@ def activate(layer: ConvSpec, out: torch.Tensor) -> torch.Tensor:
 
 def refuse_grid_sensitive(spec: GraphSpec, path: str) -> None:
     """``ValueError`` if the graph has YOLOv4's parts, Mish convs or heads
-    with ``scale_x_y`` ≠ 1, which ``path`` (built for YOLOv3's leaky convs
-    and plain heads) would compute wrongly."""
+    with ``scale_x_y`` ≠ 1, which ``path`` would compute wrongly.  The paths
+    built for YOLOv3's leaky convs and plain heads alone call it: the int8
+    executors (``int8_early``, ``int8_full``) and the s2d stems; the float
+    ``Detector``, the train step and the ``Trainer`` take both graphs."""
     mish = [l.index for l in spec.layers
             if isinstance(l, ConvSpec) and l.activation == "mish"]
     scaled = [f"{l.index} ({l.scale_x_y})" for l in spec.layers

@@ -51,7 +51,8 @@ Several devices (the reference's ``training.py:113-205``):
   (``ValueError``, as the reference's ``training.py:188-191``).
 
 ``s2d_stem`` (``None``: on where the spec has the YOLOv3 stem with BN, as
-the reference's ``training.py:165-173`` decides; ``Trainer.s2d_stem`` is
+the reference's ``training.py:165-173`` decides, so off for YOLOv4's Mish
+stem; ``True`` on a graph without that stem raises; ``Trainer.s2d_stem`` is
 the resolved value) and ``image_layout`` (``"planar"`` by default) are the
 reference's layout options of the step (``parallel.steps``): the same
 function up to summation order.  They hold under ``spatial_shard > 1`` too,
@@ -175,9 +176,9 @@ class Trainer:
                                  f"{mesh.devices[0]}")
             device = mesh.devices[0]
         self.device = resolve_device(device)
+        # the loss and targets follow each head's spec: YOLOv3's MSE terms, or
+        # YOLOv4's CIoU term and darknet's targets (``ops/loss.py``)
         self.spec = spec or yolov3_spec(num_classes=cfg.num_classes)
-        # the YOLOv3 loss and targets; YOLOv4's CIoU loss is not ported
-        darknet.refuse_grid_sensitive(self.spec, "the Trainer")
         data = parse_data_config(cfg.data_config)
         self.train_path = data["train"]
         self.valid_path = data["valid"]
@@ -196,8 +197,10 @@ class Trainer:
         self.accum = max(1, int(cfg.gradient_accumulations or 1))
         self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         s2d = cfg.s2d_stem
-        if s2d is None:  # auto, as the reference
+        if s2d is None:  # auto, as the reference; never a Mish stem (YOLOv4's)
             s2d = darknet.s2d_train_stem_qualifies(self.spec)
+        elif s2d:  # asked for: refuse a graph without the YOLOv3 stem now
+            darknet._check_s2d_spec(self.spec)
         self.s2d_stem = bool(s2d)
         kw = dict(augment=cfg.augment, compute_dtype=self.compute_dtype,
                   s2d_stem=self.s2d_stem, image_layout=cfg.image_layout,

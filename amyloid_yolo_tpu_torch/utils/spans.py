@@ -27,6 +27,8 @@ DETECT_RESCALE = "detect/rescale"
 TRAIN_AUGMENT = "train/augment"
 TRAIN_FORWARD = "train/forward"
 TRAIN_LOSS = "train/loss"
+#: inside ``train/loss``: each head's target building (``ops/loss.py``)
+TRAIN_TARGETS = "train/targets"
 TRAIN_BACKWARD = "train/backward"
 TRAIN_OPTIMIZER = "train/optimizer"
 

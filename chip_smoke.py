@@ -1377,6 +1377,11 @@ CONV_MARKS = ("fprop", "dgrad", "wgrad", "implicit", "xmma", "cutlass", "gemm", 
               "cudnn", "winograd", "fft")
 
 
+def _train_top(name: str) -> bool:
+    """A micro-step's own range: ``train/targets`` lies inside ``train/loss``."""
+    return name.startswith("train/") and name != "train/targets"
+
+
 def _train_group(scope: str, name: str) -> str:
     conv = any(s in name.lower() for s in CONV_MARKS)
     if scope == "train/forward":
@@ -1441,7 +1446,7 @@ def profile_train_step(step, astate, batch, gen, size: int, calls: int = 2) -> d
             yield from under(c)
 
     for e in events:
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("train/"):
+        if e.device_type == torch.autograd.DeviceType.CPU and _train_top(e.name):
             for k in under(e):
                 g = groups[_train_group(e.name, k.name)]
                 g[0] += 1
@@ -1449,7 +1454,7 @@ def profile_train_step(step, astate, batch, gen, size: int, calls: int = 2) -> d
                 left[k.name] -= k.duration
     counts = collections.Counter(e.name for e in device)
     for e in events:
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("train/"):
+        if e.device_type == torch.autograd.DeviceType.CPU and _train_top(e.name):
             for k in under(e):
                 counts[k.name] -= 1
     for name, us in left.items():

@@ -19,12 +19,23 @@ CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
                       "amyloid_yolo_tpu", "config")
 
 
+#: the port's ``YoloSpec`` fields for YOLOv4 that the JAX package lacks, at
+#: the values that give YOLOv3's decode, loss and targets
+YOLOV3_VALUES = {"scale_x_y": 1.0, "iou_loss": "mse", "iou_normalizer": 1.0,
+                 "cls_normalizer": 1.0, "iou_thresh": 1.0}
+
+
 def _layer_fields(layer) -> dict:
-    """A layer's fields; the port's ``YoloSpec.scale_x_y`` (YOLOv4's, which
-    the JAX package lacks) left out where it is 1, YOLOv3's decode."""
+    """A layer's fields; the port's YOLOv4 fields left out where they hold
+    YOLOv3's values, and its anchor table and mask where they give the
+    head's anchors (the JAX package keeps those alone)."""
     d = dataclasses.asdict(layer)
-    if isinstance(layer, port_gs.YoloSpec) and d["scale_x_y"] == 1.0:
-        del d["scale_x_y"]
+    if isinstance(layer, port_gs.YoloSpec):
+        for k, v in YOLOV3_VALUES.items():
+            if d[k] == v:
+                del d[k]
+        table, mask = d.pop("all_anchors"), d.pop("mask")
+        assert not table or [tuple(table[m]) for m in mask] == [tuple(a) for a in d["anchors"]]
     return d
 
 

@@ -1,6 +1,7 @@
 """The port's spans (``utils/spans.py``): ``record_function`` only while a
 profiler records, the five ``detect/*`` spans of a ``Detector`` call and
-the five ``train/*`` spans of a micro-step, on the CPU."""
+the five ``train/*`` spans of a micro-step (with ``train/targets`` a head
+inside ``train/loss``), on the CPU."""
 
 import numpy as np
 import pytest
@@ -100,6 +101,12 @@ def test_micro_step_opens_the_five_train_spans(sharded):
         step = shard_spatial_train_step(step, make_spatial_mesh(2, devices=["cpu", "cpu"]))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(state, *_batch(), torch.Generator().manual_seed(1), 64)
-    rows = _spans_of(prof, "train/")
+    every = _spans_of(prof, "train/")
+    rows = [r for r in every if r[0] != spans.TRAIN_TARGETS]
     assert [r[0] for r in rows] == TRAIN
     assert all(a[2] <= b[1] for a, b in zip(rows, rows[1:]))
+    # each head's target building, inside the loss
+    loss = rows[TRAIN.index(spans.TRAIN_LOSS)]
+    inner = [r for r in every if r[0] == spans.TRAIN_TARGETS]
+    assert len(inner) == len(spec.yolo_indices)
+    assert all(loss[1] <= r[1] and r[2] <= loss[2] for r in inner)

@@ -12,6 +12,7 @@ the JAX conftest:
 
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -294,8 +295,15 @@ def test_the_s2d_stem_refuses_yolov4():
 
 
 @pytest.mark.parametrize("part", ["mish", "scale_x_y"])
-def test_the_trainer_refuses_yolov4(part):
+def test_the_trainer_refuses_yolov4(part, tmp_path, monkeypatch):
+    """The Trainer takes YOLOv4's parts on the plain stem (the automatic
+    choice), and refuses them on an s2d stem asked for."""
     from amyloid_yolo_tpu_torch.training import Trainer, TrainConfig
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    (tmp_path / "train.txt").write_text("")
+    data = tmp_path / "custom.data"
+    data.write_text(f"classes=2\ntrain={tmp_path / 'train.txt'}\n"
+                    f"valid={tmp_path / 'train.txt'}\nnames={tmp_path / 'names'}\n")
     spec = yolov3_spec(num_classes=2)
     if part == "mish":
         layers = tuple(dataclasses.replace(l, activation="mish") if l.index == 0 else l
@@ -303,9 +311,11 @@ def test_the_trainer_refuses_yolov4(part):
     else:
         layers = tuple(dataclasses.replace(l, scale_x_y=1.1) if isinstance(l, YoloSpec) else l
                        for l in spec.layers)
-    with pytest.raises(ValueError, match="the Trainer takes YOLOv3's"):
-        Trainer(TrainConfig(data_config="unused.data"), spec=dataclasses.replace(
-            spec, layers=layers), device="cpu")
+    spec = dataclasses.replace(spec, layers=layers)
+    cfg = dict(data_config=str(data), logdir=str(tmp_path / "logs"))
+    with pytest.raises(ValueError, match="the s2d stem takes YOLOv3's"):
+        Trainer(TrainConfig(s2d_stem=True, **cfg), spec=spec, device="cpu")
+    assert Trainer(TrainConfig(**cfg), spec=spec, device="cpu").s2d_stem is False
 
 
 def test_the_f32_detector_runs_yolov4_on_the_cpu():
